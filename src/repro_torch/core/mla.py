@@ -1,0 +1,300 @@
+"""Multi-Head Latent Attention over the paged latent pool, with the paper's
+execution schemes selectable per call (port of the paged serving path of
+``repro.core.mla``).
+
+Decode score chain (paper notation, per head):
+
+    z = q_l . W_up^Q . W_up^{K,T} . C^T          (+ decoupled RoPE path)
+
+  'naive'  up-project the gathered latent cache to K/V and run MHA (the
+           paper's strawman; a numerics oracle);
+  'seq'    q_l -> (W_up^Q) -> q -> (W_up^{K,T}) -> latent space;
+  'rc'     recompute W_absorb = W_up^Q @ W_up^{K,T} every step;
+  'ru'     stream the precomputed W_absorb (``attach_absorbed_tree``).
+
+All schemes compute the same function with the same weights.  The
+attention itself runs either on the gathered (B, S) block-table view
+(``impl='gather'``, the reference) or in the paged CUDA kernels, which
+walk the block table in place (``impl='kernel'``; their plain blockwise
+versions for CPU tensors).  Products of native-dtype operands that the
+JAX package accumulates in f32 (``preferred_element_type``) are taken in
+f32 here too, on an f32 copy of the operands.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Tuple
+
+import torch
+
+from ..kernels import ops as kops
+from ..kernels.ref import NEG_INF
+from ..nn import layers as nl
+from ..nn.module import P
+from . import cache as cachelib
+
+SCHEMES = ("naive", "seq", "rc", "ru")
+IMPLS = ("gather", "kernel")
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    d_model: int
+    n_heads: int
+    q_lora_rank: int
+    kv_lora_rank: int
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+    rope_base: float = 10000.0
+
+    @property
+    def qk_dim(self) -> int:
+        return self.qk_nope_dim + self.qk_rope_dim
+
+    @property
+    def cache_dims(self) -> Tuple[int, int]:
+        return self.kv_lora_rank, self.qk_rope_dim
+
+
+def mla_defs(cfg: MLAConfig) -> Dict[str, Any]:
+    H, dn, dr, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    return {
+        "w_dq": P((cfg.d_model, cfg.q_lora_rank), ("embed", "q_lora")),
+        "q_norm": nl.rmsnorm_defs(cfg.q_lora_rank, "q_lora"),
+        "w_uq": P((cfg.q_lora_rank, H, dn + dr), ("q_lora", "heads", None)),
+        "w_dkv": P((cfg.d_model, cfg.kv_lora_rank + dr), ("embed", None)),
+        "kv_norm": nl.rmsnorm_defs(cfg.kv_lora_rank, "kv_lora"),
+        "w_uk": P((cfg.kv_lora_rank, H, dn), ("kv_lora", "heads", None)),
+        "w_uv": P((cfg.kv_lora_rank, H, dv), ("kv_lora", "heads", None)),
+        "w_o": P((H, dv, cfg.d_model), ("heads", None, "embed")),
+    }
+
+
+def absorb_qk(params: Dict[str, Any], cfg: MLAConfig):
+    """W_absorb = W_up^Q(nope) @ W_up^{K,T} : (H, D_ql, D_kvl), in f32."""
+    w_uq_nope = params["w_uq"][:, :, : cfg.qk_nope_dim]
+    return torch.einsum("qhn,khn->hqk", w_uq_nope.float(),
+                        params["w_uk"].float())
+
+
+def attach_absorbed_tree(params, cfg: MLAConfig):
+    """Return a copy of a model param tree with the precomputed W_absorb
+    (absorbed in f32, then cast to the weights' dtype) attached on every
+    MLA sublayer.  'ru' streams it; the other schemes ignore it."""
+    if isinstance(params, dict):
+        if "w_uq" in params and "w_uk" in params:
+            absorb = absorb_qk(params, cfg).to(params["w_uq"].dtype)
+            return {**params, "w_absorb": absorb}
+        return {k: attach_absorbed_tree(v, cfg) for k, v in params.items()}
+    if isinstance(params, list):
+        return [attach_absorbed_tree(v, cfg) for v in params]
+    return params
+
+
+# ------------------------------------------------------------- projections -
+
+
+def _q_proj(params, cfg: MLAConfig, x, positions):
+    """x: (B, L, D) -> q_l (B,L,Q), q_nope (B,L,H,dn), q_rope (B,L,H,dr)."""
+    q_l = nl.rmsnorm(params["q_norm"], x @ params["w_dq"].to(x.dtype))
+    q = torch.einsum("blq,qhd->blhd", q_l, params["w_uq"].to(x.dtype))
+    q_nope, q_rope = q[..., : cfg.qk_nope_dim], q[..., cfg.qk_nope_dim:]
+    q_rope = nl.apply_rope(q_rope, positions, cfg.rope_base)
+    return q_l, q_nope, q_rope
+
+
+def _kv_latent(params, cfg: MLAConfig, x, positions):
+    """x: (B, L, D) -> ckv (B,L,Dkvl) normalized, krope (B,L,dr) rotated."""
+    c = x @ params["w_dkv"].to(x.dtype)
+    ckv = nl.rmsnorm(params["kv_norm"], c[..., : cfg.kv_lora_rank])
+    krope = nl.apply_rope(c[..., cfg.kv_lora_rank:], positions, cfg.rope_base)
+    return ckv, krope
+
+
+def _absorbed(params, cfg: MLAConfig, dtype):
+    """'rc': W_absorb recomputed in f32 from the factors, cast to dtype."""
+    return absorb_qk(params, cfg).to(dtype)
+
+
+def _q_latent(params, cfg: MLAConfig, q_l, q_nope, scheme: str):
+    """Map the nope-query into the KV-latent space per execution scheme.
+    q_l (B, Q), q_nope (B, H, dn) -> q_eff (B, H, D_kvl)."""
+    if scheme == "seq":
+        return torch.einsum("bhn,khn->bhk", q_nope,
+                            params["w_uk"].to(q_nope.dtype))
+    if scheme == "rc":
+        return torch.einsum("bq,hqk->bhk", q_l,
+                            _absorbed(params, cfg, q_l.dtype))
+    if scheme == "ru":
+        return torch.einsum("bq,hqk->bhk", q_l,
+                            params["w_absorb"].to(q_l.dtype))
+    raise ValueError(f"unknown scheme {scheme}")
+
+
+def _q_latent_chunk(params, cfg: MLAConfig, q_l, q_nope, scheme: str):
+    """Chunk-shaped sibling of :func:`_q_latent`: q_l (B, C, Q), q_nope
+    (B, C, H, dn) -> q_eff (B, C, H, D_kvl)."""
+    if scheme == "seq":
+        return torch.einsum("bchn,khn->bchk", q_nope,
+                            params["w_uk"].to(q_nope.dtype))
+    if scheme == "rc":
+        return torch.einsum("bcq,hqk->bchk", q_l,
+                            _absorbed(params, cfg, q_l.dtype))
+    if scheme == "ru":
+        return torch.einsum("bcq,hqk->bchk", q_l,
+                            params["w_absorb"].to(q_l.dtype))
+    raise ValueError(f"unknown scheme {scheme}")
+
+
+def _f32_product(eq: str, a, b):
+    """Native-dtype operands, f32 accumulation and result (the JAX
+    package's ``preferred_element_type=f32``)."""
+    return torch.einsum(eq, a.float(), b.float())
+
+
+def _check(scheme: str, impl: str) -> None:
+    if scheme not in SCHEMES:
+        raise ValueError(f"unknown scheme {scheme!r}; expected {SCHEMES}")
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; expected {IMPLS}")
+
+
+# ----------------------------------------------------------------- prefill -
+
+
+def mla_prefill_chunk_paged(params, cfg: MLAConfig, x, pool: Dict[str, Any],
+                            block_table, lengths, n_valid, *,
+                            scheme: str = "seq", impl: str = "gather"):
+    """One CHUNK of batched prefill, directly into the paged pool.
+
+    x: (B, C, D) — row b carries the next ``n_valid[b]`` prompt tokens of
+    its request, starting at absolute position ``lengths[b]``.  Rows with
+    ``n_valid[b] == 0`` are idle padding (garbage out; their latents go to
+    the null block).  The chunk's latents are written into the pool first
+    (in place), then the queries attend the resident prefix through the
+    block table.  Returns (out (B, C, D), pool).
+
+    ``impl``: 'gather' materializes the contiguous (B, S) block-table view
+    (the reference); 'kernel' runs the paged prefill kernel, which walks
+    the block table in place.  'naive' has no kernel path and always takes
+    the gathered view.
+    """
+    _check(scheme, impl)
+    C = x.shape[1]
+    pos = lengths[:, None] + torch.arange(C, dtype=lengths.dtype,
+                                          device=x.device)[None, :]
+    q_l, q_nope, q_rope = _q_proj(params, cfg, x, pos)
+    ckv_new, krope_new = _kv_latent(params, cfg, x, pos)
+    pool = cachelib.update_latent_paged_chunk(pool, block_table, lengths,
+                                              n_valid, ckv_new, krope_new)
+    scale = cfg.qk_dim ** -0.5
+    w_uv = params["w_uv"].to(x.dtype)
+    w_o = params["w_o"].to(x.dtype)
+
+    if impl == "kernel" and scheme != "naive":
+        q_eff = _q_latent_chunk(params, cfg, q_l, q_nope, scheme)
+        q_full = torch.cat([q_eff, q_rope], dim=-1).contiguous()
+        o_lat = kops.mla_prefill_paged_attention(
+            q_full, pool["ckv"], pool["krope"], block_table, lengths,
+            n_valid, impl="kernel", softmax_scale=scale)
+        o = torch.einsum("bchk,khv->bchv", o_lat.to(x.dtype), w_uv)
+        return torch.einsum("bchv,hvd->bcd", o, w_o), pool
+
+    ckv_c, krope_c = cachelib.gather_latent_paged(pool, block_table)
+    S = ckv_c.shape[1]
+    s_pos = torch.arange(S, dtype=lengths.dtype, device=x.device)
+    valid = (s_pos[None, None, :] <= pos[:, :, None]) \
+        & (s_pos[None, None, :] < (lengths + n_valid)[:, None, None])
+    if scheme == "naive":
+        k_nope = torch.einsum("bsk,khn->bshn", ckv_c,
+                              params["w_uk"].to(ckv_c.dtype))
+        v_full = torch.einsum("bsk,khv->bshv", ckv_c,
+                              params["w_uv"].to(ckv_c.dtype))
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        k = torch.cat([k_nope, krope_c[:, :, None, :].to(k_nope.dtype)
+                       .expand(*k_nope.shape[:3], cfg.qk_rope_dim)], dim=-1)
+        scores = _f32_product("bchd,bshd->bchs", q.to(k.dtype), k) * scale
+        scores = torch.where(valid[:, :, None, :], scores, NEG_INF)
+        p = torch.softmax(scores, dim=-1)
+        o = _f32_product("bchs,bshv->bchv", p.to(v_full.dtype),
+                         v_full).to(x.dtype)
+    else:
+        q_eff = _q_latent_chunk(params, cfg, q_l, q_nope, scheme)
+        scores = (_f32_product("bchk,bsk->bchs", q_eff.to(ckv_c.dtype), ckv_c)
+                  + _f32_product("bchr,bsr->bchs", q_rope.to(krope_c.dtype),
+                                 krope_c)) * scale
+        scores = torch.where(valid[:, :, None, :], scores, NEG_INF)
+        p = torch.softmax(scores, dim=-1)
+        o_lat = _f32_product("bchs,bsk->bchk", p.to(ckv_c.dtype),
+                             ckv_c).to(x.dtype)
+        o = torch.einsum("bchk,khv->bchv", o_lat, w_uv)
+    return torch.einsum("bchv,hvd->bcd", o, w_o), pool
+
+
+# ------------------------------------------------------------------ decode -
+
+
+def mla_decode_paged(params, cfg: MLAConfig, x_t, pool: Dict[str, Any],
+                     block_table, lengths, *, scheme: str = "seq",
+                     impl: str = "gather"):
+    """One continuous-batching decode step over the paged latent pool.
+
+    x_t: (B, D) — one token per batch slot; pool: {ckv (N,bs,Dl), krope
+    (N,bs,Dr)}, block 0 = null; block_table (B, nb) int32; lengths (B,)
+    int32 — tokens already cached per slot (ragged).  The new token is
+    written at position lengths[b] (in place), then each request attends
+    its own 0..lengths[b] prefix.  Inactive slots (length 0, null table)
+    produce garbage the runtime discards.  Returns (out (B, D), pool).
+
+    ``impl``: 'gather' (the reference view) or 'kernel' (the paged decode
+    kernel); 'naive' always takes the gathered view.
+    """
+    _check(scheme, impl)
+    pos = lengths[:, None]
+    x = x_t[:, None, :]
+    q_l, q_nope, q_rope = _q_proj(params, cfg, x, pos)
+    q_l, q_nope, q_rope = q_l[:, 0], q_nope[:, 0], q_rope[:, 0]
+    ckv_new, krope_new = _kv_latent(params, cfg, x, pos)
+    pool = cachelib.update_latent_paged(pool, block_table, lengths,
+                                        ckv_new[:, 0], krope_new[:, 0])
+    scale = cfg.qk_dim ** -0.5
+    w_uv = params["w_uv"].to(x_t.dtype)
+    w_o = params["w_o"].to(x_t.dtype)
+
+    if impl == "kernel" and scheme != "naive":
+        q_eff = _q_latent(params, cfg, q_l, q_nope, scheme)
+        q_full = torch.cat([q_eff, q_rope], dim=-1).contiguous()
+        o_lat = kops.mla_decode_paged_attention(
+            q_full, pool["ckv"], pool["krope"], block_table, lengths,
+            impl="kernel", softmax_scale=scale)
+        o = torch.einsum("bhk,khv->bhv", o_lat, w_uv)
+        return torch.einsum("bhv,hvd->bd", o, w_o), pool
+
+    ckv_c, krope_c = cachelib.gather_latent_paged(pool, block_table)
+    S = ckv_c.shape[1]
+    valid = cachelib.paged_valid_mask(S, lengths)[:, None]   # (B, 1, S)
+    if scheme == "naive":
+        k_nope = torch.einsum("bsk,khn->bshn", ckv_c,
+                              params["w_uk"].to(ckv_c.dtype))
+        v_full = torch.einsum("bsk,khv->bshv", ckv_c,
+                              params["w_uv"].to(ckv_c.dtype))
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        k = torch.cat([k_nope, krope_c[:, :, None, :].to(k_nope.dtype)
+                       .expand(*k_nope.shape[:3], cfg.qk_rope_dim)], dim=-1)
+        scores = _f32_product("bhd,bshd->bhs", q.to(k.dtype), k) * scale
+        scores = torch.where(valid, scores, NEG_INF)
+        p = torch.softmax(scores, dim=-1)
+        o = _f32_product("bhs,bshv->bhv", p.to(v_full.dtype),
+                         v_full).to(x_t.dtype)
+    else:
+        q_eff = _q_latent(params, cfg, q_l, q_nope, scheme)
+        scores = (_f32_product("bhk,bsk->bhs", q_eff.to(ckv_c.dtype), ckv_c)
+                  + _f32_product("bhr,bsr->bhs", q_rope.to(krope_c.dtype),
+                                 krope_c)) * scale
+        scores = torch.where(valid, scores, NEG_INF)
+        p = torch.softmax(scores, dim=-1)
+        o_lat = _f32_product("bhs,bsk->bhk", p.to(ckv_c.dtype),
+                             ckv_c).to(x_t.dtype)
+        o = torch.einsum("bhk,khv->bhv", o_lat, w_uv)
+    return torch.einsum("bhv,hvd->bd", o, w_o), pool

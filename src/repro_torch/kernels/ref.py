@@ -1,0 +1,175 @@
+"""Plain PyTorch versions of the two paged MLA attention kernels (port of
+``repro.kernels.ref``, plus the online-softmax tile update of
+``repro.kernels.mla_decode``).
+
+Each function takes the kernel's inputs and returns its output:
+
+  * ``rescale=None`` — the exact oracle: gather each request's pages into a
+    contiguous view and reduce with one masked softmax (the JAX package's
+    ``mla_decode_paged_ref`` / ``mla_prefill_paged_ref``);
+  * ``rescale='exp_add' | 'mul'`` — the kernel's own arithmetic: walk the
+    block table one pool block at a time with the online-softmax update
+    :func:`softmax_tile_update` (AMLA exponent addition or the classic
+    multiply), so a CPU run follows the same rounding path as the kernel.
+
+The CUDA wrappers (``mla_decode``, ``mla_prefill``) run these for CPU
+tensors; ``chip_smoke.py`` holds the kernels against them on the card.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+NEG_INF = -2.0 ** 30
+INV_LN2 = 1.4426950408889634        # log2(e): folds exp into exp2
+RESCALES = ("exp_add", "mul")
+
+
+def exp_add_rescale(x, d_i):
+    """x * 2**d_i for f32 ``x`` and int32 ``d_i <= 0`` by adding d_i into
+    the IEEE-754 exponent field of an int32 view (AMLA).  Zero inputs and
+    exponent underflow (biased exponent reaching 0) flush to 0.0."""
+    bits = x.view(torch.int32)
+    exp_field = (bits >> 23) & 0xFF
+    # d_i * 2**23 instead of d_i << 23: d_i is negative, and the product is
+    # exact (|d_i| <= 254 keeps it inside int32)
+    shifted = (bits + d_i * (1 << 23)).view(torch.float32)
+    ok = (x != 0.0) & (exp_field + d_i > 0)
+    return torch.where(ok, shifted, torch.zeros_like(x))
+
+
+def softmax_tile_update(s, mask, ckv, acc, m, l, *, rescale: str):
+    """One online-softmax + PV tile update.  ``s`` (..., R, bs) is the
+    scaled f32 score tile with masked lanes already at NEG_INF, ``ckv``
+    (..., bs, Dl) the f32 value tile, ``acc`` (..., R, Dl) and ``m``, ``l``
+    (..., R, 1) the running state.  Returns the new (acc, m, l).
+
+    rescale='mul'     — classic FlashAttention: real-valued running max,
+      state rescaled by corr = exp(m_prev - m_new).
+    rescale='exp_add' — AMLA: base-2 softmax with the running max rounded
+      up to an integer, so the correction 2**d (d = m_prev - m_new, an
+      integer <= 0) is an addition into the exponent bits of acc and l.
+    """
+    if rescale == "mul":
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.where(mask, torch.exp(s - m_new), 0.0)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + p @ ckv
+    elif rescale == "exp_add":
+        s2 = s * INV_LN2
+        m_new = torch.ceil(torch.maximum(m, s2.amax(dim=-1, keepdim=True)))
+        p = torch.where(mask, torch.exp2(s2 - m_new), 0.0)
+        # d <= 0 by construction; below -254 every f32 flushes to zero
+        # anyway, and the clip keeps d * 2**23 inside int32.
+        d_i = torch.clamp(m - m_new, -254.0, 0.0).to(torch.int32)
+        l = exp_add_rescale(l, d_i) + p.sum(dim=-1, keepdim=True)
+        acc = exp_add_rescale(acc, d_i) + p @ ckv
+    else:
+        raise ValueError(f"unknown rescale {rescale!r}; expected {RESCALES}")
+    return acc, m_new, l
+
+
+def _gather(pages, bt):
+    B, nb = bt.shape
+    return pages[bt.long()].reshape(B, nb * pages.shape[1], pages.shape[-1])
+
+
+def _walk(q, ckv_pages, krope_pages, bt, limit, row_ok, scale, rescale):
+    """Block-by-block online softmax over the pool, as the kernels do it.
+    q (B, R, Dl+Dr); row r of request b attends pool positions
+    <= limit[b, r] when row_ok[b, r].  Returns f32 (B, R, Dl)."""
+    B, R, _ = q.shape
+    bs, Dl = ckv_pages.shape[1], ckv_pages.shape[-1]
+    q = q.float()
+    acc = torch.zeros((B, R, Dl), dtype=torch.float32, device=q.device)
+    m = torch.full((B, R, 1), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, R, 1), dtype=torch.float32, device=q.device)
+    slots = torch.arange(bs, device=q.device)
+    for j in range(bt.shape[1]):
+        blk = bt[:, j].long()
+        ckv = ckv_pages[blk].float()                      # (B, bs, Dl)
+        krope = krope_pages[blk].float()                  # (B, bs, Dr)
+        s = (q[..., :Dl] @ ckv.transpose(1, 2)
+             + q[..., Dl:] @ krope.transpose(1, 2)) * scale
+        k_pos = j * bs + slots
+        mask = (k_pos[None, None, :] <= limit[..., None]) & row_ok[..., None]
+        s = torch.where(mask, s, NEG_INF)
+        acc, m, l = softmax_tile_update(s, mask, ckv, acc, m, l,
+                                        rescale=rescale)
+    return acc / torch.where(l == 0.0, 1.0, l)
+
+
+def mla_decode_paged_ref(q_full, ckv_pages, krope_pages, block_tables,
+                         indices, *, softmax_scale: Optional[float] = None,
+                         rescale: Optional[str] = None):
+    """Paged absorbed-MLA decode.
+
+    q_full      : (B, H, Dl+Dr)
+    ckv_pages   : (N, bs, Dl); krope_pages: (N, bs, Dr) — global block pool
+    block_tables: (B, nb) int32 — request-local block j -> pool block
+    indices     : (B,) int32 — newest valid position per request (attend to
+                  pos <= indices[b]; a negative index yields a zero row).
+    Returns (B, H, Dl) in q_full's dtype.
+    """
+    B, H, D = q_full.shape
+    nb, bs = block_tables.shape[1], ckv_pages.shape[1]
+    scale = softmax_scale if softmax_scale is not None else D ** -0.5
+    if rescale is not None:
+        limit = indices[:, None].expand(B, H)
+        ok = torch.ones((B, H), dtype=torch.bool, device=q_full.device)
+        return _walk(q_full, ckv_pages, krope_pages, block_tables, limit, ok,
+                     scale, rescale).to(q_full.dtype)
+    ckv = _gather(ckv_pages, block_tables)
+    krope = _gather(krope_pages, block_tables)
+    cache = torch.cat([ckv, krope], dim=-1).float()
+    s = torch.einsum("bhd,bsd->bhs", q_full.float(), cache) * scale
+    valid = torch.arange(nb * bs, device=q_full.device)[None, :] \
+        <= indices[:, None]
+    s = torch.where(valid[:, None, :], s, NEG_INF)
+    p = torch.where(valid[:, None, :], torch.softmax(s, dim=-1), 0.0)
+    o = torch.einsum("bhs,bsk->bhk", p, ckv.float())
+    return o.to(q_full.dtype)
+
+
+def mla_prefill_paged_ref(q_full, ckv_pages, krope_pages, block_tables,
+                          lengths, n_valid, *,
+                          softmax_scale: Optional[float] = None,
+                          rescale: Optional[str] = None):
+    """Paged chunked-prefill attention (multi-query sibling of
+    :func:`mla_decode_paged_ref`).
+
+    q_full      : (B, C, H, Dl+Dr) — chunk queries in the joint latent space
+    ckv_pages   : (N, bs, Dl); krope_pages: (N, bs, Dr) — global pool (the
+                  chunk's own latents are already written in)
+    block_tables: (B, nb) int32; lengths: (B,) int32 — absolute position of
+                  each row's first chunk token; n_valid: (B,) int32 — real
+                  tokens per row (rows past it, and idle rows with n_valid
+                  0, yield EXACT ZEROS).
+    Chunk token c attends pool positions <= lengths[b] + c.
+    Returns (B, C, H, Dl) in q_full's dtype.
+    """
+    B, C, H, D = q_full.shape
+    nb, bs = block_tables.shape[1], ckv_pages.shape[1]
+    Dl = ckv_pages.shape[-1]
+    scale = softmax_scale if softmax_scale is not None else D ** -0.5
+    c = torch.arange(C, dtype=lengths.dtype, device=q_full.device)
+    q_pos = lengths[:, None] + c[None, :]                           # (B, C)
+    row_ok = c[None, :] < n_valid[:, None]                          # (B, C)
+    if rescale is not None:
+        limit = q_pos[:, :, None].expand(B, C, H).reshape(B, C * H)
+        ok = row_ok[:, :, None].expand(B, C, H).reshape(B, C * H)
+        o = _walk(q_full.reshape(B, C * H, D), ckv_pages, krope_pages,
+                  block_tables, limit, ok, scale, rescale)
+        return o.reshape(B, C, H, Dl).to(q_full.dtype)
+    ckv = _gather(ckv_pages, block_tables)
+    krope = _gather(krope_pages, block_tables)
+    cache = torch.cat([ckv, krope], dim=-1).float()
+    s = torch.einsum("bchd,bsd->bchs", q_full.float(), cache) * scale
+    k_pos = torch.arange(nb * bs, device=q_full.device)
+    valid = (k_pos[None, None, :] <= q_pos[:, :, None]) & row_ok[:, :, None]
+    s = torch.where(valid[:, :, None, :], s, NEG_INF)
+    p = torch.where(valid[:, :, None, :], torch.softmax(s, dim=-1), 0.0)
+    o = torch.einsum("bchs,bsk->bchk", p, ckv.float())
+    return o.to(q_full.dtype)

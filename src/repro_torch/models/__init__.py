@@ -1,0 +1,25 @@
+"""Model API of the port (paged MLA serving of decoder-only models):
+
+    model_defs(cfg)                                   param definitions
+    prefill_chunk_paged(params, cfg, tokens, pool, block_tables, lengths,
+                        n_valid, ...)                 -> logits, pool
+    decode_step(params, cfg, token, pool, block_tables, lengths, ...)
+                                                      -> logits, pool
+    init_paged_cache(cfg, num_blocks, block_size, dtype, device)
+"""
+from __future__ import annotations
+
+from . import lm
+from .common import ModelConfig, Sub
+from .lm import decode_step, init_paged_cache, prefill_chunk_paged
+
+
+def model_defs(cfg: ModelConfig):
+    if cfg.family == "encdec":
+        raise NotImplementedError("the port serves decoder-only MLA models; "
+                                  "encoder-decoder is on ROADMAP.md")
+    return lm.lm_defs(cfg)
+
+
+__all__ = ["ModelConfig", "Sub", "decode_step", "init_paged_cache", "lm",
+           "model_defs", "prefill_chunk_paged"]

@@ -1,0 +1,106 @@
+"""Sublayer bodies: (pre-norm mixer) + (pre-norm FFN), dispatched on the
+``Sub`` descriptor (port of the paged MLA serving modes of
+``repro.models.blocks``).
+
+    sub_defs(cfg, desc, d_ff)                -> param defs
+    sub_apply(params, cfg, desc, x, ctx)     -> (x, pool, aux)
+    sub_paged_cache(cfg, desc, ..., device)  -> this sublayer's paged pool
+
+Only MLA attention with a dense or MoE FFN, in the two paged serving
+modes ('decode' and 'prefill_chunk'), is ported; other mixers and modes
+raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import torch
+
+from ..core import cache as cachelib
+from ..core import mla as mlalib
+from ..nn import layers as nl
+from . import moe as moelib
+from .common import ModelConfig, Sub
+
+MODES = ("decode", "prefill_chunk")
+# engine/model ``impl`` -> the attention path of core.mla
+_MLA_IMPL = {"ref": "gather", "kernel": "kernel"}
+
+
+@dataclasses.dataclass
+class Ctx:
+    mode: str                       # decode | prefill_chunk
+    impl: str = "ref"               # attention impl: 'ref' | 'kernel'
+    scheme: str = "seq"             # MLA execution scheme
+    cache: Optional[Dict] = None    # this sublayer's paged pool
+    block_tables: Any = None        # (B, max_blocks) int32
+    lengths: Any = None             # (B,) int32 — ragged per request
+    n_valid: Any = None             # (B,) int32 — chunked prefill only
+
+
+def _supported(cfg: ModelConfig, desc: Sub) -> None:
+    if desc.mixer != "attn" or cfg.attn_kind != "mla":
+        raise NotImplementedError(
+            f"the port serves MLA attention sublayers only, got "
+            f"mixer={desc.mixer!r} attn_kind={cfg.attn_kind!r} "
+            f"(other families: ROADMAP.md)")
+
+
+def sub_defs(cfg: ModelConfig, desc: Sub, d_ff: Optional[int] = None) -> Dict:
+    _supported(cfg, desc)
+    d: Dict = {"ln1": nl.rmsnorm_defs(cfg.d_model),
+               "attn": mlalib.mla_defs(cfg.mla_config())}
+    if desc.ffn != "none":
+        d["ln2"] = nl.rmsnorm_defs(cfg.d_model)
+        if desc.ffn == "moe":
+            d["ffn"] = moelib.moe_defs(cfg)
+        else:
+            d["ffn"] = nl.mlp_defs(cfg.d_model, d_ff or cfg.d_ff,
+                                   kind=cfg.mlp_kind)
+    return d
+
+
+def sub_paged_cache(cfg: ModelConfig, desc: Sub, num_blocks: int,
+                    block_size: int, dtype=torch.bfloat16,
+                    device="cuda") -> Dict:
+    """Paged decode state of one sublayer: its latent block pool."""
+    _supported(cfg, desc)
+    return cachelib.paged_latent_cache(num_blocks, block_size,
+                                       cfg.kv_lora_rank, cfg.qk_rope_dim,
+                                       dtype, device)
+
+
+AUX_KEYS = ("balance", "z_loss", "dropped_frac")
+
+
+def sub_apply(params, cfg: ModelConfig, desc: Sub, x, ctx: Ctx):
+    """x: (B, D) for decode, (B, C, D) for prefill_chunk.
+    Returns (x, pool, aux) — aux holds f32 scalars (zeros without a
+    router)."""
+    _supported(cfg, desc)
+    if ctx.mode not in MODES:
+        raise NotImplementedError(
+            f"mode {ctx.mode!r}: the port runs {MODES} only (ROADMAP.md)")
+    impl = _MLA_IMPL[ctx.impl]
+    h = nl.rmsnorm(params["ln1"], x, cfg.norm_eps)
+    if ctx.mode == "decode":
+        a, pool = mlalib.mla_decode_paged(
+            params["attn"], cfg.mla_config(), h, ctx.cache,
+            ctx.block_tables, ctx.lengths, scheme=ctx.scheme, impl=impl)
+    else:
+        a, pool = mlalib.mla_prefill_chunk_paged(
+            params["attn"], cfg.mla_config(), h, ctx.cache,
+            ctx.block_tables, ctx.lengths, ctx.n_valid, scheme=ctx.scheme,
+            impl=impl)
+    x = x + a
+
+    aux = {k: x.new_zeros((), dtype=torch.float32) for k in AUX_KEYS}
+    if desc.ffn != "none":
+        h = nl.rmsnorm(params["ln2"], x, cfg.norm_eps)
+        if desc.ffn == "moe":
+            f, aux = moelib.moe_apply(params["ffn"], cfg, h)
+        else:
+            f = nl.mlp(params["ffn"], h, kind=cfg.mlp_kind)
+        x = x + f
+    return x, pool, aux

@@ -1,0 +1,140 @@
+"""Decoder-only LM for paged MLA serving (port of ``repro.models.lm``).
+
+Layer stack = prefix + periods + suffix of ``ModelConfig.layer_plan``.
+The JAX package scans each period over stacked weights; the port keeps one
+parameter dict and one pool per layer (``params["period"][p]["s{i}"]``)
+and runs the stack as a Python loop.
+
+    lm_defs(cfg)                                              param defs
+    prefill_chunk_paged(params, cfg, tokens, pool, ...) -> logits, pool
+    decode_step(params, cfg, token, pool, ...)          -> logits, pool
+    init_paged_cache(cfg, num_blocks, block_size, ...)        pool tree
+
+Pools are updated in place (``core.cache``); the returned pool tree is the
+one passed in.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Iterator, Tuple
+
+import torch
+
+from ..nn import layers as nl
+from ..nn import module as nnm
+from .blocks import AUX_KEYS, Ctx, sub_apply, sub_defs, sub_paged_cache
+from .common import ModelConfig, Sub
+
+
+def _stacked_fan_in(p: nnm.P, n: int) -> nnm.P:
+    """The JAX package draws a period's leaves stacked (n, *shape), so the
+    stacking axis counts in their fan-in; keep that distribution."""
+    if p.init != "fan_in" or p.scale is not None:
+        return p
+    return dataclasses.replace(
+        p, scale=(n * max(1, math.prod(p.shape[:-1]))) ** -0.5)
+
+
+def lm_defs(cfg: ModelConfig) -> Dict:
+    prefix, period, n_periods, suffix = cfg.layer_plan()
+    period_defs = [
+        nnm.map_defs(lambda _, p: _stacked_fan_in(p, n_periods),
+                     {f"s{i}": sub_defs(cfg, desc)
+                      for i, desc in enumerate(period)})
+        for _ in range(n_periods)]
+    return {
+        "embed": nl.embed_defs(cfg.vocab, cfg.d_model),
+        "ln_f": nl.rmsnorm_defs(cfg.d_model),
+        "prefix": {f"l{i}": sub_defs(cfg, desc,
+                                     d_ff=cfg.first_dense_d_ff or None)
+                   for i, desc in enumerate(prefix)},
+        "period": period_defs,
+        "suffix": {f"l{i}": sub_defs(cfg, desc)
+                   for i, desc in enumerate(suffix)},
+    }
+
+
+def param_count(cfg: ModelConfig) -> int:
+    return nnm.count_params(lm_defs(cfg))
+
+
+def layers(cfg: ModelConfig, tree) -> Iterator[Tuple[Sub, Dict]]:
+    """(descriptor, per-layer node of ``tree``) in stack order, for any
+    tree laid out like :func:`lm_defs` (params, defs or pools)."""
+    prefix, period, n_periods, suffix = cfg.layer_plan()
+    for i, desc in enumerate(prefix):
+        yield desc, tree["prefix"][f"l{i}"]
+    for p in range(n_periods):
+        for i, desc in enumerate(period):
+            yield desc, tree["period"][p][f"s{i}"]
+    for i, desc in enumerate(suffix):
+        yield desc, tree["suffix"][f"l{i}"]
+
+
+def _run_stack(params, cfg: ModelConfig, x, ctx: Ctx, pools):
+    """Returns (x, pools, aux summed over layers)."""
+    aux_sum = {k: x.new_zeros((), dtype=torch.float32) for k in AUX_KEYS}
+    for (desc, p), (_, pool) in zip(layers(cfg, params), layers(cfg, pools)):
+        x, _, aux = sub_apply(p, cfg, desc, x,
+                              dataclasses.replace(ctx, cache=pool))
+        aux_sum = {k: aux_sum[k] + aux[k] for k in AUX_KEYS}
+    return x, pools, aux_sum
+
+
+def _logits(params, cfg: ModelConfig, x):
+    x = nl.rmsnorm(params["ln_f"], x, cfg.norm_eps)
+    return nl.unembed(params["embed"], x)
+
+
+def prefill_chunk_paged(params, cfg: ModelConfig, tokens, pool,
+                        block_tables, lengths, n_valid, *,
+                        compute_dtype=torch.bfloat16, impl: str = "ref",
+                        scheme: str = "seq"):
+    """One batched prefill CHUNK straight into the paged pool.
+
+    tokens: (B, C) int — row b holds its request's next ``n_valid[b]``
+    prompt tokens (rest is padding) at absolute positions ``lengths[b]``..
+    Returns (logits (B, V) of each row's last valid position, pool) — the
+    logits matter only for the chunk that finishes a request's prompt.
+    ``impl`` 'kernel' runs the chunk attention in the paged prefill kernel;
+    'ref' on the gathered block-table view."""
+    x = nl.embed(params["embed"], tokens, compute_dtype)
+    ctx = Ctx(mode="prefill_chunk", impl=impl, scheme=scheme,
+              block_tables=block_tables, lengths=lengths, n_valid=n_valid)
+    x, pool, _ = _run_stack(params, cfg, x, ctx, pool)
+    last = torch.clamp(n_valid.long() - 1, min=0)
+    h = x[torch.arange(x.shape[0], device=x.device), last]
+    return _logits(params, cfg, h), pool
+
+
+def decode_step(params, cfg: ModelConfig, token, pool, block_tables,
+                lengths, *, compute_dtype=torch.bfloat16, impl: str = "ref",
+                scheme: str = "seq"):
+    """Paged continuous-batching decode: token (B,), ``lengths`` (B,)
+    int32 ragged per-request cache lengths, ``block_tables`` (B, nb).
+    Returns (logits (B, V), pool)."""
+    x = nl.embed(params["embed"], token, compute_dtype)
+    ctx = Ctx(mode="decode", impl=impl, scheme=scheme,
+              block_tables=block_tables, lengths=lengths)
+    x, pool, _ = _run_stack(params, cfg, x, ctx, pool)
+    return _logits(params, cfg, x), pool
+
+
+def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
+                     dtype=torch.bfloat16, device="cuda") -> Dict:
+    """Pool tree laid out like the layers of :func:`lm_defs`: one
+    (num_blocks, block_size, .) latent block pool per MLA layer, shared by
+    all requests.  Block tables and lengths live outside it (one table
+    per request, shared across layers)."""
+    def pool(desc):
+        return sub_paged_cache(cfg, desc, num_blocks, block_size, dtype,
+                               device)
+
+    prefix, period, n_periods, suffix = cfg.layer_plan()
+    return {
+        "prefix": {f"l{i}": pool(d) for i, d in enumerate(prefix)},
+        "period": [{f"s{i}": pool(d) for i, d in enumerate(period)}
+                   for _ in range(n_periods)],
+        "suffix": {f"l{i}": pool(d) for i, d in enumerate(suffix)},
+    }

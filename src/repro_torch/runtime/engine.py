@@ -1,0 +1,381 @@
+"""Continuous-batching MLA serving engine over the paged latent pool (port
+of the synchronous ``repro.runtime.engine.PagedMLAEngine``).
+
+Glues the host-side ``ContinuousScheduler`` (admission, radix prefix cache,
+block tables, copy-on-write, preemption) to the device steps of
+``repro_torch.models``:
+
+  * batched CHUNKED prefill straight into the pool: admitted requests
+    prefill together, ``prefill_chunk`` tokens per request per step,
+    attending their prefix-cache hits through the block table;
+  * one paged decode step per tick over ALL slots (inactive slots ride
+    along on the null block; their logits are discarded);
+  * greedy sampling (argmax, ties to the lowest id);
+  * ``schemes.auto_dispatch`` re-run every decode step on the live
+    (batch, max cache_len) point — all schemes compute the same function.
+
+``impl='kernel'`` runs the paged attention in the CUDA kernels (K1 for
+decode, K2 for prefill chunks; their plain versions on CPU tensors);
+``impl='ref'`` on the gathered block-table view.  The pool is updated in
+place.  Seeded sampling, the int8/fp8 pool, speculative decoding,
+per-request prefill, the async engine, meshes and telemetry are not
+ported yet: asking for them raises ``NotImplementedError`` (ROADMAP.md).
+"""
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from .. import models
+from ..core import cache as cachelib
+from ..core import mla as mlalib
+from ..core.schemes import PlatformPoint, auto_dispatch
+from ..models.common import ModelConfig
+from .loop import drive
+from .scheduler import ContinuousScheduler, Request
+
+
+def _not_ported(what: str):
+    return NotImplementedError(f"{what} is not ported to repro_torch yet "
+                               f"(see ROADMAP.md, queue 1)")
+
+
+@dataclasses.dataclass
+class EngineStats:
+    steps: int = 0
+    decode_tokens: int = 0
+    prefill_tokens: int = 0         # tokens actually prefilled (cache
+    prompt_tokens: int = 0          # hits excluded) vs tokens submitted
+    prefill_chunks: int = 0
+    admissions: int = 0
+    mid_gen_admissions: int = 0     # admitted while other slots were decoding
+    preemptions: int = 0
+    scheme_switches: int = 0
+    util_valid_sum: float = 0.0     # time-avg of valid/allocated
+    util_pool_sum: float = 0.0
+    util_samples: int = 0
+    wall: float = 0.0
+    schemes_used: Dict[str, int] = dataclasses.field(default_factory=dict)
+
+    def summary(self) -> Dict[str, float]:
+        n = max(self.util_samples, 1)
+        return {
+            "steps": self.steps,
+            "decode_tokens": self.decode_tokens,
+            "prefill_tokens": self.prefill_tokens,
+            "prompt_tokens": self.prompt_tokens,
+            "prefill_chunks": self.prefill_chunks,
+            "admissions": self.admissions,
+            "mid_gen_admissions": self.mid_gen_admissions,
+            "preemptions": self.preemptions,
+            "scheme_switches": self.scheme_switches,
+            "tokens_per_s": (self.decode_tokens / self.wall)
+            if self.wall > 0 else 0.0,
+            "cache_utilization": self.util_valid_sum / n,
+            "pool_occupancy": self.util_pool_sum / n,
+            "schemes_used": dict(self.schemes_used),
+        }
+
+
+class PagedMLAEngine:
+    def __init__(self, cfg: ModelConfig, params, *, num_blocks: int,
+                 block_size: int, max_batch: int,
+                 max_blocks_per_req: Optional[int] = None,
+                 compute_dtype=torch.float32, impl: str = "ref",
+                 scheme: str = "auto",
+                 platform: Optional[PlatformPoint] = None,
+                 enable_prefix_cache: bool = True,
+                 prefill_chunk: int = 32,
+                 prefill_mode: str = "chunked",
+                 temperature: float = 0.0,
+                 mesh=None, spec_k: int = 0,
+                 cache_dtype: str = "bf16",
+                 admission: str = "cache_aware",
+                 admission_age_bound: int = 64,
+                 telemetry=None, device="cuda"):
+        if cfg.attn_kind != "mla":
+            raise NotImplementedError("PagedMLAEngine requires an MLA model")
+        if scheme == "auto" and platform is None:
+            raise ValueError("scheme='auto' needs a PlatformPoint")
+        if scheme not in ("auto",) + mlalib.SCHEMES:
+            raise ValueError(f"unknown scheme {scheme!r}")
+        if impl not in ("ref", "kernel"):
+            raise ValueError(f"unknown impl {impl!r}; expected 'ref' | "
+                             f"'kernel'")
+        if prefill_mode not in ("chunked", "per_request"):
+            raise ValueError(f"unknown prefill_mode {prefill_mode!r}")
+        if prefill_mode != "chunked":
+            raise _not_ported("prefill_mode='per_request'")
+        if cache_dtype not in (None, "bf16"):
+            if cache_dtype not in cachelib.CACHE_DTYPES:
+                raise ValueError(f"unknown cache_dtype {cache_dtype!r}")
+            raise _not_ported(f"the {cache_dtype} latent pool")
+        if temperature > 0.0:
+            raise _not_ported("seeded sampling (temperature > 0)")
+        if spec_k:
+            raise _not_ported("speculative decoding (spec_k > 0)")
+        if mesh is not None:
+            raise _not_ported("mesh serving")
+        if telemetry is not None:
+            raise _not_ported("telemetry")
+        self.cfg = cfg
+        self.mla = cfg.mla_config()
+        self.device = torch.device(device)
+        # 'ru' streams the precomputed absorbed weights; attach them once
+        # so every scheme sees the same param tree.  A fixed non-ru scheme
+        # never reads them — skip the compute and memory.
+        self.params = mlalib.attach_absorbed_tree(params, self.mla) \
+            if scheme in ("auto", "ru") else params
+        self.compute_dtype = compute_dtype
+        self.cache_dtype = "bf16"
+        self.impl = impl
+        self.scheme = scheme
+        self.platform = platform
+        self.block_size = block_size
+        self.prefill_chunk = int(prefill_chunk)
+        if self.prefill_chunk < 1:
+            raise ValueError("prefill_chunk must be >= 1")
+        # cancellation flags from other threads, drained every tick
+        self._cancel_lock = threading.Lock()
+        self._cancels: set = set()
+        # max_blocks_per_req bounds the block-table WIDTH, i.e. the extent
+        # every step scans per request — size it to the longest request,
+        # not the pool.
+        self.sched = ContinuousScheduler(
+            num_blocks=num_blocks, block_size=block_size,
+            max_batch=max_batch, max_blocks_per_req=max_blocks_per_req,
+            enable_prefix_cache=enable_prefix_cache,
+            admission=admission,
+            admission_age_bound=admission_age_bound)
+        self.pool = models.init_paged_cache(cfg, num_blocks, block_size,
+                                            compute_dtype, self.device)
+        self.pending = np.zeros((max_batch,), np.int32)   # next token to feed
+        self._last_scheme: Optional[str] = None
+        self.stats = EngineStats()
+        # bytes one cached token occupies across ALL layers of the pool
+        self.cache_token_bytes = cfg.n_layers * cachelib.bytes_per_token_latent(
+            cfg.kv_lora_rank, cfg.qk_rope_dim,
+            dtype_bytes=torch.empty((), dtype=compute_dtype).element_size())
+
+    # ----------------------------------------------------------- device ---
+
+    def _dev(self, a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(a, device=self.device)
+
+    def _pick_scheme(self) -> str:
+        active = self.sched.active_slots
+        cache_len = int(self.sched.lengths[active].max()) + 1 if active else 1
+        if self.scheme != "auto":
+            self._last_scheme = self.scheme
+            return self.scheme
+        s = auto_dispatch(self.mla, self.platform, cache_len=cache_len,
+                          batch=max(len(active), 1),
+                          paged_block=self.block_size,
+                          cache_dtype=self.cache_dtype)
+        if self._last_scheme is not None and s != self._last_scheme:
+            self.stats.scheme_switches += 1
+        self._last_scheme = s
+        return s
+
+    def _chunk_scheme(self) -> str:
+        """A fixed engine scheme prefills with the same absorption ordering;
+        'auto' (and 'naive', which has no latent chunk path) prefill with
+        'seq' — all schemes compute the same function."""
+        return self.scheme if self.scheme in ("seq", "rc", "ru") else "seq"
+
+    def _sample_tokens(self, rows, slots) -> Dict[int, int]:
+        """Greedy: one token per listed slot from its logits row."""
+        arg = torch.argmax(rows, dim=-1).cpu().numpy()
+        return {s: int(arg[i]) for i, s in enumerate(slots)}
+
+    def _sync_device(self) -> None:
+        """Block until this tick's device work has retired, so ``wall``
+        and ``tokens_per_s`` time the work and not its launch."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # --------------------------------------------------------- prefill ----
+
+    def _run_chunked_prefill(self, admitted, step_i: int) -> None:
+        """Prefill every just-admitted request's un-cached prompt suffix as
+        a batch, ``prefill_chunk`` tokens per request per step.  Rows that
+        exhaust their prompt sample generated token #1 from that chunk's
+        last-valid logits and register their blocks in the radix cache."""
+        C = self.prefill_chunk
+        B = self.sched.max_batch
+        pending = dict(admitted)
+        fill = {slot: req.n_cached for slot, req in admitted}
+        while pending:
+            tokens = np.zeros((B, C), np.int32)
+            lens = np.zeros((B,), np.int32)
+            nv = np.zeros((B,), np.int32)
+            finishing = []
+            for slot, req in list(pending.items()):
+                start = fill[slot]
+                take = min(req.plen - start, C)
+                tokens[slot, :take] = req.prompt[start:start + take]
+                lens[slot] = start
+                nv[slot] = take
+                fill[slot] = start + take
+                if fill[slot] >= req.plen:
+                    finishing.append((slot, req))
+                    del pending[slot]
+            logits, self.pool = models.prefill_chunk_paged(
+                self.params, self.cfg, self._dev(tokens).long(), self.pool,
+                self._dev(self.sched.block_table), self._dev(lens),
+                self._dev(nv), compute_dtype=self.compute_dtype,
+                impl=self.impl, scheme=self._chunk_scheme())
+            self.stats.prefill_tokens += int(nv.sum())
+            self.stats.prefill_chunks += 1
+            for slot, req in finishing:
+                tok = self._sample_tokens(logits[slot][None], [slot])[slot]
+                # register blocks only now — their latents are in the pool
+                self.sched.commit_prefill(slot)
+                self._fork_and_seed(slot, logits[slot][None], step_i)
+                if self.sched.record_prefill_sample(slot, tok, step_i) is None:
+                    self.pending[slot] = tok
+
+    def _fork_and_seed(self, slot: int, row, step_i: int) -> None:
+        """Fork a just-prefilled n > 1 parent (scheduler.fork_group) and
+        give every child its first token from the parent's last-position
+        prefill logits."""
+        kids = self.sched.fork_group(slot)
+        if not kids:
+            return
+        cslots = [cs for cs, _ in kids]
+        picks = self._sample_tokens(row.expand(len(kids), -1), cslots)
+        for cs in cslots:
+            tok = picks[cs]
+            if self.sched.record_prefill_sample(cs, tok, step_i) is None:
+                self.pending[cs] = tok
+
+    # ------------------------------------------------------------- run ----
+
+    def validate_sampling(self, sp) -> None:
+        """Raise unless the per-request ``SamplingParams`` are servable by
+        this greedy engine: no temperature > 0, and top_k / seed either
+        None ('inherit') or the greedy engine's own 0 — the JAX engine's
+        rule for engine-global knobs, with its defaults."""
+        if sp is None:
+            return
+        if sp.temperature is not None and float(sp.temperature) > 0.0:
+            raise _not_ported("seeded sampling (temperature > 0)")
+        for knob in ("top_k", "seed"):
+            value = getattr(sp, knob)
+            if value is not None and int(value) != 0:
+                raise ValueError(f"{knob}={value} != the engine's 0; set it "
+                                 f"engine-wide or leave None")
+
+    def submit(self, req: Request) -> None:
+        self.validate_sampling(req.sampling)
+        self.sched.submit(req)
+
+    @property
+    def idle(self) -> bool:
+        """No queued or running work: ``runtime.loop.drive`` may stop ticking."""
+        return self.sched.all_done
+
+    def request_cancel(self, rid: int) -> None:
+        """Flag ``rid`` for cancellation.  Thread-safe; the engine drains
+        the flags at the start of its next tick and releases the
+        request's slot and blocks (scheduler.cancel)."""
+        with self._cancel_lock:
+            self._cancels.add(rid)
+
+    def _process_cancels(self, step_i: int) -> None:
+        with self._cancel_lock:
+            rids, self._cancels = self._cancels, set()
+        for rid in sorted(rids):
+            self.sched.cancel(rid, step_i)
+
+    def _drain_cow(self) -> None:
+        """Apply the scheduler's queued copy-on-write block copies to the
+        pool.  Independent pairs go in one indexed copy per pool leaf; a
+        CHAINED batch (some dst re-read as a later src) must apply in
+        queue order, one pair at a time."""
+        pairs = self.sched.drain_cow()
+        if not pairs:
+            return
+        srcs = [p[0] for p in pairs]
+        dsts = [p[1] for p in pairs]
+        if len(pairs) == 1 or (set(srcs) & set(dsts)):
+            for src, dst in pairs:
+                cachelib.copy_block_paged(self.pool, src, dst)
+            return
+        cachelib.copy_blocks_paged(self.pool,
+                                   self._dev(np.asarray(srcs, np.int64)),
+                                   self._dev(np.asarray(dsts, np.int64)))
+
+    def step(self) -> None:
+        """One scheduler tick: admit + batched prefill, then one batched
+        decode step over all slots."""
+        t0 = time.perf_counter()
+        step_i = self.stats.steps
+        self._process_cancels(step_i)
+        was_decoding = self.sched.n_active > 0
+        # grow running requests BEFORE admitting: otherwise a just-admitted
+        # request could take the last blocks, get preempted immediately,
+        # and throw away the prefill it just paid for.
+        self.stats.preemptions += len(self.sched.ensure_step_capacity())
+        self._drain_cow()
+        admitted = self.sched.try_admit(step_i)
+        # partial-hit tail copies queued by try_admit land before prefill
+        self._drain_cow()
+        for _, req in admitted:
+            self.stats.admissions += 1
+            self.stats.prompt_tokens += req.plen
+            if was_decoding:
+                self.stats.mid_gen_admissions += 1
+        if admitted:
+            self._run_chunked_prefill(admitted, step_i)
+            # fork-group tail copies land before both forks' decode writes
+            self._drain_cow()
+
+        active = self.sched.active_slots
+        if active:
+            scheme = self._pick_scheme()
+            self.stats.schemes_used[scheme] = \
+                self.stats.schemes_used.get(scheme, 0) + 1
+            logits, self.pool = models.decode_step(
+                self.params, self.cfg, self._dev(self.pending).long(),
+                self.pool, self._dev(self.sched.block_table),
+                self._dev(self.sched.lengths),
+                compute_dtype=self.compute_dtype, impl=self.impl,
+                scheme=scheme)
+            picks = self._sample_tokens(logits[self._dev(np.asarray(active))],
+                                        active)
+            self.sched.advance(picks, step_i)
+            for s, t in picks.items():
+                self.pending[s] = t
+            self.stats.decode_tokens += len(active)
+
+        u = self.sched.utilization()
+        self.stats.util_valid_sum += u["valid_frac"]
+        self.stats.util_pool_sum += u["pool_frac"]
+        self.stats.util_samples += 1
+        self._sync_device()
+        self.stats.steps += 1
+        self.stats.wall += time.perf_counter() - t0
+
+    def run(self, requests: List[Request], *, max_steps: int = 100_000,
+            log_every: int = 0, log=print) -> Dict[str, float]:
+        """Drive a request stream to completion (:func:`runtime.loop.drive`)."""
+        return drive(self, requests, max_steps=max_steps,
+                     log_every=log_every, log=log)
+
+    def summary(self) -> Dict[str, float]:
+        """Engine stats + prefix-cache stats + allocator totals."""
+        out = self.stats.summary()
+        out.update(self.sched.prefix.summary())
+        out["total_blocks_allocated"] = float(
+            self.sched.allocator.total_allocs)
+        out["fork_groups"] = float(self.sched.fork_groups)
+        out["fork_children"] = float(self.sched.forked_children)
+        out["cache_dtype"] = self.cache_dtype
+        out["cache_token_bytes"] = float(self.cache_token_bytes)
+        return out

@@ -1,0 +1,58 @@
+"""Move a ``repro`` (JAX) parameter tree into the port.
+
+The JAX package stacks the weights of each repeating period of
+``layer_plan`` along a leading axis (its layer scan); the port keeps one
+dict per layer.  :func:`from_jax_params` walks the port's own parameter
+definitions, takes each leaf from the JAX tree (given as numpy arrays,
+``jax.device_get`` of the params), unstacks the period leaves per layer,
+checks every shape, and puts the result on ``device``.  With it the two
+packages compute the same function in the parity tests.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from .models import model_defs
+from .models.common import ModelConfig
+from .nn.module import P
+
+
+def _tensor(a, p: P, path: str, dtype, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if tuple(a.shape) != tuple(p.shape):
+        raise ValueError(f"{path}: JAX leaf has shape {a.shape}, the port "
+                         f"expects {p.shape}")
+    if a.dtype.name == "bfloat16":       # ml_dtypes bfloat16: no numpy twin
+        t = torch.from_numpy(np.array(a).view(np.uint16))
+        t = t.view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))     # a writable copy
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def _take(defs, src, path: str, dtype, device, period: Optional[int] = None):
+    if isinstance(defs, P):
+        return _tensor(src if period is None else np.asarray(src)[period],
+                       defs, path, dtype, device)
+    if set(defs) - set(src):
+        raise KeyError(f"{path}: JAX tree lacks {sorted(set(defs) - set(src))}")
+    # leaves the port derives itself (w_absorb) are not taken over
+    return {k: _take(v, src[k], f"{path}/{k}", dtype, device, period)
+            for k, v in defs.items()}
+
+
+def from_jax_params(tree: Dict[str, Any], cfg: ModelConfig, *,
+                    device="cuda", dtype: Optional[torch.dtype] = None):
+    """The port's parameter tree for ``cfg`` holding the values of the JAX
+    tree ``tree`` (numpy leaves), on ``device``, cast to ``dtype`` if
+    given."""
+    defs = model_defs(cfg)
+    out = {k: _take(defs[k], tree[k], k, dtype, device)
+           for k in ("embed", "ln_f", "prefix", "suffix")}
+    out["period"] = [_take(layer, tree["period"], f"period[{p}]", dtype,
+                           device, period=p)
+                     for p, layer in enumerate(defs["period"])]
+    return out

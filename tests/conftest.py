@@ -32,6 +32,12 @@ def pytest_configure(config):
         "injected-violation regressions; the CI `audit` job and `make "
         "test-audit` run it as its own lane (mesh cells go through a "
         "subprocess that forces 8 host devices itself)")
+    config.addinivalue_line(
+        "markers",
+        "gpu: repro_torch tests that launch the hand-written CUDA kernels; "
+        "each decides inside the test whether a CUDA device is present and "
+        "skips without one (run them on the card: `PYTHONPATH=src python "
+        "-m pytest -q -m gpu tests/test_torch_*.py`)")
 
 
 @pytest.fixture
