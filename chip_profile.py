@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Where the time goes in ``chip_smoke.py``'s full-width serve (phase 3),
-on one CUDA card:
+"""Where the time goes in ``chip_smoke.py``'s full-width serve (phase 3)
+and training step (phase 5), on one CUDA card:
 
-    python3 chip_profile.py
+    python3 chip_profile.py          # serving
+    python3 chip_profile.py train    # training
 
 Builds the same model (DeepSeek-V2 widths, 4 layers, random bf16 weights,
 the config's MoE capacity) and the same 8 requests, then serves them twice
@@ -12,6 +13,15 @@ model (``prefill_chunk``, ``decode_tick``).  Prints device time by span
 and by kernel, the device busy share of the traced run, and the tracing
 cost (traced minus untraced engine seconds).  Spans are added here, around
 the calls, not inside the program.
+
+``train`` builds phase 5's model (DeepSeek-V2 widths cut to 2 layers,
+bf16 params, f32 Adam moments, batch 2 x 4096, the config's MoE
+capacity, ``impl='kernel'``, loss chunk 1024), runs a warm-up step and
+an untraced step, then one step under ``torch.profiler`` with spans
+around the loss forward (``lm_loss``) and the optimizer
+(``adamw_update``); the backward runs on autograd's own threads, outside
+any span.  Prints the device busy share of the traced step and device
+time by kernel.
 """
 from __future__ import annotations
 
@@ -23,6 +33,98 @@ import types
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
+def report(torch, prof, wall, spans) -> int:
+    """Device busy share of a traced window of ``wall`` seconds, the
+    spans' device and host time, and device time by kernel."""
+    events = prof.key_averages()
+    # device-side copies of the spans are ranges, not work: keep them out
+    dev = [e for e in events
+           if e.device_type.name == "CUDA" and e.key not in spans]
+    busy = sum(e.self_device_time_total for e in dev) / 1e6
+    if busy == 0:
+        print("chip_profile: the profiler recorded no device time",
+              file=sys.stderr)
+        return 1
+    print(f"[traced] device busy {busy:.3f} s of {wall:.3f} s "
+          f"({100 * busy / wall:.1f} %), idle share "
+          f"{100 * (1 - busy / wall):.1f} %")
+    for e in events:
+        if e.key in spans:
+            print(f"[span] {e.key} ({e.device_type.name}): {e.count} calls, "
+                  f"device {e.device_time_total / 1e6:.3f} s, host "
+                  f"{e.cpu_time_total / 1e6:.3f} s")
+    print("[kernels] device time by kernel (top 15):")
+    for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:15]:
+        print(f"  {e.self_device_time_total / 1e6:8.3f} s "
+              f"{100 * e.self_device_time_total / 1e6 / busy:5.1f} % "
+              f"x{e.count:<6d} {e.key[:90]}")
+    return 0
+
+
+def train_profile() -> int:
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    import chip_smoke
+    from repro_torch import configs, models
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.nn import module as nnm
+    from repro_torch.optim import AdamWConfig, adamw_init, cosine
+    from repro_torch.runtime import TrainStepConfig, make_train_step
+    from repro_torch.runtime import steps as steps_mod
+
+    print(f"[card] {chip_smoke.card_line()}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(configs.full("deepseek-v2-236b"),
+                              n_layers=chip_smoke.TRAIN_LAYERS)
+    params = nnm.init_params(models.model_defs(cfg), seed=0,
+                             dtype=torch.bfloat16, device="cuda")
+    opt_cfg = AdamWConfig(lr=cosine(3e-4, warmup=20, total=100))
+    opt = adamw_init(params, opt_cfg)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=chip_smoke.TL,
+                                  global_batch=chip_smoke.TB, seed=0))
+
+    def spanned(name, fn):
+        def call(*args, **kw):
+            with record_function(name):
+                return fn(*args, **kw)
+        return call
+
+    plain = (steps_mod.lm_loss, steps_mod.adamw_update)
+    steps_mod.lm_loss = spanned("lm_loss", plain[0])
+    steps_mod.adamw_update = spanned("adamw_update", plain[1])
+    step = make_train_step(cfg, opt_cfg, TrainStepConfig(
+        compute_dtype=torch.bfloat16, impl="kernel", loss_chunk=1024))
+
+    def run():
+        toks, labels = data.next_batch()
+        batch = {"tokens": torch.as_tensor(toks, device="cuda"),
+                 "labels": torch.as_tensor(labels, device="cuda")}
+        nonlocal params, opt
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        return float(m["loss"]), time.perf_counter() - t0
+
+    try:
+        run()                                 # warm-up
+        loss, wall = run()
+        print(f"[untraced] step {wall * 1e3:.1f} ms, loss {loss:.4f}, "
+              f"{chip_smoke.TB * chip_smoke.TL / wall:.0f} tokens/s",
+              flush=True)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            loss, traced = run()
+    finally:
+        steps_mod.lm_loss, steps_mod.adamw_update = plain
+    print(f"[traced] step {traced * 1e3:.1f} ms (tracing cost "
+          f"{(traced - wall) * 1e3:+.1f} ms), loss {loss:.4f}", flush=True)
+    return report(torch, prof, traced, ("lm_loss", "adamw_update"))
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -32,6 +134,8 @@ def main() -> int:
         print("chip_profile: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.join(HERE, "src"))
+    if sys.argv[1:] == ["train"]:
+        return train_profile()
     import dataclasses
 
     import chip_smoke
@@ -88,30 +192,7 @@ def main() -> int:
     print(f"[traced] engine {traced:.3f} s (tracing cost "
           f"{traced - wall:+.3f} s over the untraced run)", flush=True)
 
-    spans = ("prefill_chunk", "decode_tick")
-    events = prof.key_averages()
-    # device-side copies of the spans are ranges, not work: keep them out
-    dev = [e for e in events
-           if e.device_type.name == "CUDA" and e.key not in spans]
-    busy = sum(e.self_device_time_total for e in dev) / 1e6
-    if busy == 0:
-        print("chip_profile: the profiler recorded no device time",
-              file=sys.stderr)
-        return 1
-    print(f"[traced] device busy {busy:.3f} s of {traced:.3f} s "
-          f"({100 * busy / traced:.1f} %), idle share "
-          f"{100 * (1 - busy / traced):.1f} %")
-    for e in events:
-        if e.key in spans:
-            print(f"[span] {e.key} ({e.device_type.name}): {e.count} calls, "
-                  f"device {e.device_time_total / 1e6:.3f} s, host "
-                  f"{e.cpu_time_total / 1e6:.3f} s")
-    print("[kernels] device time by kernel (top 15):")
-    for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:15]:
-        print(f"  {e.self_device_time_total / 1e6:8.3f} s "
-              f"{100 * e.self_device_time_total / 1e6 / busy:5.1f} % "
-              f"x{e.count:<6d} {e.key[:90]}")
-    return 0
+    return report(torch, prof, traced, ("prefill_chunk", "decode_tick"))
 
 
 if __name__ == "__main__":

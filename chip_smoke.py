@@ -6,15 +6,20 @@ GPU (written for an H100):
 
 Phases, each printing its own lines; any failure exits non-zero:
 
-  1. card and build — the card's name and power limit, then the paged MLA
-     attention kernels built from ``src/repro_torch/kernels/csrc`` (one
-     ``nvcc`` per source, all at once);
-  2. kernels against their plain PyTorch versions at the main path's
-     shapes (B=8 requests, H=128, Dl=512, Dr=64, block 16, prefill chunk
-     32; ragged lengths, an inactive slot, null and stale blocks, unused
-     blocks poisoned with 1e4), in bf16 and f32 and both rescale modes,
-     with each kernel's time beside its plain version's, the PyTorch
-     library call's (SDPA over the gathered view) and its bound;
+  1. card and build — the card's name and power limit, then the five
+     kernels built from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
+     source, all at once);
+  2. kernels against their plain PyTorch versions: the paged MLA kernels
+     K1/K2 at the serving path's shapes (B=8 requests, H=128, Dl=512,
+     Dr=64, block 16, prefill chunk 32; ragged lengths, an inactive slot,
+     null and stale blocks, unused blocks poisoned with 1e4), in bf16 and
+     f32 and both rescale modes; the flash-attention kernels K4 (forward),
+     K5 (dQ) and K6 (dK/dV) in f32 and bf16 at small shapes (GQA, MQA,
+     windows, a query offset, ragged lengths, Dqk != Dv up to 576) and at
+     the training path's shapes (B=2, H=128, L=4096, Dqk=192, Dv=128,
+     causal, (B, L, H, D) tensors passed as transposed views), each
+     output held row by row (``row_rel``); each kernel's time beside its
+     plain version's, the PyTorch library call's (SDPA) and its bound;
   3. end to end at full width — DeepSeek-V2 (d_model 5120, 128 heads,
      160 experts top-6 at the config's capacity factor, vocab 102400)
      cut to 4 layers, random bf16 weights on the card; a short warm-up
@@ -24,7 +29,21 @@ Phases, each printing its own lines; any failure exits non-zero:
      prefill chunks; kernel-path logits held against the reference path
      (at drop-free MoE capacity, see ``drop_free``);
   4. greedy-token parity of ``impl='kernel'`` and ``impl='ref'`` on the
-     f32 smoke config.
+     f32 smoke config;
+  5. training at full width — DeepSeek-V2 cut to 2 layers (1 dense +
+     1 MoE, depth only; 4.83 B params), bf16 params and compute, f32 Adam
+     moments, batch 2 x 4096 tokens, the config's MoE capacity, through
+     ``make_train_step`` with ``impl='kernel'``: one warm-up step, then
+     timed steps (tokens/s, ms/step, each step's loss, peak memory) with
+     K4/K5/K6 launch counts checked against layers x steps; then the
+     MLA call site's attention (the flash Function) in bf16 at the path's
+     shapes against the dense oracle under autograd, out and the q/k/v
+     gradients each as a whole;
+     then the kernel path's loss and per-leaf gradients against the dense
+     reference path at 2 x 512 tokens (f32 with 2 layers at drop-free MoE
+     capacity; bf16 with the dense first layer alone); then ``TrainLoop``
+     with checkpoints, a failure and a resume at smoke size.
+     No full-width checkpoint is written (it would be 58 GB).
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -35,6 +54,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -57,6 +77,52 @@ TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # differently; a wiring fault (wrong query, pool, scale or mask) moves a
 # row by O(1) of its norm.
 LOGITS_REL_L2 = 0.1
+# flash attention, kernel vs plain version given the same lse and delta
+# (phase 2), each output (out, dQ, dK, dV) held row by row:
+# the largest |a_r - b_r| / |b_r| over its rows (one query's out or dQ,
+# one key's dK or dV; see row_rel).  f32 is the same arithmetic in
+# another order (~1e-6).  bf16 rounds P and dS to bf16 for the tensor
+# cores and the output to bf16, where the plain versions keep f32 until
+# the output: a few 2^-9 steps per element; sound kernels read <= 6.7e-3
+# on an H100 (small cases and the path's shapes).  A kernel that skips one
+# key tile of 32 (or one query tile, for dK/dV) moves each row it touches
+# by about sqrt(32 / n) of its norm, n the number of keys (queries) the
+# row sees: >= 0.088 at L = 4096; such a kernel read >= 0.84.
+FLASH_ROW_TOL = {"bfloat16": 3e-2, "float32": 1e-4}
+# phase 5, the flash Function vs autograd through the dense oracle, bf16,
+# whole-tensor |a - b| / |b| of out, dQ, dK, dV.  Not row by row: the
+# reference's backward takes delta = sum(dO * O) from the bf16 output O
+# (as the Pallas reference does), autograd from the exact f32 one; on a
+# row whose softmax is nearly one-hot (the first queries) dQ is a small
+# difference of near-equal terms and that rounding is a large part of it
+# (3.44 of one such row's norm at the path's shapes on an H100).  Sound
+# kernels read ~2.5e-3 there; a skipped key tile at 2048 reads >= 0.033.
+ATTN_REL_L2 = 1e-2
+# the f32 log-sum-exp, either dtype: the same f32 scores summed in
+# another order (~1e-6 of |lse| <= ~10); one skipped tile of 32 keys moves
+# a row's lse by about 32 / n >= 0.0078 at L = 4096.
+LSE_ATOL = 1e-4
+# (B, H, Hkv, Lq, Lk, Dqk, Dv, window, q_offset) of the small cases
+FLASH_SMALL = [(1, 4, 4, 64, 64, 32, 32, None, 0),
+               (2, 4, 2, 48, 48, 16, 16, None, 0),
+               (1, 8, 1, 33, 70, 16, 24, None, 0),
+               (1, 4, 2, 96, 96, 32, 32, 8, 0),
+               (1, 2, 2, 32, 64, 16, 16, None, 32),
+               (2, 4, 4, 40, 40, 40, 24, None, 0),
+               (1, 2, 1, 100, 130, 576, 512, None, 0)]
+TB, TL, TH, TDQK, TDV = 2, 4096, 128, 192, 128    # the training path's
+TRAIN_LAYERS = 2
+# full-width training gradients, kernel path vs dense reference path, per
+# leaf |a - b| / |b|.  f32, 2 layers at drop-free MoE capacity: the two
+# paths sum in other orders (~1e-6 relative a product); a wiring fault
+# (wrong head, mask, scale or layout) moves a leaf by O(1).  The 2-layer
+# comparison is f32 because in bf16 a near-tie among a token's top-6
+# expert gates routes it differently on the two paths and moves whole
+# expert leaves; bf16 is compared on the dense first layer alone (no
+# router), where the paths differ by where they round to bf16: a few
+# 2^-9 steps of the attention output, carried through one layer and the
+# head: 8.1e-3 on an H100, and 0.56 with a kernel that skips a key tile.
+TRAIN_GRAD_REL_L2 = {"float32": 1e-3, "bfloat16": 5e-2}
 
 
 def drop_free(cfg):
@@ -256,6 +322,189 @@ def library_calls(torch, q1, q2, ckv, krope, bt, idx, ln, nv, scale):
         "mla_prefill_paged": lambda: F.scaled_dot_product_attention(
             q2s, k, v, attn_mask=m2, scale=scale),
     }
+
+
+def flash_case_inputs(torch, case, dtype, seed, blhd=False):
+    B_, H_, Hkv, Lq, Lk, D, Dv, _, _ = case
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+
+    def rn(b, h, n, d):
+        if blhd:       # (B, L, H, D) memory, passed as (B, H, L, D) views
+            return torch.randn((b, n, h, d), generator=g, device="cuda").to(
+                dtype).transpose(1, 2)
+        return torch.randn((b, h, n, d), generator=g, device="cuda").to(dtype)
+
+    return rn(B_, H_, Lq, D), rn(B_, Hkv, Lk, D), rn(B_, Hkv, Lk, Dv), \
+        rn(B_, H_, Lq, Dv)
+
+
+def row_rel(torch, got, want) -> float:
+    """The largest per-row relative L2 error max_r |a_r - b_r| / |b_r|
+    over the rows of the last dimension.  A row whose norm is under 1 % of
+    the median row norm is measured against that 1 % instead: dQ of query
+    0 is exactly 0 in exact arithmetic and noise on both sides, and so is
+    a row that should be 0 (a fully masked query, a key no query sees)."""
+    a = got.float().reshape(-1, got.shape[-1])
+    b = want.float().reshape(-1, want.shape[-1])
+    norm = b.norm(dim=-1)
+    floor = (0.01 * norm.median()).clamp_min(1e-30)
+    return ((a - b).norm(dim=-1) / torch.maximum(norm, floor)).max().item()
+
+
+def flash_compare(torch, fa, case, dtype_name, seed, blhd=False):
+    """K4, K5, K6 against their plain versions on one case; returns, for
+    each kernel, (max |kernel - plain|, the largest per-row relative error
+    of its outputs)."""
+    q, k, v, do = flash_case_inputs(torch, case, getattr(torch, dtype_name),
+                                    seed, blhd)
+    _, _, _, _, _, D, _, window, q_offset = case
+    kw = dict(causal=True, window=window, q_offset=q_offset, scale=D ** -0.5)
+    out, lse = fa.flash_fwd_kernel(q, k, v, **kw)
+    torch.cuda.synchronize()
+    out_p, lse_p = fa.flash_fwd_plain(q, k, v, **kw)
+    lse_err = (lse - lse_p).abs().max().item()
+    if not lse_err <= LSE_ATOL:
+        raise AssertionError(f"flash_attention_fwd {dtype_name} {case}: lse "
+                             f"max |kernel - plain| {lse_err:.3g} > "
+                             f"{LSE_ATOL}")
+    delta = (do.float() * out_p.float()).sum(-1).contiguous()
+    dq = fa.flash_bwd_dq_kernel(q, k, v, do, lse_p, delta, **kw)
+    dk, dv = fa.flash_bwd_dkv_kernel(q, k, v, do, lse_p, delta, **kw)
+    torch.cuda.synchronize()
+    pairs = {"flash_attention_fwd": [(out, out_p)],
+             "flash_attention_bwd_dq": [(dq, fa.flash_bwd_dq_plain(
+                 q, k, v, do, lse_p, delta, **kw))],
+             "flash_attention_bwd_dkv": list(zip(
+                 (dk, dv), fa.flash_bwd_dkv_plain(q, k, v, do, lse_p, delta,
+                                                  **kw)))}
+    errs = {}
+    for name, items in pairs.items():
+        worst_abs = worst_row = 0.0
+        for got, want in items:
+            err = row_rel(torch, got, want)
+            if not err <= FLASH_ROW_TOL[dtype_name]:
+                raise AssertionError(
+                    f"{name} {dtype_name} {case}: a row's |kernel - plain| / "
+                    f"|plain| is {err:.3g} > {FLASH_ROW_TOL[dtype_name]}")
+            worst_row = max(worst_row, err)
+            worst_abs = max(worst_abs,
+                            (got.float() - want.float()).abs().max().item())
+        errs[name] = (worst_abs, worst_row)
+    return errs
+
+
+def flash_pairs(Lq, Lk, q_offset=0):
+    """(query, key) pairs of causal attention (no window)."""
+    return sum(max(0, min(Lk, q_offset + i + 1)) for i in range(Lq))
+
+
+def check_flash(torch):
+    from repro_torch.kernels import flash_attention as fa
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    for dtype_name in ("float32", "bfloat16"):
+        worst = {}
+        for i, case in enumerate(FLASH_SMALL):
+            for blhd in (False, True):
+                for k_, e in flash_compare(torch, fa, case, dtype_name, i,
+                                           blhd).items():
+                    worst[k_] = max(worst.get(k_, 0.0), e[1])
+        log(f"[flash] {len(FLASH_SMALL)} small cases x 2 layouts, "
+            f"{dtype_name}: largest per-row |kernel - plain| / |plain| "
+            + ", ".join(f"{k_} {e:.3g}" for k_, e in worst.items())
+            + f" (bound {FLASH_ROW_TOL[dtype_name]}; lse within {LSE_ATOL})")
+    path = (TB, TH, TH, TL, TL, TDQK, TDV, None, 0)
+    errs = {}
+    for dtype_name in ("float32", "bfloat16"):
+        errs[dtype_name] = flash_compare(torch, fa, path, dtype_name, 99,
+                                         blhd=True)
+        log(f"[flash] path shapes q/k ({TB},{TH},{TL},{TDQK}), v "
+            f"(...,{TDV}), causal, {dtype_name}: max |kernel - plain|, "
+            f"largest per-row relative error: "
+            + ", ".join(f"{k_} {a:.3g}, {r:.3g}" for k_, (a, r)
+                        in errs[dtype_name].items())
+            + f" (bound {FLASH_ROW_TOL[dtype_name]})")
+        torch.cuda.empty_cache()
+
+    # times and bounds at the path's dtype (bf16)
+    q, k, v, do = flash_case_inputs(torch, path, torch.bfloat16, 5,
+                                    blhd=True)
+    kw = dict(causal=True, window=None, q_offset=0, scale=TDQK ** -0.5)
+    out, lse = fa.flash_fwd_kernel(q, k, v, **kw)
+    delta = (do.float() * out.float()).sum(-1).contiguous()
+    es, n_rows = 2, TB * TH * TL
+    pairs = TB * TH * flash_pairs(TL, TL)
+    qk_b, v_b = n_rows * TDQK * es, n_rows * TDV * es
+    rows_b = n_rows * 4
+    work = {   # name: (bytes each input read once, output written once; ops)
+        "flash_attention_fwd": (2 * qk_b + v_b + v_b + rows_b,
+                                2 * (TDQK + TDV) * pairs),
+        "flash_attention_bwd_dq": (2 * qk_b + 2 * v_b + 2 * rows_b + qk_b,
+                                   2 * (2 * TDQK + TDV) * pairs),
+        "flash_attention_bwd_dkv": (2 * qk_b + 2 * v_b + 2 * rows_b + qk_b
+                                    + v_b, 2 * (2 * TDQK + 2 * TDV) * pairs),
+    }
+    calls = {
+        "flash_attention_fwd": (
+            lambda: fa.flash_fwd_kernel(q, k, v, **kw),
+            lambda: fa.flash_fwd_plain(q, k, v, **kw)),
+        "flash_attention_bwd_dq": (
+            lambda: fa.flash_bwd_dq_kernel(q, k, v, do, lse, delta, **kw),
+            lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, **kw)),
+        "flash_attention_bwd_dkv": (
+            lambda: fa.flash_bwd_dkv_kernel(q, k, v, do, lse, delta, **kw),
+            lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, **kw)),
+    }
+    sdpa_fwd, sdpa_bwd, backend = sdpa_calls(torch, q, k, v, do)
+    lib = {"flash_attention_fwd": time_ms(torch, sdpa_fwd, flush, reps=5)}
+    lib["flash_attention_bwd_dq"] = lib["flash_attention_bwd_dkv"] = \
+        time_ms(torch, sdpa_bwd, flush, reps=5)
+    log(f"[flash] SDPA at the path's shapes runs on {backend}; its "
+        f"backward computes dQ, dK and dV in one call, so K5's and K6's "
+        f"library time is that one call")
+    rows = {}
+    for name, (kern, plain) in calls.items():
+        n_bytes, n_ops = work[name]
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        t_ops = n_ops / PEAK_OPS["bfloat16"] * 1e3
+        rows[name] = dict(
+            max_abs_err=errs["bfloat16"][name][0],
+            ms=time_ms(torch, kern, flush, reps=5),
+            plain_ms=time_ms(torch, plain, flush, reps=3),
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=lib[name])
+        r = rows[name]
+        log(f"[flash] {name} bf16 time {r['ms']:.3f} ms, plain "
+            f"{r['plain_ms']:.3f} ms, SDPA {r['library_ms']:.3f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}: {n_bytes / 1e9:.3f} "
+            f"GB, {n_ops / 1e12:.3f} TFLOP)")
+    del q, k, v, do, out, lse, delta, flush
+    torch.cuda.empty_cache()
+    return rows
+
+
+def sdpa_calls(torch, q, k, v, do):
+    """``scaled_dot_product_attention`` forward, and its backward alone,
+    on the same tensors (timed only; the port never calls it), and the
+    name of the device kernel that ran the forward."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    kw = dict(is_causal=True, scale=TDQK ** -0.5)
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qg, kg, vg, **kw)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        F.scaled_dot_product_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+    names = [e.key for e in sorted(prof.key_averages(),
+                                   key=lambda e: -e.self_device_time_total)
+             if e.device_type.name == "CUDA"]
+    return (lambda: F.scaled_dot_product_attention(q, k, v, **kw),
+            lambda: torch.autograd.grad(out, (qg, kg, vg), do,
+                                        retain_graph=True),
+            names[0][:80] if names else "an unnamed kernel")
 
 
 # --------------------------------------------------- phase 3: full width --
@@ -464,6 +713,270 @@ def token_parity(torch):
         raise AssertionError(f"tokens differ: {outs}")
 
 
+# ------------------------------------------------------ phase 5: training --
+
+
+def train_full_width(torch):
+    import gc
+
+    from repro_torch import configs, models
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.nn import module as nnm
+    from repro_torch.optim import AdamWConfig, adamw_init, cosine
+    from repro_torch.runtime import TrainStepConfig, make_train_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(configs.full("deepseek-v2-236b"),
+                              n_layers=TRAIN_LAYERS)
+    warm, timed, loss_chunk = 1, 3, 1024
+    t0 = time.perf_counter()
+    params = nnm.init_params(models.model_defs(cfg), seed=0,
+                             dtype=torch.bfloat16, device="cuda")
+    # the training launcher's schedule at its default length
+    opt_cfg = AdamWConfig(lr=cosine(3e-4, warmup=20, total=100))
+    opt = adamw_init(params, opt_cfg)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"[train] {cfg.name} cut to {cfg.n_layers} layers (depth only; "
+        f"plan {[d.ffn for d, _ in models.lm.layers(cfg, params)]}): "
+        f"{n_params / 1e9:.3f} B params, bf16 params "
+        f"{n_params * 2 / 1e9:.2f} GB + f32 moments "
+        f"{n_params * 8 / 1e9:.2f} GB, built in "
+        f"{time.perf_counter() - t0:.1f}s; batch {TB} x {TL} (not cut), "
+        f"MoE capacity factor {cfg.capacity_factor}, impl 'kernel', "
+        f"vocab-chunked loss {loss_chunk}")
+    step = make_train_step(cfg, opt_cfg, TrainStepConfig(
+        compute_dtype=torch.bfloat16, impl="kernel", loss_chunk=loss_chunk))
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TL,
+                                  global_batch=TB, seed=0))
+
+    def batch():
+        toks, labels = data.next_batch()
+        return {"tokens": torch.as_tensor(toks, device="cuda"),
+                "labels": torch.as_tensor(labels, device="cuda")}
+
+    losses, times = [], []
+    for i in range(warm + timed):
+        b = batch()
+        if i == warm:
+            for kern in (fa.flash_fwd_kernel, fa.flash_bwd_dq_kernel,
+                         fa.flash_bwd_dkv_kernel):
+                kern.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        loss = float(m["loss"])
+        log(f"[train] step {i + 1}{' (warm-up)' if i < warm else ''}: loss "
+            f"{loss:.4f}, ce {float(m['ce']):.4f}, grad norm "
+            f"{float(m['grad_norm']):.4f}, lr {float(m['lr']):.3g}, "
+            f"dropped {float(m['dropped_frac']):.4f}, {dt * 1e3:.1f} ms")
+        if not math.isfinite(loss):
+            raise AssertionError(f"step {i + 1}: loss {loss} is not finite")
+        losses.append(loss)
+        if i >= warm:
+            times.append(dt)
+    launches = {"flash_attention_fwd": fa.flash_fwd_kernel.launches,
+                "flash_attention_bwd_dq": fa.flash_bwd_dq_kernel.launches,
+                "flash_attention_bwd_dkv": fa.flash_bwd_dkv_kernel.launches}
+    ms = 1e3 * sum(times) / len(times)
+    log(f"[train] {timed} timed steps: {ms:.1f} ms/step mean "
+        f"({', '.join(f'{t * 1e3:.1f}' for t in times)}), "
+        f"{TB * TL / (ms / 1e3):.0f} tokens/s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
+        f"{launches}")
+    # remat does not apply: a 2-layer plan has no scanned period
+    want = {k_: TRAIN_LAYERS * timed for k_ in launches}
+    if launches != want:
+        raise AssertionError(f"kernel launches {launches} != {want}")
+    del params, opt, step, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_attention_check(torch):
+    """The MLA call site's attention in bf16 at the training path's
+    shapes: ``ops.attention(impl='kernel')`` (the autograd Function over
+    K4, K5 and K6) on (B, L, H, D) tensors passed as transposed views, as
+    ``_mla_seq`` passes them, against autograd through the dense oracle
+    ``flash_attention_ref`` (f32 softmax; run 32 heads of one sequence at
+    a time to bound its memory).  Out and the q, k, v gradients are each
+    held as a whole (ATTN_REL_L2; phase 2 holds the kernels row by row).
+    No router is involved, so the comparison is in the path's own
+    dtype."""
+    import gc
+
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(7)
+
+    def rn(d):
+        return torch.randn((TB, TL, TH, d), generator=g,
+                           device="cuda").to(torch.bfloat16)
+
+    q, k, v, do = rn(TDQK), rn(TDQK), rn(TDV), rn(TDV)
+    scale = TDQK ** -0.5
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+
+    def attend(impl, q_, k_, v_):
+        return ops.attention(q_.transpose(1, 2), k_.transpose(1, 2),
+                             v_.transpose(1, 2), impl=impl, causal=True,
+                             softmax_scale=scale).transpose(1, 2)
+
+    out = attend("kernel", *leaves)
+    got = [out.detach()] + list(torch.autograd.grad(out, leaves, do))
+    want = [torch.empty_like(t) for t in got]
+    for b in range(TB):
+        for h0 in range(0, TH, 32):
+            sl = (slice(b, b + 1), slice(None), slice(h0, h0 + 32))
+            part = [t.detach()[sl].requires_grad_() for t in leaves]
+            o = attend("ref", *part)
+            for w, t in zip(want, [o.detach()] + list(
+                    torch.autograd.grad(o, part, do[sl]))):
+                w[sl] = t
+    errs = {n: ((a.float() - b.float()).norm() / b.float().norm()).item()
+            for n, a, b in zip(("out", "dq", "dk", "dv"), got, want)}
+    rows = {n: row_rel(torch, a, b) for n, a, b in zip(
+        ("out", "dq", "dk", "dv"), got, want)}
+    log(f"[train] MLA attention at the path's shapes, bf16, kernel "
+        f"Function vs dense oracle under autograd: |a - b| / |b| "
+        + ", ".join(f"{n} {e:.3g}" for n, e in errs.items())
+        + f" (bound {ATTN_REL_L2}); largest per-row, not bounded: "
+        + ", ".join(f"{n} {e:.3g}" for n, e in rows.items()))
+    if max(errs.values()) > ATTN_REL_L2:
+        raise AssertionError("the flash-attention Function disagrees with "
+                             "the dense oracle in bf16")
+    del q, k, v, do, leaves, out, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_grad_check(torch):
+    """Full-width loss and per-leaf gradients, impl='kernel' against
+    impl='ref' (the dense attention): in f32 with 2 layers at drop-free
+    MoE capacity, and in bf16 with the dense first layer alone, each at
+    2 x 512 tokens."""
+    import gc
+
+    from repro_torch import configs, models
+    from repro_torch.nn import module as nnm
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime import lm_loss
+
+    full = configs.full("deepseek-v2-236b")
+    for dtype_name, cfg, what in (
+            ("float32", drop_free(dataclasses.replace(
+                full, n_layers=TRAIN_LAYERS)), "2 layers, drop-free MoE"),
+            ("bfloat16", dataclasses.replace(full, n_layers=1),
+             "the dense layer 0 alone")):
+        dtype = getattr(torch, dtype_name)
+        params = nnm.init_params(models.model_defs(cfg), seed=1, dtype=dtype,
+                                 device="cuda")
+        g = torch.Generator(device="cuda")
+        g.manual_seed(3)
+        toks = torch.randint(0, cfg.vocab, (2, 513), generator=g,
+                             device="cuda")
+        leaves = list(tree_leaves(params))
+
+        def grads(impl):
+            for t in leaves:
+                t.requires_grad_(True)
+            loss, _ = lm_loss(params, cfg, toks[:, :-1], toks[:, 1:],
+                              compute_dtype=dtype, impl=impl)
+            out = torch.autograd.grad(loss, leaves)
+            for t in leaves:
+                t.requires_grad_(False)
+            return loss.item(), out
+
+        loss_r, g_r = grads("ref")
+        loss_k, g_k = grads("kernel")
+        rel = [((a.float() - b.float()).norm()
+                / b.float().norm().clamp_min(1e-30)).item()
+               for a, b in zip(g_k, g_r)]
+        loss_rel = abs(loss_k - loss_r) / abs(loss_r)
+        tol = TRAIN_GRAD_REL_L2[dtype_name]
+        log(f"[train] kernel vs ref at 2 x 512 tokens, {dtype_name}, {what}: "
+            f"loss {loss_k:.6f} vs {loss_r:.6f} (rel {loss_rel:.2e}), "
+            f"per-leaf gradient |a-b|/|b| max {max(rel):.2e} over "
+            f"{len(rel)} leaves (bound {tol})")
+        if max(rel) > tol or loss_rel > tol:
+            raise AssertionError(f"kernel-path gradients disagree with the "
+                                 f"reference path in {dtype_name}")
+        del params, leaves, g_r, g_k
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def train_loop_resume(torch):
+    """TrainLoop at smoke size on the card with impl='kernel': checkpoints
+    every 2 steps, an injected failure after step 4, a relaunch that
+    resumes from the step-4 checkpoint with exactly the state the failed
+    run saved, and runs to step 6 alongside an uninterrupted run."""
+    import tempfile
+
+    from repro_torch import configs, models
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.nn import module as nnm
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime import (LoopConfig, SimulatedFailure, TrainLoop,
+                                     TrainStepConfig, make_train_step)
+
+    cfg = drop_free(configs.smoke("deepseek-v2-236b"))
+    opt_cfg = AdamWConfig(lr=1e-3)
+    step = make_train_step(cfg, opt_cfg, TrainStepConfig(
+        compute_dtype=torch.float32, impl="kernel"))
+
+    def fresh():
+        p = nnm.init_params(models.model_defs(cfg), seed=0,
+                            dtype=torch.float32, device="cuda")
+        return p, adamw_init(p, opt_cfg)
+
+    def data():
+        return SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=64,
+                                      global_batch=4))
+
+    quiet = dict(log=lambda *_: None)
+    with tempfile.TemporaryDirectory() as d:
+        kw = dict(total_steps=6, ckpt_every=2, log_every=0)
+        whole = TrainLoop(LoopConfig(ckpt_dir=os.path.join(d, "a"), **kw),
+                          step, *fresh(), data(), **quiet)
+        m_whole = whole.run()
+        failed = TrainLoop(LoopConfig(ckpt_dir=os.path.join(d, "b"),
+                                      fail_at_step=4, **kw),
+                           step, *fresh(), data(), **quiet)
+        try:
+            failed.run()
+            raise AssertionError("the failure drill did not fire")
+        except SimulatedFailure:
+            pass
+        resumed = TrainLoop(LoopConfig(ckpt_dir=os.path.join(d, "b"), **kw),
+                            step, *fresh(), data(), **quiet)
+        start = resumed.step
+        exact = start == 4 and all(
+            torch.equal(a, b) for a, b in zip(
+                tree_leaves([resumed.params, resumed.opt_state]),
+                tree_leaves([failed.params, failed.opt_state])))
+        m_resumed = resumed.run()
+        steps = resumed.store.steps()
+    diff = max((a - b).abs().max().item() for a, b in zip(
+        tree_leaves(whole.params), tree_leaves(resumed.params)))
+    log(f"[train] TrainLoop smoke on the card: failure after step 4, "
+        f"resumed at step {start} with the saved state "
+        f"{'exactly' if exact else 'NOT exactly'}, checkpoints {steps}, "
+        f"final loss {float(m_resumed['loss']):.4f} vs uninterrupted "
+        f"{float(m_whole['loss']):.4f}, max |param diff| {diff:.2e} "
+        f"(index_add_ sums in no fixed order on the card: bound 1e-4)")
+    if not (exact and steps == [2, 4, 6] and diff <= 1e-4):
+        raise AssertionError("the training loop did not resume correctly")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -485,15 +998,27 @@ def main() -> int:
         f"{[os.path.basename(p) for p in paths]}")
 
     rows = check_kernels(torch)
+    rows.update(check_flash(torch))
     launches = full_width(torch, np)
     token_parity(torch)
+    launches.update(train_full_width(torch))
+    train_attention_check(torch)
+    train_grad_check(torch)
+    train_loop_resume(torch)
 
-    meta = {"mla_decode_paged": ("src/repro_torch/kernels/csrc/"
-                                 "mla_decode_paged.cu",
+    csrc = "src/repro_torch/kernels/csrc/"
+    meta = {"mla_decode_paged": (csrc + "mla_decode_paged.cu",
                                  "src/repro/kernels/mla_decode.py:170"),
-            "mla_prefill_paged": ("src/repro_torch/kernels/csrc/"
-                                  "mla_prefill_paged.cu",
-                                  "src/repro/kernels/mla_prefill.py:106")}
+            "mla_prefill_paged": (csrc + "mla_prefill_paged.cu",
+                                  "src/repro/kernels/mla_prefill.py:106"),
+            "flash_attention_fwd": (csrc + "flash_attention_fwd.cu",
+                                    "src/repro/kernels/flash_attention.py:76"),
+            "flash_attention_bwd_dq": (
+                csrc + "flash_attention_bwd_dq.cu",
+                "src/repro/kernels/flash_attention.py:212"),
+            "flash_attention_bwd_dkv": (
+                csrc + "flash_attention_bwd_dkv.cu",
+                "src/repro/kernels/flash_attention.py:212")}
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": launches[name],
                 **rows[name]}

@@ -12,8 +12,10 @@ Decode score chain (paper notation, per head):
   'rc'     recompute W_absorb = W_up^Q @ W_up^{K,T} every step;
   'ru'     stream the precomputed W_absorb (``attach_absorbed_tree``).
 
-All schemes compute the same function with the same weights.  The
-attention itself runs either on the gathered (B, S) block-table view
+All schemes compute the same function with the same weights.
+:func:`mla_prefill` is the training forward ("MHA mode": K and V are
+up-projected per head and attended densely, or in the flash-attention
+kernels through ``attn_fn``).  The paged attention itself runs either on the gathered (B, S) block-table view
 (``impl='gather'``, the reference) or in the paged CUDA kernels, which
 walk the block table in place (``impl='kernel'``; their plain blockwise
 versions for CPU tensors).  Products of native-dtype operands that the
@@ -32,6 +34,7 @@ from ..kernels.ref import NEG_INF
 from ..nn import layers as nl
 from ..nn.module import P
 from . import cache as cachelib
+from .attention import gqa_attention
 
 SCHEMES = ("naive", "seq", "rc", "ru")
 IMPLS = ("gather", "kernel")
@@ -161,6 +164,34 @@ def _check(scheme: str, impl: str) -> None:
 
 
 # ----------------------------------------------------------------- prefill -
+
+
+def mla_prefill(params, cfg: MLAConfig, x, positions, *, attn_fn=None,
+                return_cache: bool = False):
+    """Training / prefill forward in MHA mode: up-project the latents to
+    per-head K and V and attend in the full space.
+
+    x: (B, L, D); positions (B, L).  ``attn_fn(q, k, v, softmax_scale)``
+    takes (B, L, H, D) tensors and returns (B, L, H, Dv); None runs the
+    dense :func:`gqa_attention`.  Returns (out (B, L, D), {ckv, krope} if
+    ``return_cache`` else None).
+    """
+    _, q_nope, q_rope = _q_proj(params, cfg, x, positions)
+    ckv, krope = _kv_latent(params, cfg, x, positions)
+    k_nope = torch.einsum("blk,khn->blhn", ckv, params["w_uk"].to(x.dtype))
+    v = torch.einsum("blk,khv->blhv", ckv, params["w_uv"].to(x.dtype))
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, krope[:, :, None, :].expand(
+        *k_nope.shape[:3], cfg.qk_rope_dim)], dim=-1)
+    scale = cfg.qk_dim ** -0.5
+    if attn_fn is None:
+        o = gqa_attention(q, k, v, causal=True, q_positions=positions[0],
+                          k_positions=positions[0], softmax_scale=scale)
+    else:
+        o = attn_fn(q, k, v, softmax_scale=scale)
+    out = torch.einsum("blhv,hvd->bld", o, params["w_o"].to(x.dtype))
+    entries = {"ckv": ckv, "krope": krope} if return_cache else None
+    return out, entries
 
 
 def mla_prefill_chunk_paged(params, cfg: MLAConfig, x, pool: Dict[str, Any],

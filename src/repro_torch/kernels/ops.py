@@ -1,17 +1,18 @@
-"""Public entry points of the paged MLA attention kernels (port of
+"""Public entry points of the attention kernels (port of
 ``repro.kernels.ops``, single device, without its shard_map branches).
 
-  impl='ref'    the plain PyTorch oracle (``ref``: gathered view, one
-                exact softmax)
+  impl='ref'    the plain PyTorch oracle (``ref``: dense, or the gathered
+                paged view, one exact softmax)
   impl='kernel' the hand-written CUDA kernel for CUDA tensors; its plain
-                blockwise version for CPU tensors (``mla_decode`` /
-                ``mla_prefill`` wrappers)
+                blockwise version for CPU tensors (``flash_attention`` /
+                ``mla_decode`` / ``mla_prefill`` wrappers)
 """
 from __future__ import annotations
 
 from typing import Optional
 
 from . import ref
+from .flash_attention import flash_attention
 from .mla_decode import mla_decode_paged_kernel
 from .mla_prefill import mla_prefill_paged_kernel
 
@@ -21,6 +22,19 @@ IMPLS = ("ref", "kernel")
 def _check_impl(impl: str) -> None:
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}; expected {IMPLS}")
+
+
+def attention(q, k, v, *, impl: str = "ref", causal: bool = True,
+              window: Optional[int] = None, q_offset: int = 0,
+              softmax_scale: Optional[float] = None):
+    """q: (B, H, Lq, Dqk); k, v: (B, Hkv, Lk, D) -> (B, H, Lq, Dv).
+    'kernel' is differentiable through the flash backward kernels."""
+    _check_impl(impl)
+    if impl == "ref":
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       q_offset=q_offset,
+                                       softmax_scale=softmax_scale)
+    return flash_attention(q, k, v, causal, window, q_offset, softmax_scale)
 
 
 def mla_decode_paged_attention(q_full, ckv_pages, krope_pages, block_tables,

@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the two paged MLA attention kernels (port of
 ``repro.kernels.ref``, plus the online-softmax tile update of
-``repro.kernels.mla_decode``).
+``repro.kernels.mla_decode``), and the dense flash-attention oracle
+:func:`flash_attention_ref`.
 
 Each function takes the kernel's inputs and returns its output:
 
@@ -24,6 +25,30 @@ import torch
 NEG_INF = -2.0 ** 30
 INV_LN2 = 1.4426950408889634        # log2(e): folds exp into exp2
 RESCALES = ("exp_add", "mul")
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True,
+                        window: Optional[int] = None, q_offset: int = 0,
+                        softmax_scale: Optional[float] = None):
+    """q: (B, H, Lq, Dqk); k, v: (B, Hkv, Lk, D*) -> (B, H, Lq, Dv) in q's
+    dtype.  Dense reference with an f32 softmax; ``q_offset`` is the
+    absolute position of q[:, :, 0] and the masks use absolute
+    positions."""
+    B, H, Lq, Dqk = q.shape
+    Hkv, Lk = k.shape[1], k.shape[2]
+    scale = softmax_scale if softmax_scale is not None else Dqk ** -0.5
+    qg = q.reshape(B, Hkv, H // Hkv, Lq, Dqk).float()
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) * scale
+    q_pos = q_offset + torch.arange(Lq, device=q.device)[:, None]
+    k_pos = torch.arange(Lk, device=q.device)[None, :]
+    mask = torch.ones((Lq, Lk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window is not None:
+        mask &= k_pos > q_pos - window
+    p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
+    o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
+    return o.reshape(B, H, Lq, v.shape[-1]).to(q.dtype)
 
 
 def exp_add_rescale(x, d_i):

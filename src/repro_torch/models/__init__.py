@@ -1,6 +1,8 @@
-"""Model API of the port (paged MLA serving of decoder-only models):
+"""Model API of the port (paged MLA serving and training of decoder-only
+models):
 
     model_defs(cfg)                                   param definitions
+    forward(params, cfg, tokens, ...)                 -> logits, aux
     prefill_chunk_paged(params, cfg, tokens, pool, block_tables, lengths,
                         n_valid, ...)                 -> logits, pool
     decode_step(params, cfg, token, pool, block_tables, lengths, ...)
@@ -11,7 +13,7 @@ from __future__ import annotations
 
 from . import lm
 from .common import ModelConfig, Sub
-from .lm import decode_step, init_paged_cache, prefill_chunk_paged
+from .lm import decode_step, forward, init_paged_cache, prefill_chunk_paged
 
 
 def model_defs(cfg: ModelConfig):
@@ -21,5 +23,6 @@ def model_defs(cfg: ModelConfig):
     return lm.lm_defs(cfg)
 
 
-__all__ = ["ModelConfig", "Sub", "decode_step", "init_paged_cache", "lm",
+__all__ = ["ModelConfig", "Sub", "decode_step", "forward",
+           "init_paged_cache", "lm",
            "model_defs", "prefill_chunk_paged"]

@@ -6,8 +6,10 @@
     sub_apply(params, cfg, desc, x, ctx)     -> (x, pool, aux)
     sub_paged_cache(cfg, desc, ..., device)  -> this sublayer's paged pool
 
-Only MLA attention with a dense or MoE FFN, in the two paged serving
-modes ('decode' and 'prefill_chunk'), is ported; other mixers and modes
+Only MLA attention with a dense or MoE FFN is ported, in the two paged
+serving modes ('decode', 'prefill_chunk') and in 'train' (MHA-mode MLA
+over the whole sequence, attention dense with ``impl='ref'`` or in the
+flash-attention kernels with ``impl='kernel'``); other mixers and modes
 raise ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -19,20 +21,22 @@ import torch
 
 from ..core import cache as cachelib
 from ..core import mla as mlalib
+from ..kernels import ops as kops
 from ..nn import layers as nl
 from . import moe as moelib
 from .common import ModelConfig, Sub
 
-MODES = ("decode", "prefill_chunk")
+MODES = ("decode", "prefill_chunk", "train")
 # engine/model ``impl`` -> the attention path of core.mla
 _MLA_IMPL = {"ref": "gather", "kernel": "kernel"}
 
 
 @dataclasses.dataclass
 class Ctx:
-    mode: str                       # decode | prefill_chunk
+    mode: str                       # decode | prefill_chunk | train
     impl: str = "ref"               # attention impl: 'ref' | 'kernel'
     scheme: str = "seq"             # MLA execution scheme
+    positions: Any = None           # (B, L) int — train only
     cache: Optional[Dict] = None    # this sublayer's paged pool
     block_tables: Any = None        # (B, max_blocks) int32
     lengths: Any = None             # (B,) int32 — ragged per request
@@ -74,25 +78,48 @@ def sub_paged_cache(cfg: ModelConfig, desc: Sub, num_blocks: int,
 AUX_KEYS = ("balance", "z_loss", "dropped_frac")
 
 
+def _mla_seq(params, cfg: ModelConfig, desc: Sub, x, ctx: Ctx):
+    """Train forward of one MLA sublayer over the whole sequence.
+    x: (B, L, D) normalized input."""
+    attn_fn = None
+    if ctx.impl == "kernel":
+        def attn_fn(q, k, v, softmax_scale):
+            return kops.attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                impl="kernel", causal=desc.causal, window=desc.window,
+                softmax_scale=softmax_scale).transpose(1, 2)
+    elif ctx.impl != "ref":
+        raise NotImplementedError(
+            f"train impl {ctx.impl!r}: the port trains with 'ref' or "
+            f"'kernel'; 'chunked' comes with core/chunked_attention.py "
+            f"(ROADMAP.md queue 1, item 17)")
+    out, _ = mlalib.mla_prefill(params, cfg.mla_config(), x, ctx.positions,
+                                attn_fn=attn_fn)
+    return out
+
+
 def sub_apply(params, cfg: ModelConfig, desc: Sub, x, ctx: Ctx):
-    """x: (B, D) for decode, (B, C, D) for prefill_chunk.
-    Returns (x, pool, aux) — aux holds f32 scalars (zeros without a
-    router)."""
+    """x: (B, D) for decode, (B, C, D) for prefill_chunk, (B, L, D) for
+    train.  Returns (x, pool, aux) — aux holds f32 scalars (zeros without
+    a router); pool is None in train mode."""
     _supported(cfg, desc)
     if ctx.mode not in MODES:
         raise NotImplementedError(
             f"mode {ctx.mode!r}: the port runs {MODES} only (ROADMAP.md)")
-    impl = _MLA_IMPL[ctx.impl]
     h = nl.rmsnorm(params["ln1"], x, cfg.norm_eps)
-    if ctx.mode == "decode":
+    pool = ctx.cache
+    if ctx.mode == "train":
+        a = _mla_seq(params["attn"], cfg, desc, h, ctx)
+    elif ctx.mode == "decode":
         a, pool = mlalib.mla_decode_paged(
             params["attn"], cfg.mla_config(), h, ctx.cache,
-            ctx.block_tables, ctx.lengths, scheme=ctx.scheme, impl=impl)
+            ctx.block_tables, ctx.lengths, scheme=ctx.scheme,
+            impl=_MLA_IMPL[ctx.impl])
     else:
         a, pool = mlalib.mla_prefill_chunk_paged(
             params["attn"], cfg.mla_config(), h, ctx.cache,
             ctx.block_tables, ctx.lengths, ctx.n_valid, scheme=ctx.scheme,
-            impl=impl)
+            impl=_MLA_IMPL[ctx.impl])
     x = x + a
 
     aux = {k: x.new_zeros((), dtype=torch.float32) for k in AUX_KEYS}

@@ -1,11 +1,15 @@
-"""Decoder-only LM for paged MLA serving (port of ``repro.models.lm``).
+"""Decoder-only LM for paged MLA serving and training (port of
+``repro.models.lm``).
 
 Layer stack = prefix + periods + suffix of ``ModelConfig.layer_plan``.
 The JAX package scans each period over stacked weights; the port keeps one
 parameter dict and one pool per layer (``params["period"][p]["s{i}"]``)
-and runs the stack as a Python loop.
+and runs the stack as a Python loop.  Under ``cfg.remat`` each period of
+the training forward runs under ``torch.utils.checkpoint`` (the
+reference's ``jax.checkpoint`` of the scanned body).
 
     lm_defs(cfg)                                              param defs
+    forward(params, cfg, tokens, ...)                   -> logits, aux
     prefill_chunk_paged(params, cfg, tokens, pool, ...) -> logits, pool
     decode_step(params, cfg, token, pool, ...)          -> logits, pool
     init_paged_cache(cfg, num_blocks, block_size, ...)        pool tree
@@ -20,6 +24,7 @@ import math
 from typing import Dict, Iterator, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..nn import layers as nl
 from ..nn import module as nnm
@@ -72,19 +77,80 @@ def layers(cfg: ModelConfig, tree) -> Iterator[Tuple[Sub, Dict]]:
         yield desc, tree["suffix"][f"l{i}"]
 
 
-def _run_stack(params, cfg: ModelConfig, x, ctx: Ctx, pools):
-    """Returns (x, pools, aux summed over layers)."""
+def _run_stack(params, cfg: ModelConfig, x, ctx: Ctx, pools=None):
+    """Returns (x, pools, aux summed over layers).  ``pools`` (laid out
+    like the params) is None in train mode."""
+    prefix, period, n_periods, suffix = cfg.layer_plan()
     aux_sum = {k: x.new_zeros((), dtype=torch.float32) for k in AUX_KEYS}
-    for (desc, p), (_, pool) in zip(layers(cfg, params), layers(cfg, pools)):
-        x, _, aux = sub_apply(p, cfg, desc, x,
-                              dataclasses.replace(ctx, cache=pool))
-        aux_sum = {k: aux_sum[k] + aux[k] for k in AUX_KEYS}
+
+    def run(descs, p_node, pool_node, keys, x):
+        """The sublayers ``keys`` of one node, in order; returns x and
+        their summed aux as a tuple (checkpoint-friendly)."""
+        aux_tot = [x.new_zeros((), dtype=torch.float32) for _ in AUX_KEYS]
+        for desc, key in zip(descs, keys):
+            pool = pool_node[key] if pool_node is not None else None
+            x, _, aux = sub_apply(p_node[key], cfg, desc, x,
+                                  dataclasses.replace(ctx, cache=pool))
+            aux_tot = [a + aux[k] for a, k in zip(aux_tot, AUX_KEYS)]
+        return (x, *aux_tot)
+
+    def node(tree, *path):
+        for k in path:
+            tree = tree[k] if tree is not None else None
+        return tree
+
+    segments = [(prefix, ("prefix",), [f"l{i}" for i in range(len(prefix))],
+                 False)]
+    segments += [(period, ("period", p), [f"s{i}" for i in range(len(period))],
+                  ctx.mode == "train" and cfg.remat)
+                 for p in range(n_periods)]
+    segments.append((suffix, ("suffix",),
+                     [f"l{i}" for i in range(len(suffix))], False))
+    for descs, path, keys, remat in segments:
+        if not descs:
+            continue
+        args = (descs, node(params, *path), node(pools, *path), keys)
+        if remat:
+            x, *aux = checkpoint(run, *args, x, use_reentrant=False)
+        else:
+            x, *aux = run(*args, x)
+        aux_sum = {k: aux_sum[k] + a for k, a in zip(AUX_KEYS, aux)}
     return x, pools, aux_sum
+
+
+def _embed(params, cfg: ModelConfig, tokens, dtype):
+    x = nl.embed(params["embed"], tokens, dtype)
+    if cfg.embed_scale:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dtype)
+    return x
 
 
 def _logits(params, cfg: ModelConfig, x):
     x = nl.rmsnorm(params["ln_f"], x, cfg.norm_eps)
     return nl.unembed(params["embed"], x)
+
+
+def forward(params, cfg: ModelConfig, tokens, *,
+            compute_dtype=torch.bfloat16, impl: str = "ref",
+            scheme: str = "seq", return_hidden: bool = False):
+    """Training forward.  tokens: (B, L).  Returns (logits (B, L, V), aux);
+    with ``return_hidden`` the final-norm hidden states (B, L, D) instead
+    of logits (the vocab-chunked loss unembeds them itself).  ``impl``
+    'kernel' runs every MLA layer's attention in the flash-attention
+    kernels (forward and backward); 'ref' densely.  Training runs MLA in
+    MHA mode, so ``scheme`` must be 'seq' (the decode schemes 'rc'/'ru'
+    apply to serving only)."""
+    if scheme != "seq":
+        raise ValueError(f"training runs MLA in MHA mode: scheme must be "
+                         f"'seq', got {scheme!r}")
+    x = _embed(params, cfg, tokens, compute_dtype)
+    B, L, _ = x.shape
+    positions = torch.arange(L, device=x.device).expand(B, L)
+    ctx = Ctx(mode="train", impl=impl, scheme=scheme, positions=positions)
+    x, _, aux = _run_stack(params, cfg, x, ctx)
+    if return_hidden:
+        return nl.rmsnorm(params["ln_f"], x, cfg.norm_eps), aux
+    return _logits(params, cfg, x), aux
 
 
 def prefill_chunk_paged(params, cfg: ModelConfig, tokens, pool,

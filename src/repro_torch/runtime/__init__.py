@@ -1,10 +1,13 @@
 from .engine import EngineStats, PagedMLAEngine
-from .loop import drive
+from .loop import LoopConfig, SimulatedFailure, TrainLoop, drive
 from .prefix_cache import PrefixCache, PrefixCacheStats
 from .sampling import SamplingParams
 from .scheduler import (BlockAllocator, ContinuousScheduler, Request,
                         blocks_for)
+from .steps import TrainStepConfig, lm_loss, make_train_step
 
 __all__ = ["BlockAllocator", "ContinuousScheduler", "EngineStats",
-           "PagedMLAEngine", "PrefixCache", "PrefixCacheStats", "Request",
-           "SamplingParams", "blocks_for", "drive"]
+           "LoopConfig", "PagedMLAEngine", "PrefixCache", "PrefixCacheStats",
+           "Request", "SamplingParams", "SimulatedFailure", "TrainLoop",
+           "TrainStepConfig", "blocks_for", "drive", "lm_loss",
+           "make_train_step"]

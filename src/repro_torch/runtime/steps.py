@@ -1,0 +1,139 @@
+"""The training step (port of the single-device training half of
+``repro.runtime.steps``): the causal-LM loss and ``make_train_step``.
+
+    lm_loss(params, cfg, tokens, labels, ...)  -> (loss, metrics)
+    make_train_step(cfg, opt_cfg, ts)          -> step(params, opt_state,
+                                                       batch)
+
+The step takes gradients with ``torch.autograd.grad`` over the plain
+param tree and applies the in-place AdamW of ``optim.adamw``: it
+overwrites the params and moments it is given and returns them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Tuple
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from .. import models
+from ..models.common import ModelConfig
+from ..nn import layers as nl
+from ..optim import AdamWConfig, adamw_update
+from ..optim.adamw import tree_leaves, tree_map
+
+METRIC_KEYS = ("loss", "ce", "balance", "z_loss", "dropped_frac")
+
+
+def _ce_terms(logits, labels):
+    """Σ masked CE and Σ mask over a (B, L, V) block, in f32."""
+    logits = logits.float()
+    mask = (labels >= 0).float()
+    labels_safe = torch.clamp(labels, min=0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels_safe[..., None])[..., 0]
+    return torch.sum((logz - gold) * mask), torch.sum(mask)
+
+
+def _chunk_ce(embed_params, xc, lc):
+    return _ce_terms(nl.unembed(embed_params, xc), lc)
+
+
+def lm_loss(params, cfg: ModelConfig, tokens, labels, *,
+            compute_dtype=torch.bfloat16, impl: str = "ref",
+            scheme: str = "seq", loss_chunk: int = 0
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Causal-LM cross entropy (+ the MoE aux losses).  labels are the
+    next tokens; entries < 0 are masked.
+
+    ``loss_chunk > 0``: vocab-chunked CE — the (B, L, V) logits are never
+    materialized; the final hidden states are unembedded and scored
+    ``loss_chunk`` positions at a time, each chunk recomputed in the
+    backward pass (``torch.utils.checkpoint``), so at most
+    B x loss_chunk x V logits are live."""
+    if loss_chunk:
+        x, aux = models.forward(params, cfg, tokens,
+                                compute_dtype=compute_dtype, impl=impl,
+                                scheme=scheme, return_hidden=True)
+        B, L, D = x.shape
+        c = min(loss_chunk, L)
+        pad = -L % c
+        if pad:
+            x = torch.cat([x, x.new_zeros((B, pad, D))], dim=1)
+            labels = torch.cat([labels, labels.new_full((B, pad), -100)],
+                               dim=1)
+        ce_sum = x.new_zeros((), dtype=torch.float32)
+        n_tok = x.new_zeros((), dtype=torch.float32)
+        for i in range(0, x.shape[1], c):
+            s, m = checkpoint(_chunk_ce, params["embed"], x[:, i:i + c],
+                              labels[:, i:i + c], use_reentrant=False)
+            ce_sum, n_tok = ce_sum + s, n_tok + m
+    else:
+        logits, aux = models.forward(params, cfg, tokens,
+                                     compute_dtype=compute_dtype, impl=impl,
+                                     scheme=scheme)
+        ce_sum, n_tok = _ce_terms(logits, labels)
+    ce = ce_sum / torch.clamp(n_tok, min=1.0)
+    loss = ce
+    if cfg.n_experts:
+        loss = loss + cfg.router_aux_coef * aux["balance"] \
+            + 1e-3 * aux["z_loss"]
+    return loss, {"loss": loss, "ce": ce, **aux}
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainStepConfig:
+    microbatches: int = 1           # gradient accumulation
+    compute_dtype: Any = torch.bfloat16
+    impl: str = "ref"
+    scheme: str = "seq"
+    loss_chunk: int = 0             # vocab-chunked CE (0 = dense logits)
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
+                    ts: TrainStepConfig = TrainStepConfig()):
+    """Returns step(params, opt_state, batch) -> (params, opt_state,
+    metrics); batch is {tokens, labels} (B, L) integer tensors on the
+    params' device.  ``microbatches`` > 1 splits the batch, sums f32
+    gradients and averages them, as the reference's scan does."""
+
+    def grads_of(params, batch):
+        leaves = list(tree_leaves(params))
+        for t in leaves:
+            t.requires_grad_(True)
+        try:
+            loss, metrics = lm_loss(
+                params, cfg, batch["tokens"], batch["labels"],
+                compute_dtype=ts.compute_dtype, impl=ts.impl,
+                scheme=ts.scheme, loss_chunk=ts.loss_chunk)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        finally:
+            for t in leaves:
+                t.requires_grad_(False)
+        it = iter(g if g is not None else torch.zeros_like(t)
+                  for g, t in zip(grads, leaves))
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return tree_map(lambda _: next(it), params), metrics
+
+    def step(params, opt_state, batch):
+        mb = ts.microbatches
+        if mb > 1:
+            g_sum = tree_map(lambda p: torch.zeros(
+                p.shape, dtype=torch.float32, device=p.device), params)
+            m_sum = {k: 0.0 for k in METRIC_KEYS}
+            for i in range(mb):
+                part = {k: v.reshape((mb, v.shape[0] // mb) + v.shape[1:])[i]
+                        for k, v in batch.items()}
+                g, m = grads_of(params, part)
+                tree_map(lambda a, b: a.add_(b), g_sum, g)
+                m_sum = {k: m_sum[k] + m[k] for k in METRIC_KEYS}
+            grads = tree_map(lambda a: a / mb, g_sum)
+            metrics = {k: v / mb for k, v in m_sum.items()}
+        else:
+            grads, metrics = grads_of(params, batch)
+        params, opt_state, opt_metrics = adamw_update(opt_cfg, params, grads,
+                                                      opt_state)
+        return params, opt_state, {**metrics, **opt_metrics}
+
+    return step

@@ -7,6 +7,8 @@ definitions, takes each leaf from the JAX tree (given as numpy arrays,
 ``jax.device_get`` of the params), unstacks the period leaves per layer,
 checks every shape, and puts the result on ``device``.  With it the two
 packages compute the same function in the parity tests.
+:func:`opt_state_from_jax` carries a JAX AdamW state {step, mu, nu}
+across the same way.
 """
 from __future__ import annotations
 
@@ -56,3 +58,13 @@ def from_jax_params(tree: Dict[str, Any], cfg: ModelConfig, *,
                            device, period=p)
                      for p, layer in enumerate(defs["period"])]
     return out
+
+
+def opt_state_from_jax(state: Dict[str, Any], cfg: ModelConfig, *,
+                       device="cuda"):
+    """The port's AdamW state for ``cfg`` holding the JAX state ``state``
+    ({step, mu, nu}, numpy leaves), moments kept in their dtype."""
+    return {"step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32, device=device),
+            "mu": from_jax_params(state["mu"], cfg, device=device),
+            "nu": from_jax_params(state["nu"], cfg, device=device)}

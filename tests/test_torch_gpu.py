@@ -1,5 +1,7 @@
-"""The paged MLA attention CUDA kernels (K1 decode, K2 chunked prefill)
-against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card: the
+paged MLA attention kernels (K1 decode, K2 chunked prefill) and flash
+attention (K4 forward, K5 dQ, K6 dK/dV), and one bf16 training step of
+the smoke model with the flash kernels against the dense path.
 
 Every test here is marked ``gpu`` and skips without a CUDA device (the
 kernels have no CPU mode); on a machine with one:
@@ -10,12 +12,18 @@ The module imports no JAX, so it runs where only PyTorch is installed.
 Shapes and adversarial tables are those of the CPU parity tests in
 ``tests/test_torch_kernels.py``.  Tolerances: f32 1e-4 (summation order
 and exp/exp2 rounding, ~1e-6 measured on an H100); bf16 2e-2 (one bf16
-step of the output, 2^-6 at |o| < 4, plus that noise).
+step of the output, 2^-6 at |o| < 4, plus that noise).  Flash attention
+is held row by row (``_row_close``: the largest |a_r - b_r| / |b_r| of a
+query's out or dQ, a key's dK or dV), f32 1e-4 and bf16
+``FLASH_ROW_TOL``: bf16 rounds P and dS to bf16 for the tensor cores
+where the plain versions keep f32, a few 2^-9 steps per element; a
+skipped tile of 32 keys moves a row that sees n keys by ~sqrt(32 / n).
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.mla_decode import mla_decode_paged_kernel
 from repro_torch.kernels.mla_prefill import mla_prefill_paged_kernel
@@ -110,3 +118,221 @@ def test_kernel_rejects_what_it_does_not_take():
     mla_decode_paged_kernel(q, ckv, krope, bt, idx)
     torch.cuda.synchronize()
     assert mla_decode_paged_kernel.launches == before + 1
+
+
+# (B, H, Hkv, Lq, Lk, Dqk, Dv, window, q_offset), as the CPU parity grid
+FLASH_CASES = [
+    (1, 4, 4, 64, 64, 32, 32, None, 0),      # MHA
+    (2, 4, 2, 48, 48, 16, 16, None, 0),      # GQA 2:1
+    (1, 8, 1, 33, 70, 16, 24, None, 0),      # MQA, ragged, Dv != Dqk
+    (1, 4, 2, 96, 96, 32, 32, 8, 0),         # window
+    (1, 2, 2, 32, 64, 16, 16, None, 32),     # q_offset
+    (2, 4, 4, 40, 40, 40, 24, None, 0),      # MLA-like 24 + 16 split
+    (1, 2, 1, 100, 130, 576, 512, None, 0),  # the widest head dims
+    (2, 4, 4, 70, 70, 192, 128, None, 0),    # DeepSeek-V2 head dims
+    (1, 4, 2, 2112, 2112, 192, 128, None, 0),  # long: key tiles past 2048
+]
+
+
+FLASH_ROW_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+def _row_close(got, want, tol):
+    """max_r |a_r - b_r| / |b_r| <= tol over the rows of the last
+    dimension; a row under 1 % of the median row norm (dQ of query 0 is 0
+    in exact arithmetic, noise on both sides) is measured against that
+    1 %."""
+    a = got.float().reshape(-1, got.shape[-1])
+    b = want.float().reshape(-1, want.shape[-1])
+    norm = b.norm(dim=-1)
+    floor = (0.01 * norm.median()).clamp_min(1e-30)
+    err = ((a - b).norm(dim=-1) / torch.maximum(norm, floor)).max().item()
+    assert err <= tol, err
+
+
+@pytest.mark.parametrize("layout", ["bhld", "blhd"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_kernels_on_card(case, dtype, layout):
+    """K4, K5, K6 against their plain versions; 'blhd' passes (B, L, H, D)
+    tensors as transposed views, as the MLA path does."""
+    dev = _cuda()
+    B, H, Hkv, Lq, Lk, D, Dv, window, q_offset = case
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+
+    def rn(b, h, n, d):
+        if layout == "bhld":
+            return torch.randn((b, h, n, d), generator=g, device=dev).to(dtype)
+        return torch.randn((b, n, h, d), generator=g, device=dev).to(
+            dtype).transpose(1, 2)
+
+    q, k, v, do = rn(B, H, Lq, D), rn(B, Hkv, Lk, D), rn(B, Hkv, Lk, Dv), \
+        rn(B, H, Lq, Dv)
+    kw = dict(causal=True, window=window, q_offset=q_offset, scale=D ** -0.5)
+    out, lse = tfa.flash_fwd_kernel(q, k, v, **kw)
+    out_p, lse_p = tfa.flash_fwd_plain(q, k, v, **kw)
+    assert out.stride() == tuple(out.stride()) and \
+        (out.transpose(1, 2).is_contiguous() == (layout == "blhd"))
+    tol = FLASH_ROW_TOL[dtype]
+    _row_close(out, out_p, tol)
+    # the f32 lse: the same f32 scores summed in another order
+    _close(lse, lse_p, 1e-4)
+    delta = (do.float() * out_p.float()).sum(-1).contiguous()
+    dq = tfa.flash_bwd_dq_kernel(q, k, v, do, lse_p, delta, **kw)
+    dk, dv = tfa.flash_bwd_dkv_kernel(q, k, v, do, lse_p, delta, **kw)
+    torch.cuda.synchronize()
+    _row_close(dq, tfa.flash_bwd_dq_plain(q, k, v, do, lse_p, delta, **kw),
+               tol)
+    dk_p, dv_p = tfa.flash_bwd_dkv_plain(q, k, v, do, lse_p, delta, **kw)
+    _row_close(dk, dk_p, tol)
+    _row_close(dv, dv_p, tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_function_gradients_on_card(dtype):
+    """The autograd Function on the card against autograd through the
+    dense oracle (GQA, window, offset), counting one launch each: f32
+    elementwise within 5e-4; bf16 out, dQ, dK, dV each within 1e-2
+    relative L2 as a whole (the Function takes delta from the bf16
+    output, as the reference does, autograd from the exact one, which
+    dominates dQ on rows whose softmax is nearly one-hot; ~2.5e-3 on an
+    H100, a skipped key tile >= 0.03)."""
+    dev = _cuda()
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    mk = lambda *s: torch.randn(s, generator=g, device=dev).to(
+        dtype).requires_grad_()
+    q, k, v = mk(2, 6, 50, 24), mk(2, 3, 80, 24), mk(2, 3, 80, 20)
+    w = torch.randn((2, 6, 50, 20), generator=g, device=dev).to(dtype)
+    before = (tfa.flash_fwd_kernel.launches, tfa.flash_bwd_dq_kernel.launches,
+              tfa.flash_bwd_dkv_kernel.launches)
+    grads = []
+    for fn in (lambda: tfa.flash_attention(q, k, v, True, 24, 30),
+               lambda: tref.flash_attention_ref(q, k, v, causal=True,
+                                                window=24, q_offset=30)):
+        q.grad = k.grad = v.grad = None
+        out = fn()
+        out.backward(w)
+        grads.append([out.detach()] + [t.grad.clone() for t in (q, k, v)])
+    for a, b in zip(*grads):
+        if dtype == torch.float32:
+            _close(a, b, 5e-4)
+        else:
+            assert _rel_l2(a, b) <= 1e-2
+    assert (tfa.flash_fwd_kernel.launches, tfa.flash_bwd_dq_kernel.launches,
+            tfa.flash_bwd_dkv_kernel.launches) == tuple(n + 1 for n in before)
+
+
+def test_flash_kernels_reject_what_they_do_not_take():
+    dev = _cuda()
+    q = torch.zeros((1, 4, 8, 16), device=dev)
+    k = torch.zeros((1, 2, 8, 16), device=dev)
+    v = torch.zeros((1, 2, 8, 16), device=dev)
+    kw = dict(scale=0.25)
+    for bad in ((q.half(), k, v), (q, k.cpu(), v),
+                (q, torch.zeros((1, 3, 8, 16), device=dev), v),
+                (q, k, torch.zeros((1, 2, 9, 16), device=dev)),
+                (torch.zeros((1, 4, 8, 16, 2), device=dev)[..., 0], k, v),
+                (torch.zeros((1, 4, 8, 600), device=dev),
+                 torch.zeros((1, 2, 8, 600), device=dev), v)):
+        with pytest.raises(ValueError):
+            tfa.flash_fwd_kernel(*bad, **kw)
+    out, lse = tfa.flash_fwd_kernel(q, k, v, **kw)
+    with pytest.raises(ValueError):      # lse must be f32 (B, H, Lq)
+        tfa.flash_bwd_dq_kernel(q, k, v, out, lse.double(), lse, **kw)
+
+
+# bf16 kernel path vs dense path on the smoke model's dense first layer
+# (no router), per leaf |a - b| / |b|: the two round to bf16 at other
+# points (P and dS for the tensor cores; the output), a few 2^-9 steps of
+# the attention output carried through one layer and the head.
+BF16_GRAD_REL_L2 = 5e-2
+
+
+def _kernel_vs_ref_grads(cfg, params, toks, labels, dtype):
+    """(loss, gradients) of ``lm_loss`` for impl 'kernel' and 'ref'."""
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime import lm_loss
+
+    leaves = list(tree_leaves(params))
+    out = {}
+    for impl in ("ref", "kernel"):
+        for t in leaves:
+            t.requires_grad_(True)
+        loss, _ = lm_loss(params, cfg, toks, labels, impl=impl,
+                          compute_dtype=dtype)
+        out[impl] = (loss.item(), torch.autograd.grad(loss, leaves))
+        for t in leaves:
+            t.requires_grad_(False)
+    return out
+
+
+def _rel_l2(a, b):
+    a, b = a.float(), b.float()
+    return (a - b).norm().item() / max(b.norm().item(), 1e-30)
+
+
+def test_smoke_train_step_kernel_matches_ref_on_card():
+    """The flash kernels against the dense attention path on the smoke
+    model.  f32 at drop-free MoE capacity: the loss within 1e-5 relative,
+    each leaf's gradient within 1e-4 relative L2 (summation order).  bf16
+    on the dense first layer alone (in bf16 a near-tie in the top-k
+    routing moves whole expert leaves, so the router stays out): the loss
+    within 1e-3 relative, each leaf's gradient within
+    ``BF16_GRAD_REL_L2``, and one ``make_train_step`` step's loss and
+    gradient norm within the same bounds.  Then one bf16 step of the
+    whole smoke model through ``make_train_step`` launches each kernel
+    once per MLA layer, with a finite loss."""
+    import dataclasses
+
+    from repro_torch import configs, models, optim
+    from repro_torch.nn import module as nnm
+    from repro_torch.runtime import TrainStepConfig, make_train_step
+
+    dev = _cuda()
+    cfg = configs.smoke("deepseek-v2-236b")
+    cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    rng = np.random.default_rng(3)
+    # 256 positions: several key and query tiles per (batch, head)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 256))).to(dev)
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 256))).to(dev)
+    params = nnm.init_params(models.model_defs(cfg), seed=0,
+                             dtype=torch.float32, device=dev)
+    out = _kernel_vs_ref_grads(cfg, params, toks, labels, torch.float32)
+    assert out["kernel"][0] == pytest.approx(out["ref"][0], rel=1e-5)
+    for a, b in zip(out["kernel"][1], out["ref"][1]):
+        assert _rel_l2(a, b) <= 1e-4
+
+    dense = dataclasses.replace(cfg, n_layers=1)
+    assert [d.ffn for d in dense.layer_plan()[0]] == ["dense"]
+    params = nnm.init_params(models.model_defs(dense), seed=0,
+                             dtype=torch.bfloat16, device=dev)
+    out = _kernel_vs_ref_grads(dense, params, toks, labels, torch.bfloat16)
+    assert out["kernel"][0] == pytest.approx(out["ref"][0], rel=1e-3)
+    for a, b in zip(out["kernel"][1], out["ref"][1]):
+        assert _rel_l2(a, b) <= BF16_GRAD_REL_L2
+    opt = optim.AdamWConfig(lr=1e-3)
+    metrics = {}
+    for impl in ("ref", "kernel"):
+        p = nnm.init_params(models.model_defs(dense), seed=0,
+                            dtype=torch.bfloat16, device=dev)
+        step = make_train_step(dense, opt, TrainStepConfig(impl=impl))
+        metrics[impl] = step(p, optim.adamw_init(p, opt),
+                             {"tokens": toks, "labels": labels})[2]
+    assert float(metrics["kernel"]["loss"]) == pytest.approx(
+        float(metrics["ref"]["loss"]), rel=1e-3)
+    assert float(metrics["kernel"]["grad_norm"]) == pytest.approx(
+        float(metrics["ref"]["grad_norm"]), rel=BF16_GRAD_REL_L2)
+
+    params = nnm.init_params(models.model_defs(cfg), seed=0,
+                             dtype=torch.bfloat16, device=dev)
+    step = make_train_step(cfg, opt, TrainStepConfig(impl="kernel"))
+    before = (tfa.flash_fwd_kernel.launches, tfa.flash_bwd_dq_kernel.launches,
+              tfa.flash_bwd_dkv_kernel.launches)
+    _, _, m = step(params, optim.adamw_init(params, opt),
+                   {"tokens": toks, "labels": labels})
+    assert np.isfinite(float(m["loss"]))
+    assert (tfa.flash_fwd_kernel.launches, tfa.flash_bwd_dq_kernel.launches,
+            tfa.flash_bwd_dkv_kernel.launches) == tuple(
+                n + cfg.n_layers for n in before)

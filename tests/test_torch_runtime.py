@@ -278,7 +278,8 @@ def test_import_without_jax():
     code = ("import sys; sys.modules['jax'] = None; "
             "import repro_torch, repro_torch.runtime, repro_torch.weights, "
             "repro_torch.launch.serve, repro_torch.kernels.ops, "
-            "repro_torch.hwmodel; "
+            "repro_torch.hwmodel, repro_torch.launch.train, "
+            "repro_torch.optim, repro_torch.data, repro_torch.checkpoint; "
             "bad = [m for m, mod in sys.modules.items() if mod is not None "
             "and (m.split('.')[0] in ('repro', 'jax', 'jaxlib'))]; "
             "assert not bad, bad")
