@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
-"""Where the time goes in ``chip_smoke.py``'s full-width serve (phase 3)
-and training step (phase 5), on one CUDA card:
+"""Where the time goes in ``chip_smoke.py``'s full-width paged serve
+(phase 3), contiguous serve (phase 4) and training step (phase 6), on
+one CUDA card:
 
-    python3 chip_profile.py          # serving
-    python3 chip_profile.py train    # training
+    python3 chip_profile.py               # paged serving, bf16 pool
+    python3 chip_profile.py fp8           # paged serving, fp8 pool
+    python3 chip_profile.py contiguous    # contiguous serving
+    python3 chip_profile.py train         # training
 
 Builds the same model (DeepSeek-V2 widths, 4 layers, random bf16 weights,
 the config's MoE capacity) and the same 8 requests, then serves them twice
@@ -12,9 +15,16 @@ with ``impl='kernel'``: once untraced (the end-to-end numbers), once under
 model (``prefill_chunk``, ``decode_tick``).  Prints device time by span
 and by kernel, the device busy share of the traced run, and the tracing
 cost (traced minus untraced engine seconds).  Spans are added here, around
-the calls, not inside the program.
+the calls, not inside the program.  ``fp8`` serves from an fp8 pool
+instead (per-slot scales, quantize on write, dequantized in K1 / K2).
 
-``train`` builds phase 5's model (DeepSeek-V2 widths cut to 2 layers,
+``contiguous`` builds the same model and runs phase 4's load (batch 8
+x 2,048 prompt tokens, 32 generated, ``scheme='auto'``, ``impl='kernel'``)
+through ``launch.serve.serve_contiguous``: a warm-up, an untraced run,
+then one under ``torch.profiler`` with a span around the prefill step
+(``prefill``) and each decode step (``decode_step``).
+
+``train`` builds phase 6's model (DeepSeek-V2 widths cut to 2 layers,
 bf16 params, f32 Adam moments, batch 2 x 4096, the config's MoE
 capacity, ``impl='kernel'``, loss chunk 1024), runs a warm-up step and
 an untraced step, then one step under ``torch.profiler`` with spans
@@ -125,6 +135,66 @@ def train_profile() -> int:
     return report(torch, prof, traced, ("lm_loss", "adamw_update"))
 
 
+def contiguous_profile() -> int:
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    import chip_smoke
+    from repro_torch import configs, models
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.nn import module as nnm
+
+    print(f"[card] {chip_smoke.card_line()}", flush=True)
+    cfg = dataclasses.replace(configs.full("deepseek-v2-236b"), n_layers=4)
+    params = nnm.init_params(models.model_defs(cfg), seed=0,
+                             dtype=torch.bfloat16, device="cuda")
+    kw = dict(batch=chip_smoke.B, prompt_len=chip_smoke.PROMPT,
+              gen=chip_smoke.GEN, scheme="auto", platform="h100",
+              impl="kernel", compute_dtype=torch.bfloat16, device="cuda",
+              log=lambda _: None)
+
+    def run():
+        t0 = time.perf_counter()
+        res = serve_mod.serve_contiguous(cfg, params, **kw)
+        return res, time.perf_counter() - t0
+
+    def spanned(name, make):
+        def build(*args, **kwargs):
+            fn = make(*args, **kwargs)
+
+            def call(*a, **k):
+                with record_function(name):
+                    return fn(*a, **k)
+            return call
+        return build
+
+    run()                                     # warm-up
+    res, wall = run()
+    steps = res["decode_steps"]
+    print(f"[untraced] scheme '{res['scheme']}', prefill "
+          f"{res['prefill_s'] * 1e3:.1f} ms, decode "
+          f"{steps * chip_smoke.B / res['decode_s']:.1f} tokens/s "
+          f"({res['decode_s'] * 1e3 / steps:.2f} ms a step), whole run "
+          f"{wall:.3f} s", flush=True)
+    plain = (serve_mod.make_prefill_step, serve_mod.make_serve_step)
+    serve_mod.make_prefill_step = spanned("prefill", plain[0])
+    serve_mod.make_serve_step = spanned("decode_step", plain[1])
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            res, traced = run()
+            torch.cuda.synchronize()
+    finally:
+        serve_mod.make_prefill_step, serve_mod.make_serve_step = plain
+    print(f"[traced] whole run {traced:.3f} s (tracing cost "
+          f"{traced - wall:+.3f} s), prefill {res['prefill_s'] * 1e3:.1f} ms, "
+          f"decode {res['decode_s'] * 1e3 / steps:.2f} ms a step",
+          flush=True)
+    return report(torch, prof, traced, ("prefill", "decode_step"))
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -136,6 +206,9 @@ def main() -> int:
     sys.path.insert(0, os.path.join(HERE, "src"))
     if sys.argv[1:] == ["train"]:
         return train_profile()
+    if sys.argv[1:] == ["contiguous"]:
+        return contiguous_profile()
+    cache_dtype = "fp8" if sys.argv[1:] == ["fp8"] else "bf16"
     import dataclasses
 
     import chip_smoke
@@ -158,6 +231,7 @@ def main() -> int:
                               gen=gen, block_size=chip_smoke.BS,
                               impl="kernel", scheme="auto", platform="h100",
                               prefill_chunk=chip_smoke.C,
+                              cache_dtype=cache_dtype,
                               compute_dtype=torch.bfloat16, device="cuda")
         t0 = time.perf_counter()
         summary = engine.run(reqs)
@@ -165,8 +239,9 @@ def main() -> int:
 
     serve()                                   # warm-up: build, allocator
     summary, wall = serve()
-    print(f"[untraced] {summary['decode_tokens']} decode tokens, "
-          f"{summary['steps']} steps, {summary['prefill_chunks']} chunks, "
+    print(f"[untraced] {cache_dtype} pool, {summary['decode_tokens']} "
+          f"decode tokens, {summary['steps']} steps, "
+          f"{summary['prefill_chunks']} chunks, "
           f"{summary['tokens_per_s']:.1f} tokens/s, engine {wall:.3f} s",
           flush=True)
 

@@ -6,31 +6,45 @@ GPU (written for an H100):
 
 Phases, each printing its own lines; any failure exits non-zero:
 
-  1. card and build — the card's name and power limit, then the five
+  1. card and build — the card's name and power limit, then the six
      kernels built from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
      source, all at once);
   2. kernels against their plain PyTorch versions: the paged MLA kernels
      K1/K2 at the serving path's shapes (B=8 requests, H=128, Dl=512,
      Dr=64, block 16, prefill chunk 32; ragged lengths, an inactive slot,
      null and stale blocks, unused blocks poisoned with 1e4), in bf16 and
-     f32 and both rescale modes; the flash-attention kernels K4 (forward),
+     f32 and both rescale modes, on a bf16 / f32 pool and on int8 and fp8
+     pools with per-slot scales; the contiguous decode kernel K3 at the
+     contiguous path's shapes (B=8, H=128, S = 2048 + 32 + 1 = 2081) at
+     index S - 1 and at a mid index with the tail poisoned, held row by
+     row (``row_rel``); the flash-attention kernels K4 (forward),
      K5 (dQ) and K6 (dK/dV) in f32 and bf16 at small shapes (GQA, MQA,
      windows, a query offset, ragged lengths, Dqk != Dv up to 576) and at
      the training path's shapes (B=2, H=128, L=4096, Dqk=192, Dv=128,
      causal, (B, L, H, D) tensors passed as transposed views), each
-     output held row by row (``row_rel``); each kernel's time beside its
-     plain version's, the PyTorch library call's (SDPA) and its bound;
-  3. end to end at full width — DeepSeek-V2 (d_model 5120, 128 heads,
+     output held row by row; each kernel's time beside its plain
+     version's, the PyTorch library call's (SDPA) and its bound;
+  3. paged serving at full width — DeepSeek-V2 (d_model 5120, 128 heads,
      160 experts top-6 at the config's capacity factor, vocab 102400)
      cut to 4 layers, random bf16 weights on the card; a short warm-up
      serve at the same shapes, then 8 timed requests (two share a
-     512-token prefix) through the port's engine with ``impl='kernel'``;
-     launch counts checked against layers x decode ticks and layers x
-     prefill chunks; kernel-path logits held against the reference path
-     (at drop-free MoE capacity, see ``drop_free``);
-  4. greedy-token parity of ``impl='kernel'`` and ``impl='ref'`` on the
-     f32 smoke config;
-  5. training at full width — DeepSeek-V2 cut to 2 layers (1 dense +
+     512-token prefix) through the port's engine with ``impl='kernel'``,
+     on a bf16 and an fp8 pool in turns (bf16, fp8, fp8, bf16); launch
+     counts checked against layers x decode ticks and layers x prefill
+     chunks; kernel-path logits held against the reference path on the
+     same pool (at drop-free MoE capacity, see ``drop_free``);
+  4. contiguous serving at full width — the same model and weights,
+     batch 8 x 2,048 prompt tokens, 32 generated, through
+     ``make_prefill_step`` (MHA mode, K4 forward) and ``make_serve_step``
+     (K3), ``scheme='auto'`` priced for h100, after a warm-up at the same
+     shapes; launch counts checked (K3 = layers x 31 steps, K4 = layers);
+     prefill and last-decode-step logits held against the reference path
+     at drop-free capacity;
+  5. greedy-token parity on the f32 smoke config: paged ``impl='kernel'``
+     vs ``'ref'``; the contiguous path's kernel vs ref and across seq /
+     rc / ru / naive; the per-request-prefill engine vs the chunked one;
+     the int8 and fp8 engines' kernel vs ref;
+  6. training at full width — DeepSeek-V2 cut to 2 layers (1 dense +
      1 MoE, depth only; 4.83 B params), bf16 params and compute, f32 Adam
      moments, batch 2 x 4096 tokens, the config's MoE capacity, through
      ``make_train_step`` with ``impl='kernel'``: one warm-up step, then
@@ -45,9 +59,11 @@ Phases, each printing its own lines; any failure exits non-zero:
      with checkpoints, a failure and a resume at smoke size.
      No full-width checkpoint is written (it would be 58 GB).
 
-The line before the last is the kernel table as JSON; the last line is
-``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
-checkout of the repository, it exits non-zero and prints no result.
+The line before the last is the kernel table as JSON (``launches`` sums
+the main paths that ran a kernel, ``launches_by_path`` splits them); the
+last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
+or outside a checkout of the repository, it exits non-zero and prints no
+result.
 """
 from __future__ import annotations
 
@@ -66,6 +82,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}   # dense bf16 TC / f32
 B, H, DL, DR, BS, C = 8, 128, 512, 64, 16, 32   # the main path's shapes
+PROMPT, GEN = 2048, 32                          # the contiguous path's
+S_CONTIG = PROMPT + GEN + 1                     # its cache capacity
 # bf16 output: both sides round an f32 result to bf16 (8 significant
 # bits), so they may differ by one bf16 step (<= 2^-6 for |o| < 4) plus
 # summation-order noise.  f32: summation order over <= 1,056 positions and
@@ -89,7 +107,7 @@ LOGITS_REL_L2 = 0.1
 # by about sqrt(32 / n) of its norm, n the number of keys (queries) the
 # row sees: >= 0.088 at L = 4096; such a kernel read >= 0.84.
 FLASH_ROW_TOL = {"bfloat16": 3e-2, "float32": 1e-4}
-# phase 5, the flash Function vs autograd through the dense oracle, bf16,
+# phase 6, the flash Function vs autograd through the dense oracle, bf16,
 # whole-tensor |a - b| / |b| of out, dQ, dK, dV.  Not row by row: the
 # reference's backward takes delta = sum(dO * O) from the bf16 output O
 # (as the Pallas reference does), autograd from the exact f32 one; on a
@@ -197,102 +215,249 @@ def paged_inputs(torch, dtype, lengths_needed, seed: int):
     return ckv, krope, bt
 
 
-def check_kernels(torch):
+# phase 2's paged load: K1 decode indices (-1: an inactive slot), K2 chunk
+# starts and valid rows (0: an idle row)
+DEC_INDICES = [1055, 255, 511, 1023, 300, 767, 15, -1]
+PRE_LENGTHS = [1024, 224, 480, 992, 0, 736, 16, 0]
+PRE_NVALID = [32, 32, 32, 31, 32, 20, 1, 0]
+NEED_DEC = [i + 1 for i in DEC_INDICES]
+NEED_PRE = [ln + nv if nv else 0 for ln, nv in zip(PRE_LENGTHS, PRE_NVALID)]
+SCALE = (128 + 64) ** -0.5          # DeepSeek-V2's qk_nope + qk_rope
+
+
+def paged_work(q_bytes: int, row_bytes: int):
+    """(bytes, operations) of K1 and K2 at phase 2's load: q read once,
+    each cached position the row attends read once (``row_bytes``: both
+    leaves of one position, scales included), the output written once,
+    the block-table entries and per-request ints read once; two products
+    of (Dl + Dr) and Dl per (query row, position)."""
+    pre_rows_pos = sum(ln + c + 1 for ln, nv in zip(PRE_LENGTHS, PRE_NVALID)
+                       for c in range(nv))
+    blocks = lambda need: sum(-(-n // BS) for n in need)
+    return {
+        "mla_decode_paged": (
+            B * H * (DL + DR + DL) * q_bytes + sum(NEED_DEC) * row_bytes
+            + (blocks(NEED_DEC) + B) * 4,
+            2 * H * sum(NEED_DEC) * (DL + DR + DL)),
+        "mla_prefill_paged": (
+            B * C * H * (DL + DR + DL) * q_bytes + sum(NEED_PRE) * row_bytes
+            + (blocks(NEED_PRE) + 2 * B) * 4,
+            2 * H * pre_rows_pos * (DL + DR + DL)),
+    }
+
+
+def bound(n_bytes, n_ops, dtype_name="bfloat16"):
+    """(bound ms, 'bytes' or 'operations') against the data sheet."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_OPS[dtype_name] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def paged_cases(torch, dtype, ckv, krope, bt, qkw=None):
+    """name: (kernel wrapper, plain version, operands, extra keywords) of
+    K1 and K2 at phase 2's load, q drawn in ``dtype``."""
     from repro_torch.kernels import mla_decode, mla_prefill, ref
 
+    g = torch.Generator(device="cuda")
+    g.manual_seed(2)
+    q1 = torch.randn((B, H, DL + DR), generator=g, device="cuda").to(dtype)
+    q2 = torch.randn((B, C, H, DL + DR), generator=g, device="cuda").to(dtype)
+    i32 = lambda a: torch.tensor(a, dtype=torch.int32, device="cuda")
+    idx, ln, nv = i32(DEC_INDICES), i32(PRE_LENGTHS), i32(PRE_NVALID)
+    kw = dict(softmax_scale=SCALE, **(qkw or {}))
+    return {
+        "mla_decode_paged": (mla_decode.mla_decode_paged_kernel,
+                             ref.mla_decode_paged_ref,
+                             (q1, ckv, krope, bt, idx), kw),
+        "mla_prefill_paged": (mla_prefill.mla_prefill_paged_kernel,
+                              ref.mla_prefill_paged_ref,
+                              (q2, ckv, krope, bt, ln, nv), kw),
+    }
+
+
+def hold_paged(torch, cases, label):
+    """Each case against its plain version (and the exact oracle), both
+    rescales, dead rows exactly 0; returns {name: max |kernel - plain|}
+    of the exp_add run."""
+    from repro_torch.kernels import ref
+
+    errs = {}
+    tol = TOL[label.split()[0]]
+    for name, (kern, plain, args, kw) in cases.items():
+        exact = plain(*args, **kw)
+        for rescale in ref.RESCALES:
+            got = kern(*args, rescale=rescale, **kw)
+            torch.cuda.synchronize()
+            want = plain(*args, rescale=rescale, **kw)
+            err = (got.float() - want.float()).abs().max().item()
+            err_exact = (got.float() - exact.float()).abs().max().item()
+            ok = torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)
+            ok_exact = torch.allclose(got.float(), exact.float(), atol=tol,
+                                      rtol=tol)
+            if name == "mla_decode_paged":
+                zero = bool((got[7] == 0).all())          # index -1
+            else:
+                zero = bool((got[7] == 0).all()
+                            and (got[6, 1:] == 0).all()
+                            and (got[3, 31:] == 0).all())
+            log(f"[kernels] {name} {label} {rescale}: max|kernel - plain| "
+                f"{err:.3g}, vs exact softmax {err_exact:.3g} (tol {tol} "
+                f"abs+rel), dead rows exactly 0: {zero}")
+            if not (ok and ok_exact and zero):
+                raise AssertionError(f"{name} {label} {rescale} disagrees "
+                                     f"with its plain version")
+            if rescale == "exp_add":
+                errs[name] = err
+    return errs
+
+
+def time_paged(torch, cases, work, flush, label, lib=None):
+    """Times (exp_add) and bounds of K1 and K2 on ``cases``."""
+    rows = {}
+    for name, (kern, plain, args, kw) in cases.items():
+        n_bytes, n_ops = work[name]
+        kw = dict(kw, rescale="exp_add")
+        bound_ms, bound_by = bound(n_bytes, n_ops)
+        rows[name] = dict(
+            ms=time_ms(torch, functools.partial(kern, *args, **kw), flush),
+            plain_ms=time_ms(torch, functools.partial(plain, *args, **kw),
+                             flush, reps=5),
+            bound_ms=bound_ms, bound_by=bound_by)
+        if lib is not None:
+            rows[name]["library_ms"] = time_ms(torch, lib[name], flush,
+                                               reps=5)
+        r = rows[name]
+        log(f"[kernels] {name} {label} time {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, "
+            + (f"SDPA {r['library_ms']:.4f} ms, " if lib else "")
+            + f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}: "
+            f"{n_bytes / 1e6:.2f} MB, {n_ops / 1e9:.2f} GFLOP)")
+    return rows
+
+
+def check_kernels(torch):
+    """K1 and K2 on a bf16 / f32 pool (q in the pool's dtype), then on
+    int8 and fp8 pools (codes and per-slot f32 scales that
+    ``core.cache.quantize_latent`` makes from the f32 pool, poisoned
+    blocks included; q in bf16 and f32).  Times at the main path's dtype
+    (bf16 q) and rescale (exp_add); a quantized row's bytes count 1 byte
+    an element plus 4 bytes a slot a leaf for its scales."""
+    from repro_torch.core import cache as cachelib
+
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    indices = [1055, 255, 511, 1023, 300, 767, 15, -1]   # -1: inactive slot
-    lengths = [1024, 224, 480, 992, 0, 736, 16, 0]
-    n_valid = [32, 32, 32, 31, 32, 20, 1, 0]             # 0: idle row
-    scale = (128 + 64) ** -0.5
+    need = [max(a, b) for a, b in zip(NEED_DEC, NEED_PRE)]
     rows = {}
     for dtype_name in ("bfloat16", "float32"):
-        dtype = getattr(torch, dtype_name)
-        need_dec = [i + 1 for i in indices]
-        need_pre = [ln + nv if nv else 0 for ln, nv in zip(lengths, n_valid)]
-        ckv, krope, bt = paged_inputs(
-            torch, dtype, [max(a, b) for a, b in zip(need_dec, need_pre)], 1)
-        g = torch.Generator(device="cuda")
-        g.manual_seed(2)
-        q1 = torch.randn((B, H, DL + DR), generator=g, device="cuda").to(dtype)
-        q2 = torch.randn((B, C, H, DL + DR), generator=g,
-                         device="cuda").to(dtype)
-        idx = torch.tensor(indices, dtype=torch.int32, device="cuda")
-        ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
-        nv = torch.tensor(n_valid, dtype=torch.int32, device="cuda")
-        cases = {   # name: (kernel wrapper, plain version, operands)
-            "mla_decode_paged": (mla_decode.mla_decode_paged_kernel,
-                                 ref.mla_decode_paged_ref,
-                                 (q1, ckv, krope, bt, idx)),
-            "mla_prefill_paged": (mla_prefill.mla_prefill_paged_kernel,
-                                  ref.mla_prefill_paged_ref,
-                                  (q2, ckv, krope, bt, ln, nv)),
-        }
-        for name, (kern, plain, args) in cases.items():
-            for rescale in ref.RESCALES:
-                got = kern(*args, softmax_scale=scale, rescale=rescale)
-                torch.cuda.synchronize()
-                want = plain(*args, softmax_scale=scale, rescale=rescale)
-                exact = plain(*args, softmax_scale=scale)
-                err = (got.float() - want.float()).abs().max().item()
-                err_exact = (got.float() - exact.float()).abs().max().item()
-                tol = TOL[dtype_name]
-                ok = torch.allclose(got.float(), want.float(), atol=tol,
-                                    rtol=tol)
-                ok_exact = torch.allclose(got.float(), exact.float(),
-                                          atol=tol, rtol=tol)
-                if name == "mla_decode_paged":
-                    zero = bool((got[7] == 0).all())          # index -1
-                else:
-                    zero = bool((got[7] == 0).all()
-                                and (got[6, 1:] == 0).all()
-                                and (got[3, 31:] == 0).all())
-                log(f"[kernels] {name} {dtype_name} {rescale}: max|kernel - "
-                    f"plain| {err:.3g}, vs exact softmax {err_exact:.3g} "
-                    f"(tol {tol} abs+rel), dead rows exactly 0: {zero}")
-                if not (ok and ok_exact and zero):
-                    raise AssertionError(f"{name} {dtype_name} {rescale} "
-                                         f"disagrees with its plain version")
-                if dtype_name == "bfloat16" and rescale == "exp_add":
-                    rows[name] = {"max_abs_err": err}
+        ckv, krope, bt = paged_inputs(torch, getattr(torch, dtype_name),
+                                      need, 1)
+        cases = paged_cases(torch, getattr(torch, dtype_name), ckv, krope,
+                            bt)
+        errs = hold_paged(torch, cases, dtype_name)
         if dtype_name != "bfloat16":
             continue
-        # timing and bounds at the main path's dtype (bf16) and rescale
-        es = 2
-        dec_pos = sum(need_dec)
-        pre_pos = sum(need_pre)
-        pre_rows_pos = sum(ln_ + c + 1 for ln_, nv_ in zip(lengths, n_valid)
-                           for c in range(nv_))
-        work = {
-            "mla_decode_paged": (
-                q1.numel() * es + dec_pos * (DL + DR) * es + B * H * DL * es
-                + (sum(-(-n // BS) for n in need_dec) + B) * 4,
-                2 * H * dec_pos * (DL + DR + DL)),
-            "mla_prefill_paged": (
-                q2.numel() * es + pre_pos * (DL + DR) * es
-                + B * C * H * DL * es
-                + (sum(-(-n // BS) for n in need_pre) + 2 * B) * 4,
-                2 * H * pre_rows_pos * (DL + DR + DL)),
-        }
-        lib = library_calls(torch, q1, q2, ckv, krope, bt, idx, ln, nv, scale)
-        for name, (kern, plain, args) in cases.items():
-            n_bytes, n_ops = work[name]
-            t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-            t_ops = n_ops / PEAK_OPS[dtype_name] * 1e3
-            kw = dict(softmax_scale=scale, rescale="exp_add")
-            rows[name].update(
-                ms=time_ms(torch, functools.partial(kern, *args, **kw), flush),
-                plain_ms=time_ms(torch, functools.partial(plain, *args, **kw),
-                                 flush, reps=5),
-                bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                library_ms=time_ms(torch, lib[name], flush, reps=5))
-            r = rows[name]
-            log(f"[kernels] {name} bf16 time {r['ms']:.4f} ms, plain "
-                f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, "
-                f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}: "
-                f"{n_bytes / 1e6:.2f} MB, {n_ops / 1e9:.2f} GFLOP)")
+        dec, pre = cases["mla_decode_paged"][2], cases["mla_prefill_paged"][2]
+        lib = library_calls(torch, dec[0], pre[0], ckv, krope, bt, dec[4],
+                            pre[4], pre[5], SCALE)
+        rows = time_paged(torch, cases, paged_work(2, (DL + DR) * 2), flush,
+                          "bf16", lib)
+        for name in rows:
+            rows[name]["max_abs_err"] = errs[name]
+    ckv32, krope32, bt = paged_inputs(torch, torch.float32, need, 3)
+    for cache_dtype in ("int8", "fp8"):
+        qdtype, qmax = cachelib.cache_dtype_info(cache_dtype)
+        ckv, cs = cachelib.quantize_latent(ckv32, qmax, qdtype)
+        krope, rs = cachelib.quantize_latent(krope32, qmax, qdtype)
+        qkw = dict(ckv_scales=cs, krope_scales=rs)
+        for dtype_name in ("bfloat16", "float32"):
+            cases = paged_cases(torch, getattr(torch, dtype_name), ckv, krope,
+                                bt, qkw)
+            errs = hold_paged(torch, cases, f"{dtype_name} {cache_dtype}")
+            if dtype_name != "bfloat16":
+                continue
+            timed = time_paged(torch, cases,
+                               paged_work(2, (DL + DR) + 2 * 4), flush,
+                               f"bf16 {cache_dtype} pool")
+            for name, r in timed.items():
+                rows[name][cache_dtype] = dict(r, max_abs_err=errs[name])
     return rows
+
+
+def check_contiguous_kernel(torch):
+    """K3 at the contiguous path's shapes against its plain version and
+    the exact oracle, row by row (``row_rel``), in bf16 and f32, both
+    rescales, at index S - 1 and at a mid index with the cache's tail
+    poisoned with 1e4; then its time at the path's last decode index
+    beside the plain version's, SDPA's (the latent as one KV head, as for
+    K1) and its bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import mla_decode, ref
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    kern = mla_decode.mla_decode_kernel
+    row = {}
+    for dtype_name in ("bfloat16", "float32"):
+        dtype = getattr(torch, dtype_name)
+        g = torch.Generator(device="cuda")
+        g.manual_seed(4)
+        q, ckv, krope = (torch.randn(shape, generator=g,
+                                     device="cuda").to(dtype)
+                         for shape in ((B, H, DL + DR), (B, S_CONTIG, DL),
+                                       (B, S_CONTIG, DR)))
+        for index in (S_CONTIG - 1, S_CONTIG // 2 - 5):
+            c, r = ckv, krope
+            if index < S_CONTIG - 1:
+                c, r = ckv.clone(), krope.clone()
+                c[:, index + 1:] = 1e4
+                r[:, index + 1:] = 1e4
+            exact = ref.mla_decode_ref(q, c, r, index, softmax_scale=SCALE)
+            for rescale in ref.RESCALES:
+                got = kern(q, c, r, index, softmax_scale=SCALE,
+                           rescale=rescale)
+                torch.cuda.synchronize()
+                want = ref.mla_decode_ref(q, c, r, index, softmax_scale=SCALE,
+                                          rescale=rescale)
+                err, err_exact = (row_rel(torch, got, w) for w in (want,
+                                                                   exact))
+                log(f"[kernels] mla_decode {dtype_name} {rescale} index "
+                    f"{index} of S={S_CONTIG}"
+                    f"{' (tail poisoned)' if c is not ckv else ''}: largest "
+                    f"per-row |kernel - plain| / |plain| {err:.3g}, vs exact "
+                    f"softmax {err_exact:.3g} (bound {TOL[dtype_name]})")
+                if not max(err, err_exact) <= TOL[dtype_name]:
+                    raise AssertionError(f"mla_decode {dtype_name} {rescale} "
+                                         f"disagrees with its plain version")
+                if dtype_name == "bfloat16" and rescale == "exp_add" \
+                        and index == S_CONTIG - 1:
+                    row["max_abs_err"] = (got.float() - want.float()
+                                          ).abs().max().item()
+        if dtype_name != "bfloat16":
+            continue
+        last = PROMPT + GEN - 2          # the path's last decode step
+        n_bytes = (B * H * (DL + DR + DL) + B * (last + 1) * (DL + DR)) * 2
+        n_ops = 2 * B * H * (last + 1) * (DL + DR + DL)
+        kv = torch.cat([ckv, krope], dim=-1)[:, None]
+        k = kv.expand(B, H, S_CONTIG, DL + DR)
+        v = kv[..., :DL].expand(B, H, S_CONTIG, DL)
+        mask = (torch.arange(S_CONTIG, device="cuda") <= last)[None, None,
+                                                                None]
+        kw = dict(softmax_scale=SCALE, rescale="exp_add")
+        bound_ms, bound_by = bound(n_bytes, n_ops)
+        row.update(
+            ms=time_ms(torch, functools.partial(kern, q, ckv, krope, last,
+                                                **kw), flush),
+            plain_ms=time_ms(torch, functools.partial(
+                ref.mla_decode_ref, q, ckv, krope, last, **kw), flush,
+                reps=5),
+            bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q[:, :, None], k, v, attn_mask=mask, scale=SCALE), flush,
+                reps=5))
+        log(f"[kernels] mla_decode bf16 at index {last} of S={S_CONTIG}: "
+            f"time {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, SDPA "
+            f"{row['library_ms']:.4f} ms, bound {bound_ms:.5f} ms "
+            f"({bound_by}: {n_bytes / 1e6:.2f} MB, {n_ops / 1e9:.2f} GFLOP)")
+    return {"mla_decode": row}
 
 
 def library_calls(torch, q1, q2, ckv, krope, bt, idx, ln, nv, scale):
@@ -507,7 +672,7 @@ def sdpa_calls(torch, q, k, v, do):
             names[0][:80] if names else "an unnamed kernel")
 
 
-# --------------------------------------------------- phase 3: full width --
+# ------------------------------------------- phases 3 and 4: full width --
 
 
 def warm_up_requests(cfg, np, Request, SamplingParams):
@@ -537,14 +702,13 @@ def requests_full(cfg, np, Request, SamplingParams, gen: int):
 
 
 def full_width(torch, np):
+    """Phases 3 and 4, on one full-width model: paged serving on a bf16
+    and on an fp8 pool, then contiguous serving.  Returns the kernel
+    launch counts of each path."""
     from repro_torch import configs, models
-    from repro_torch.kernels import mla_decode, mla_prefill
-    from repro_torch.launch.serve import build_engine, serve_paged
     from repro_torch.nn import module as nnm
-    from repro_torch.runtime import Request, SamplingParams
 
     cfg = dataclasses.replace(configs.full("deepseek-v2-236b"), n_layers=4)
-    gen = 32
     t0 = time.perf_counter()
     params = nnm.init_params(models.model_defs(cfg), seed=0,
                              dtype=torch.bfloat16, device="cuda")
@@ -554,16 +718,46 @@ def full_width(torch, np):
         f"{[d.ffn for d, _ in models.lm.layers(cfg, params)]}): "
         f"{n_params / 1e9:.2f} B params bf16 "
         f"({n_params * 2 / 1e9:.1f} GB) in {time.perf_counter() - t0:.1f}s")
+    # the two pools in turns (bf16, fp8, fp8, bf16): one call's host and
+    # card drift, not the pool, would otherwise decide their ratio
+    by_path, tps = {}, {"bf16": [], "fp8": []}
+    for i, cd in enumerate(("bf16", "fp8", "fp8", "bf16")):
+        launches, tokens_per_s = serve_paged_full(
+            torch, np, cfg, params, cd, check_logits=i < 2)
+        by_path[f"serve_paged_{cd}_{i + 1}"] = launches
+        tps[cd].append(tokens_per_s)
+    log(f"[e2e] paged serving in turns bf16, fp8, fp8, bf16: "
+        f"{tps['bf16'][0]:.1f}, {tps['fp8'][0]:.1f}, {tps['fp8'][1]:.1f}, "
+        f"{tps['bf16'][1]:.1f} tokens/s; fp8 / bf16 = "
+        f"{sum(tps['fp8']) / sum(tps['bf16']):.3f}")
+    by_path["serve_contiguous"] = serve_contiguous_full(torch, np, cfg,
+                                                        params)
+    del params
+    torch.cuda.empty_cache()
+    return by_path
+
+
+def serve_paged_full(torch, np, cfg, params, cache_dtype: str,
+                     check_logits: bool = True):
+    """Phase 3 on a ``cache_dtype`` pool: a warm-up serve, the timed serve
+    of ``requests_full`` with its checks, then (``check_logits``) the
+    logit comparison.  Returns the launch counts and tokens/s."""
+    from repro_torch.kernels import mla_decode, mla_prefill
+    from repro_torch.launch.serve import build_engine, serve_paged
+    from repro_torch.runtime import Request, SamplingParams
+
+    gen = 32
     reqs = requests_full(cfg, np, Request, SamplingParams, gen)
     engine_kw = dict(batch=len(reqs), max_len=max(r.plen for r in reqs) + gen,
                      gen=gen, block_size=BS, impl="kernel", scheme="auto",
                      platform="h100", prefill_chunk=C,
-                     compute_dtype=torch.bfloat16, device="cuda")
+                     cache_dtype=cache_dtype, compute_dtype=torch.bfloat16,
+                     device="cuda")
     t0 = time.perf_counter()
     warm = build_engine(cfg, params, **engine_kw)
     warm.run(warm_up_requests(cfg, np, Request, SamplingParams))
-    log(f"[e2e] warm-up serve: {warm.stats.steps} steps in "
-        f"{time.perf_counter() - t0:.2f}s")
+    log(f"[e2e] {cache_dtype} pool: warm-up serve: {warm.stats.steps} steps "
+        f"in {time.perf_counter() - t0:.2f}s")
     del warm
     engine = build_engine(cfg, params, **engine_kw)
     torch.cuda.reset_peak_memory_stats()
@@ -576,13 +770,14 @@ def full_width(torch, np):
     ticks = sum(summary["schemes_used"].values())
     chunks = summary["prefill_chunks"]
     done = engine.sched.finished
-    log(f"[e2e] finished {len(done)}/{len(reqs)} requests, "
-        f"{summary['decode_tokens']} decode tokens in {summary['steps']} "
-        f"steps ({ticks} decode ticks, {chunks} prefill chunks), prefix "
-        f"hit tokens {summary['prefix_hit_tokens']:.0f}")
-    log(f"[e2e] {summary['tokens_per_s']:.1f} tokens/s, step "
-        f"{engine.stats.wall * 1e3 / engine.stats.steps:.2f} ms mean, "
-        f"peak memory "
+    log(f"[e2e] {cache_dtype} pool: finished {len(done)}/{len(reqs)} "
+        f"requests, {summary['decode_tokens']} decode tokens in "
+        f"{summary['steps']} steps ({ticks} decode ticks, {chunks} prefill "
+        f"chunks), prefix hit tokens {summary['prefix_hit_tokens']:.0f}")
+    log(f"[e2e] {cache_dtype} pool: {summary['tokens_per_s']:.1f} tokens/s, "
+        f"step {engine.stats.wall * 1e3 / engine.stats.steps:.2f} ms mean, "
+        f"pool {engine.cache_token_bytes / cfg.n_layers:.0f} bytes per token "
+        f"a layer, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
         f"{launches}, MoE capacity factor {cfg.capacity_factor}")
     if len(done) != len(reqs) or any(len(r.output) != gen for r in done):
@@ -593,10 +788,109 @@ def full_width(torch, np):
             "mla_prefill_paged": cfg.n_layers * chunks}
     if launches != want:
         raise AssertionError(f"kernel launches {launches} != {want}")
-    compare_logits(torch, drop_free(cfg), reqs, engine)
-    del engine, params
+    if check_logits:
+        compare_logits(torch, drop_free(cfg), reqs, engine, cache_dtype)
+    del engine
+    torch.cuda.empty_cache()
+    return launches, summary["tokens_per_s"]
+
+
+def serve_contiguous_full(torch, np, cfg, params):
+    """Phase 4: the contiguous launcher's path at full width, batch 8 x
+    2,048 prompt tokens, 32 generated (31 decode steps after the prefill's
+    token), after a warm-up at the same shapes; then the logit check."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mla_decode
+    from repro_torch.launch.serve import serve_contiguous
+
+    kw = dict(batch=B, prompt_len=PROMPT, gen=GEN, scheme="auto",
+              platform="h100", impl="kernel", compute_dtype=torch.bfloat16,
+              device="cuda")
+    t0 = time.perf_counter()
+    serve_contiguous(cfg, params, log=lambda _: None, **kw)
+    log(f"[contig] warm-up at the same shapes: "
+        f"{time.perf_counter() - t0:.2f}s")
+    torch.cuda.reset_peak_memory_stats()
+    mla_decode.mla_decode_kernel.launches = 0
+    fa.flash_fwd_kernel.launches = 0
+    res = serve_contiguous(cfg, params, log=log, **kw)
+    launches = {"mla_decode": mla_decode.mla_decode_kernel.launches,
+                "flash_attention_fwd": fa.flash_fwd_kernel.launches}
+    steps = res["decode_steps"]
+    log(f"[contig] {cfg.name} x{cfg.n_layers} layers, batch {B} x {PROMPT} "
+        f"prompt tokens, {GEN} generated, scheme '{res['scheme']}' "
+        f"(auto_dispatch, h100): prefill {res['prefill_s'] * 1e3:.1f} ms, "
+        f"decode {steps * B / res['decode_s']:.1f} tokens/s, step "
+        f"{res['decode_s'] * 1e3 / steps:.2f} ms mean, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
+        f"{launches}, MoE capacity factor {cfg.capacity_factor}")
+    tokens = res["tokens"]
+    if tokens.shape != (B, GEN) or tokens.min() < 0 \
+            or tokens.max() >= cfg.vocab \
+            or not bool(torch.isfinite(res["last_logits"]).all()):
+        raise AssertionError("the contiguous serve returned bad tokens or "
+                             "logits")
+    want = {"mla_decode": cfg.n_layers * steps,
+            "flash_attention_fwd": cfg.n_layers}
+    if launches != want:
+        raise AssertionError(f"kernel launches {launches} != {want}")
+    compare_contiguous(torch, np, drop_free(cfg), params, res["scheme"])
     torch.cuda.empty_cache()
     return launches
+
+
+def compare_contiguous(torch, np, cfg, params, scheme):
+    """The contiguous path's prefill and last decode step, impl='kernel'
+    against impl='ref', per row within LOGITS_REL_L2.  The prompts of the
+    timed run, prefilled one request at a time (the dense reference
+    attention holds a (H, L, L) f32 score tensor; at drop-free capacity a
+    request's result does not depend on its batch), the caches joined,
+    then GEN - 2 kernel decode steps and the last step on copies of the
+    cache with both impls."""
+    from repro_torch.launch.serve import _prepare_mla
+    from repro_torch.runtime import make_prefill_step, make_serve_step
+
+    params = _prepare_mla(params, cfg, scheme)
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (B, PROMPT)), device="cuda")
+    kw = dict(compute_dtype=torch.bfloat16, scheme=scheme)
+    prefill = {impl: make_prefill_step(cfg, capacity=S_CONTIG, impl=impl,
+                                       **kw) for impl in ("kernel", "ref")}
+    step = {impl: make_serve_step(cfg, impl=impl, **kw)
+            for impl in ("kernel", "ref")}
+    rows, caches, rel_prefill = [], [], []
+    for b in range(B):
+        logits_k, cache = prefill["kernel"](params, toks[b:b + 1])
+        logits_r, _ = prefill["ref"](params, toks[b:b + 1])
+        rel_prefill += _row_rel(torch, logits_k, logits_r)
+        rows.append(logits_k)
+        caches.append(cache)
+        torch.cuda.empty_cache()
+    cache = _cat(torch, caches)
+    tok = torch.argmax(torch.cat(rows), dim=-1)
+    for i in range(GEN - 2):
+        logits, cache = step["kernel"](params, tok, cache, PROMPT + i)
+        tok = torch.argmax(logits, dim=-1)
+    last = PROMPT + GEN - 2
+    dec_r, _ = step["ref"](params, tok, _clone(cache), last)
+    dec_k, _ = step["kernel"](params, tok, cache, last)
+    rel_decode = _row_rel(torch, dec_k, dec_r)
+    log(f"[contig] logits kernel vs ref at drop-free capacity, per-row "
+        f"|a-b|/|b| (bound {LOGITS_REL_L2}): prefill max "
+        f"{max(rel_prefill):.4f}, last decode step (index {last}) max "
+        f"{max(rel_decode):.4f}")
+    if max(rel_prefill + rel_decode) > LOGITS_REL_L2:
+        raise AssertionError("contiguous kernel-path logits disagree with "
+                             "the reference path")
+
+
+def _cat(torch, trees):
+    """Per-request cache trees joined along the batch."""
+    if isinstance(trees[0], dict):
+        return {k: _cat(torch, [t[k] for t in trees]) for k in trees[0]}
+    if isinstance(trees[0], list):
+        return [_cat(torch, list(ts)) for ts in zip(*trees)]
+    return torch.cat(trees)
 
 
 def _leaves(tree):
@@ -610,18 +904,18 @@ def _leaves(tree):
         yield tree
 
 
-def compare_logits(torch, cfg, reqs, engine):
-    """Prefill every prompt with the kernel path, then run the same last
-    prefill chunk and the first decode step on copies of that pool with
-    impl='kernel' and impl='ref'; the logits must agree within
-    LOGITS_REL_L2 per row."""
+def compare_logits(torch, cfg, reqs, engine, cache_dtype):
+    """Prefill every prompt with the kernel path into a ``cache_dtype``
+    pool, then run the same last prefill chunk and the first decode step
+    on copies of that pool with impl='kernel' and impl='ref'; the logits
+    must agree within LOGITS_REL_L2 per row."""
     from repro_torch import models
     from repro_torch.runtime import blocks_for
 
     params = engine.params          # with the absorbed leaves 'ru' reads
     nb = max(blocks_for(r.plen + 1, BS) for r in reqs)
     pool = models.init_paged_cache(cfg, 1 + len(reqs) * nb, BS,
-                                   torch.bfloat16, "cuda")
+                                   torch.bfloat16, "cuda", cache_dtype)
     bt = (1 + torch.arange(len(reqs) * nb, device="cuda", dtype=torch.int32)
           ).reshape(len(reqs), nb)
     plens = [r.plen for r in reqs]
@@ -658,7 +952,8 @@ def compare_logits(torch, cfg, reqs, engine):
     dec_r = models.decode_step(params, cfg, tok, pool_r, bt, lengths,
                                impl="ref", **kw)[0]
     rel_decode = _row_rel(torch, dec_k, dec_r)
-    log(f"[e2e] logits kernel vs ref, per-row |a-b|/|b| (bound "
+    log(f"[e2e] {cache_dtype} pool: logits kernel vs ref, per-row "
+        f"|a-b|/|b| (bound "
         f"{LOGITS_REL_L2}): last prefill chunk max {max(rel_prefill):.4f}, "
         f"first decode step max {max(rel_decode):.4f}; max |a-b| decode "
         f"{(dec_k.float() - dec_r.float()).abs().max().item():.4f}")
@@ -680,13 +975,13 @@ def _row_rel(torch, a, b):
     return ((a - b).norm(dim=-1) / b.norm(dim=-1)).tolist()
 
 
-# ------------------------------------------------- phase 4: token parity --
+# ------------------------------------------------- phase 5: token parity --
 
 
-def token_parity(torch):
+def token_parity(torch, np):
     from repro_torch import configs, models
-    from repro_torch.launch.serve import (build_engine, serve_paged,
-                                          synthetic_requests)
+    from repro_torch.launch.serve import (build_engine, serve_contiguous,
+                                          serve_paged, synthetic_requests)
     from repro_torch.nn import module as nnm
 
     cfg = drop_free(configs.smoke("deepseek-v2-236b"))
@@ -712,8 +1007,51 @@ def token_parity(torch):
     if not same:
         raise AssertionError(f"tokens differ: {outs}")
 
+    # the contiguous path: both impls, every scheme
+    contig = {(scheme, impl): serve_contiguous(
+        cfg, params, batch=4, prompt_len=48, gen=12, scheme=scheme,
+        impl=impl, seed=4, compute_dtype=torch.float32, device="cuda",
+        log=lambda _: None)["tokens"]
+        for scheme in ("seq", "rc", "ru", "naive")
+        for impl in ("kernel", "ref")}
+    first = contig[("seq", "kernel")]
+    same = all(np.array_equal(t, first) for t in contig.values())
+    log(f"[parity] contiguous path, f32 greedy tokens of 4 requests x 12, "
+        f"impl kernel and ref x schemes seq / rc / ru / naive: "
+        f"{'identical' if same else 'DIFFERENT'}")
+    if not same:
+        raise AssertionError(f"contiguous tokens differ: {contig}")
 
-# ------------------------------------------------------ phase 5: training --
+    def engine_tokens(**kw):
+        engine = build_engine(cfg, params, batch=4, max_len=48 + 12, gen=12,
+                              scheme="auto", platform="h100",
+                              compute_dtype=torch.float32, device="cuda",
+                              **kw)
+        serve_paged(engine, synthetic_requests(cfg, batch=4, prompt_len=48,
+                                               gen=12, seed=4),
+                    log=lambda _: None)
+        return {r.rid: list(r.output) for r in engine.sched.finished}
+
+    chunked = engine_tokens(impl="kernel", prefill_chunk=8)
+    per_request = engine_tokens(impl="kernel", prefill_chunk=0)
+    same = per_request == chunked and len(chunked) == 4
+    log(f"[parity] per-request prefill engine vs chunked, impl kernel: "
+        f"{'identical' if same else 'DIFFERENT'} tokens")
+    if not same:
+        raise AssertionError(f"per-request tokens differ: {per_request} vs "
+                             f"{chunked}")
+    for cache_dtype in ("int8", "fp8"):
+        got = {impl: engine_tokens(impl=impl, prefill_chunk=8,
+                                   cache_dtype=cache_dtype)
+               for impl in ("kernel", "ref")}
+        same = got["kernel"] == got["ref"] and len(got["ref"]) == 4
+        log(f"[parity] {cache_dtype} pool engine, impl kernel vs ref: "
+            f"{'identical' if same else 'DIFFERENT'} tokens")
+        if not same:
+            raise AssertionError(f"{cache_dtype} tokens differ: {got}")
+
+
+# ------------------------------------------------------ phase 6: training --
 
 
 def train_full_width(torch):
@@ -998,10 +1336,11 @@ def main() -> int:
         f"{[os.path.basename(p) for p in paths]}")
 
     rows = check_kernels(torch)
+    rows.update(check_contiguous_kernel(torch))
     rows.update(check_flash(torch))
-    launches = full_width(torch, np)
-    token_parity(torch)
-    launches.update(train_full_width(torch))
+    by_path = full_width(torch, np)
+    token_parity(torch, np)
+    by_path["train"] = train_full_width(torch)
     train_attention_check(torch)
     train_grad_check(torch)
     train_loop_resume(torch)
@@ -1011,6 +1350,8 @@ def main() -> int:
                                  "src/repro/kernels/mla_decode.py:170"),
             "mla_prefill_paged": (csrc + "mla_prefill_paged.cu",
                                   "src/repro/kernels/mla_prefill.py:106"),
+            "mla_decode": (csrc + "mla_decode.cu",
+                           "src/repro/kernels/mla_decode.py:245"),
             "flash_attention_fwd": (csrc + "flash_attention_fwd.cu",
                                     "src/repro/kernels/flash_attention.py:76"),
             "flash_attention_bwd_dq": (
@@ -1019,10 +1360,13 @@ def main() -> int:
             "flash_attention_bwd_dkv": (
                 csrc + "flash_attention_bwd_dkv.cu",
                 "src/repro/kernels/flash_attention.py:212")}
-    kernels = [{"name": name, "route": "cuda", "source": src,
-                "replaces": replaces, "launches": launches[name],
-                **rows[name]}
-               for name, (src, replaces) in meta.items()]
+    kernels = []
+    for name, (src, replaces) in meta.items():
+        paths = {p: n[name] for p, n in by_path.items() if name in n}
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": replaces,
+                        "launches": sum(paths.values()),
+                        "launches_by_path": paths, **rows[name]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

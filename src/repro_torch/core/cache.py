@@ -1,10 +1,15 @@
-"""The paged MLA latent pool (port of the paged section of
-``repro.core.cache``).
+"""Decode-time latent caches of MLA (port of the MLA sections of
+``repro.core.cache``): the contiguous per-request cache and the paged
+block pool, optionally stored quantized.
 
-A global pool of fixed-size token blocks shared by all requests,
-addressed through per-request block tables.  The {ckv | krope} split is
-kept (two pools, one block geometry) so the PV product reads ``ckv``
-directly:
+Contiguous cache (``latent_cache``): ckv (B, S, D_kvl), krope (B, S,
+D_rope) in the compute dtype; ``update_latent`` writes new tokens at
+``index`` along S.
+
+Paged pool: a global pool of fixed-size token blocks shared by all
+requests, addressed through per-request block tables.  The {ckv | krope}
+split is kept (two pools, one block geometry) so the PV product reads
+``ckv`` directly:
 
   * pool shapes: ckv (N_blocks, bs, D_kvl), krope (N_blocks, bs, D_rope);
   * block 0 is the reserved NULL block — the allocator never hands it out
@@ -14,12 +19,17 @@ directly:
     pool block; ``lengths`` (B,) int32 counts tokens already cached (the
     next decode token is written at position lengths[b]).
 
-Unlike the JAX package, whose arrays are immutable, the port UPDATES THE
-POOL IN PLACE: every write and copy below mutates the tensors it is given
-and returns the same dict, so a decode step never holds two pools.
+Quantized storage (``cache_dtype`` 'int8' or 'fp8', e4m3fn): the data
+leaves hold 1-byte codes and two more leaves ``ckv_scale`` /
+``krope_scale`` (N, bs, 1) f32 hold one scale per token slot, so stored
+q ~= x / scale and x ~= q.float() * scale, with scale = amax(|x|, row) /
+qmax (1 for an all-zero row, so the null block stays exactly zero).
+Writes quantize; the gathered reference view dequantizes; the pool itself
+is never dequantized.
 
-Only the unquantized pool (the compute dtype: bf16 or f32) is ported; the
-int8/fp8 pool with per-slot scales is still to be ported (ROADMAP.md).
+Unlike the JAX package, whose arrays are immutable, the port UPDATES
+CACHES IN PLACE: every write and copy below mutates the tensors it is
+given and returns the same dict, so a decode step never holds two caches.
 """
 from __future__ import annotations
 
@@ -30,20 +40,52 @@ import torch
 CACHE_DTYPES = ("bf16", "int8", "fp8")
 
 
-def _is_quantized(cache_dtype: Optional[str]) -> bool:
+def cache_dtype_info(cache_dtype: Optional[str]):
+    """Map a ``--cache-dtype`` name to (storage dtype, qmax); (None, None)
+    for the unquantized pool, which keeps the caller's compute dtype."""
     if cache_dtype in (None, "bf16", "bfloat16"):
-        return False
-    if cache_dtype in ("int8", "fp8"):
-        return True
+        return None, None
+    if cache_dtype == "int8":
+        return torch.int8, 127.0
+    if cache_dtype == "fp8":
+        return torch.float8_e4m3fn, 448.0
     raise ValueError(f"unknown cache_dtype {cache_dtype!r}; "
                      f"expected one of {CACHE_DTYPES}")
+
+
+def is_quantized_pool(pool: Dict[str, torch.Tensor]) -> bool:
+    return "ckv_scale" in pool
+
+
+def _qmax(qdtype) -> float:
+    return 127.0 if qdtype == torch.int8 else 448.0
+
+
+def quantize_latent(x, qmax: float, qdtype):
+    """Per-token-row symmetric quantization: (q in ``qdtype``, f32 scale
+    of shape x.shape[:-1] + (1,)) with x ~= q.float() * scale.  The
+    reference's arithmetic step for step (f32 amax / qmax, x / scale,
+    round half to even and clip for int8), so codes and scales agree bit
+    for bit."""
+    x32 = x.float()
+    amax = x32.abs().amax(dim=-1, keepdim=True)
+    scale = torch.where(amax > 0, amax / qmax, torch.ones_like(amax))
+    q = x32 / scale
+    if not qdtype.is_floating_point:
+        q = torch.clamp(torch.round(q), -qmax, qmax)
+    return q.to(qdtype), scale
+
+
+def dequantize_latent(q, scale):
+    """Inverse of :func:`quantize_latent`: an f32 tensor."""
+    return q.float() * scale
 
 
 def bytes_per_token_latent(kv_lora: int, rope_dim: int, dtype_bytes: int = 2,
                            cache_dtype: Optional[str] = None) -> float:
     """Latent-cache bytes per cached token.  Quantized storage pays 1 byte
     per element plus two f32 per-token-row scales ({ckv|krope} split)."""
-    if not _is_quantized(cache_dtype):
+    if cache_dtype_info(cache_dtype)[1] is None:
         return (kv_lora + rope_dim) * dtype_bytes
     return (kv_lora + rope_dim) * 1 + 2 * 4
 
@@ -57,16 +99,71 @@ def cache_element_bytes(kv_lora: int, rope_dim: int, dtype_bytes: int = 2,
     return tok / float(kv_lora + rope_dim)
 
 
-def paged_latent_cache(num_blocks: int, block_size: int, kv_lora: int,
-                       rope_dim: int, dtype=torch.bfloat16,
-                       device="cuda") -> Dict[str, torch.Tensor]:
-    """Paged split-layout latent pool of one layer (block 0 = null block)."""
+# ------------------------------------------------------------ contiguous --
+
+
+def latent_cache(batch: int, capacity: int, kv_lora: int, rope_dim: int,
+                 dtype=torch.bfloat16, device="cuda") -> Dict[str, torch.Tensor]:
+    """Contiguous split-layout latent cache of one layer: ckv (B, S,
+    D_kvl), krope (B, S, D_rope), zeros."""
     return {
-        "ckv": torch.zeros((num_blocks, block_size, kv_lora), dtype=dtype,
+        "ckv": torch.zeros((batch, capacity, kv_lora), dtype=dtype,
                            device=device),
-        "krope": torch.zeros((num_blocks, block_size, rope_dim), dtype=dtype,
+        "krope": torch.zeros((batch, capacity, rope_dim), dtype=dtype,
                              device=device),
     }
+
+
+def update_latent(cache: Dict[str, torch.Tensor], ckv_new, krope_new,
+                  index: int) -> Dict[str, torch.Tensor]:
+    """Write (B, L_new, D_kvl) + (B, L_new, D_rope) at positions
+    ``index`` .. ``index + L_new - 1`` along S, in place (the reference
+    donates its cache to the same effect).  ``index`` is a host int."""
+    n = ckv_new.shape[1]
+    cache["ckv"][:, index:index + n] = ckv_new.to(cache["ckv"].dtype)
+    cache["krope"][:, index:index + n] = krope_new.to(cache["krope"].dtype)
+    return cache
+
+
+# ----------------------------------------------------------------- paged --
+
+
+def paged_latent_cache(num_blocks: int, block_size: int, kv_lora: int,
+                       rope_dim: int, dtype=torch.bfloat16, device="cuda",
+                       cache_dtype: Optional[str] = None
+                       ) -> Dict[str, torch.Tensor]:
+    """Paged split-layout latent pool of one layer (block 0 = null block).
+    ``cache_dtype`` 'int8' / 'fp8' stores the data leaves quantized and
+    adds the (N, bs, 1) f32 scale leaves, initialised to 1; 'bf16' / None
+    keeps the pool at ``dtype``."""
+    qdtype, _ = cache_dtype_info(cache_dtype)
+    shape = {"ckv": (num_blocks, block_size, kv_lora),
+             "krope": (num_blocks, block_size, rope_dim)}
+    if qdtype is None:
+        return {k: torch.zeros(v, dtype=dtype, device=device)
+                for k, v in shape.items()}
+    return {
+        "ckv": torch.zeros(shape["ckv"], dtype=qdtype, device=device),
+        "ckv_scale": torch.ones((num_blocks, block_size, 1),
+                                dtype=torch.float32, device=device),
+        "krope": torch.zeros(shape["krope"], dtype=qdtype, device=device),
+        "krope_scale": torch.ones((num_blocks, block_size, 1),
+                                  dtype=torch.float32, device=device),
+    }
+
+
+def _write_slots(pool, page, slot, ckv_new, krope_new):
+    """Store rows at (page, slot), quantizing first for a quantized pool."""
+    if is_quantized_pool(pool):
+        qdtype = pool["ckv"].dtype
+        for name, x in (("ckv", ckv_new), ("krope", krope_new)):
+            q, s = quantize_latent(x, _qmax(qdtype), qdtype)
+            pool[name][page, slot] = q
+            pool[name + "_scale"][page, slot] = s
+        return pool
+    pool["ckv"][page, slot] = ckv_new.to(pool["ckv"].dtype)
+    pool["krope"][page, slot] = krope_new.to(pool["krope"].dtype)
+    return pool
 
 
 def update_latent_paged(pool: Dict[str, torch.Tensor], block_table, lengths,
@@ -79,10 +176,8 @@ def update_latent_paged(pool: Dict[str, torch.Tensor], block_table, lengths,
     ``lengths[b] < block_table.shape[1] * bs``."""
     bs = pool["ckv"].shape[-2]
     page = torch.gather(block_table, 1, (lengths // bs).long()[:, None])[:, 0]
-    page, slot = page.long(), (lengths % bs).long()
-    pool["ckv"][page, slot] = ckv_new.to(pool["ckv"].dtype)
-    pool["krope"][page, slot] = krope_new.to(pool["krope"].dtype)
-    return pool
+    return _write_slots(pool, page.long(), (lengths % bs).long(), ckv_new,
+                        krope_new)
 
 
 def update_latent_paged_chunk(pool: Dict[str, torch.Tensor], block_table,
@@ -101,14 +196,12 @@ def update_latent_paged_chunk(pool: Dict[str, torch.Tensor], block_table,
     valid = c[None, :] < n_valid[:, None]
     blk = torch.clamp(pos // bs, 0, block_table.shape[1] - 1).long()
     page = torch.where(valid, torch.gather(block_table, 1, blk), 0).long()
-    slot = (pos % bs).long()
-    pool["ckv"][page, slot] = ckv_new.to(pool["ckv"].dtype)
-    pool["krope"][page, slot] = krope_new.to(pool["krope"].dtype)
-    return pool
+    return _write_slots(pool, page, (pos % bs).long(), ckv_new, krope_new)
 
 
 def pool_leaves(pool_tree) -> Iterator[torch.Tensor]:
-    """Every pool tensor of a model's pool tree (all layers, both leaves)."""
+    """Every pool tensor of a model's pool tree (all layers, all leaves,
+    the scale leaves of a quantized pool included)."""
     if isinstance(pool_tree, torch.Tensor):
         yield pool_tree
     elif isinstance(pool_tree, dict):
@@ -142,14 +235,28 @@ def copy_blocks_paged(pool_tree, srcs, dsts):
 def gather_latent_paged(pool: Dict[str, torch.Tensor], block_table):
     """Materialize the contiguous (B, max_blocks*bs, D) view of each
     request's cache — the reference path (the kernels read the pool in
-    place through the block table and never build this)."""
+    place through the block table and never build this).  A quantized
+    pool's GATHERED view is dequantized to f32; the pool itself never
+    is."""
     B, nb = block_table.shape
-    bs = pool["ckv"].shape[-2]
     block_table = block_table.long()
-    ckv = pool["ckv"][block_table].reshape(B, nb * bs, pool["ckv"].shape[-1])
-    krope = pool["krope"][block_table].reshape(B, nb * bs,
-                                               pool["krope"].shape[-1])
-    return ckv, krope
+
+    def view(name):
+        x = pool[name][block_table]
+        return x.reshape(B, nb * x.shape[2], x.shape[-1])
+
+    if is_quantized_pool(pool):
+        return (dequantize_latent(view("ckv"), view("ckv_scale")),
+                dequantize_latent(view("krope"), view("krope_scale")))
+    return view("ckv"), view("krope")
+
+
+def write_blocks_paged(pool_leaf, pages, values):
+    """Write whole blocks (the per-request prefill handoff), in place:
+    pool_leaf (N, bs, D), pages (n_pg,) pool-block ids (null-block entries
+    absorb the padding), values (n_pg, bs, D)."""
+    pool_leaf[pages.long()] = values.to(pool_leaf.dtype)
+    return pool_leaf
 
 
 def paged_valid_mask(capacity: int, lengths):

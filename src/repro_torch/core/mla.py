@@ -1,6 +1,6 @@
-"""Multi-Head Latent Attention over the paged latent pool, with the paper's
-execution schemes selectable per call (port of the paged serving path of
-``repro.core.mla``).
+"""Multi-Head Latent Attention with the paper's execution schemes
+selectable per call (port of ``repro.core.mla``: the contiguous and the
+paged serving paths and the MHA-mode prefill).
 
 Decode score chain (paper notation, per head):
 
@@ -13,12 +13,15 @@ Decode score chain (paper notation, per head):
   'ru'     stream the precomputed W_absorb (``attach_absorbed_tree``).
 
 All schemes compute the same function with the same weights.
-:func:`mla_prefill` is the training forward ("MHA mode": K and V are
-up-projected per head and attended densely, or in the flash-attention
-kernels through ``attn_fn``).  The paged attention itself runs either on the gathered (B, S) block-table view
-(``impl='gather'``, the reference) or in the paged CUDA kernels, which
-walk the block table in place (``impl='kernel'``; their plain blockwise
-versions for CPU tensors).  Products of native-dtype operands that the
+:func:`mla_prefill` is the training and contiguous-prefill forward ("MHA
+mode": K and V are up-projected per head and attended densely, or in the
+flash-attention kernels through ``attn_fn``).  :func:`mla_decode` attends
+one contiguous latent cache per request, densely (the reference) or in
+kernel K3 (``impl='kernel'``).  The paged attention runs either on the
+gathered (B, S) block-table view (``impl='gather'``, the reference) or
+in the paged CUDA kernels, which walk the block table in place
+(``impl='kernel'``), passing a quantized pool's scales along.  Every
+kernel runs its plain blockwise version for CPU tensors.  Products of native-dtype operands that the
 JAX package accumulates in f32 (``preferred_element_type``) are taken in
 f32 here too, on an f32 copy of the operands.
 """
@@ -156,6 +159,15 @@ def _f32_product(eq: str, a, b):
     return torch.einsum(eq, a.float(), b.float())
 
 
+def _scales(pool) -> Dict[str, Any]:
+    """A quantized pool's per-slot scales, as the kernels take them; the
+    kernels dequantize in registers, so the pool is never dequantized."""
+    if not cachelib.is_quantized_pool(pool):
+        return {}
+    return {"ckv_scales": pool["ckv_scale"],
+            "krope_scales": pool["krope_scale"]}
+
+
 def _check(scheme: str, impl: str) -> None:
     if scheme not in SCHEMES:
         raise ValueError(f"unknown scheme {scheme!r}; expected {SCHEMES}")
@@ -228,7 +240,7 @@ def mla_prefill_chunk_paged(params, cfg: MLAConfig, x, pool: Dict[str, Any],
         q_full = torch.cat([q_eff, q_rope], dim=-1).contiguous()
         o_lat = kops.mla_prefill_paged_attention(
             q_full, pool["ckv"], pool["krope"], block_table, lengths,
-            n_valid, impl="kernel", softmax_scale=scale)
+            n_valid, impl="kernel", softmax_scale=scale, **_scales(pool))
         o = torch.einsum("bchk,khv->bchv", o_lat.to(x.dtype), w_uv)
         return torch.einsum("bchv,hvd->bcd", o, w_o), pool
 
@@ -266,6 +278,73 @@ def mla_prefill_chunk_paged(params, cfg: MLAConfig, x, pool: Dict[str, Any],
 # ------------------------------------------------------------------ decode -
 
 
+def _naive_scores(params, cfg: MLAConfig, q_nope, q_rope, ckv_c, krope_c,
+                  scale):
+    """'naive' (1->3->2): up-project the whole cache to per-head K and V
+    (the paper's strawman).  Returns f32 scores (B, H, S) and V."""
+    k_nope = torch.einsum("bsk,khn->bshn", ckv_c,
+                          params["w_uk"].to(ckv_c.dtype))
+    v_full = torch.einsum("bsk,khv->bshv", ckv_c,
+                          params["w_uv"].to(ckv_c.dtype))
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, krope_c[:, :, None, :].to(k_nope.dtype)
+                   .expand(*k_nope.shape[:3], cfg.qk_rope_dim)], dim=-1)
+    return _f32_product("bhd,bshd->bhs", q.to(k.dtype), k) * scale, v_full
+
+
+def mla_decode(params, cfg: MLAConfig, x_t, cache: Dict[str, Any],
+               index: int, *, scheme: str = "seq", impl: str = "gather"):
+    """One-token decode over a contiguous latent cache.
+
+    x_t: (B, D); cache: {ckv (B, S, Dl), krope (B, S, Dr)}; ``index`` a
+    host int — tokens already cached, shared by the batch.  The new token
+    is written at ``index`` (in place), then attends positions <= index.
+    Returns (out (B, D), cache).
+
+    ``impl``: 'kernel' runs the latent attention of 'seq' / 'rc' / 'ru'
+    in kernel K3; 'gather' (the reference: here no gather is needed)
+    attends the whole cache with one masked softmax.  'naive' always
+    up-projects the cache and has no kernel path.
+    """
+    _check(scheme, impl)
+    B = x_t.shape[0]
+    pos = torch.full((B, 1), index, dtype=torch.long, device=x_t.device)
+    x = x_t[:, None, :]
+    q_l, q_nope, q_rope = _q_proj(params, cfg, x, pos)
+    q_l, q_nope, q_rope = q_l[:, 0], q_nope[:, 0], q_rope[:, 0]
+    ckv_new, krope_new = _kv_latent(params, cfg, x, pos)
+    cache = cachelib.update_latent(cache, ckv_new, krope_new, index)
+    ckv_c, krope_c = cache["ckv"], cache["krope"]
+    S = ckv_c.shape[1]
+    scale = cfg.qk_dim ** -0.5
+    w_uv = params["w_uv"].to(x_t.dtype)
+    w_o = params["w_o"].to(x_t.dtype)
+    valid = torch.arange(S, device=x_t.device) <= index
+
+    if scheme == "naive":
+        scores, v_full = _naive_scores(params, cfg, q_nope, q_rope, ckv_c,
+                                       krope_c, scale)
+        p = torch.softmax(torch.where(valid, scores, NEG_INF), dim=-1)
+        o = _f32_product("bhs,bshv->bhv", p.to(v_full.dtype),
+                         v_full).to(x_t.dtype)
+        return torch.einsum("bhv,hvd->bd", o, w_o), cache
+
+    q_eff = _q_latent(params, cfg, q_l, q_nope, scheme)
+    if impl == "kernel":
+        q_full = torch.cat([q_eff, q_rope], dim=-1).contiguous()
+        o_lat = kops.mla_decode_attention(q_full, ckv_c, krope_c, index,
+                                          impl="kernel", softmax_scale=scale)
+    else:
+        scores = (_f32_product("bhk,bsk->bhs", q_eff.to(ckv_c.dtype), ckv_c)
+                  + _f32_product("bhr,bsr->bhs", q_rope.to(krope_c.dtype),
+                                 krope_c)) * scale
+        p = torch.softmax(torch.where(valid, scores, NEG_INF), dim=-1)
+        o_lat = _f32_product("bhs,bsk->bhk", p.to(ckv_c.dtype),
+                             ckv_c).to(x_t.dtype)
+    o = torch.einsum("bhk,khv->bhv", o_lat, w_uv)
+    return torch.einsum("bhv,hvd->bd", o, w_o), cache
+
+
 def mla_decode_paged(params, cfg: MLAConfig, x_t, pool: Dict[str, Any],
                      block_table, lengths, *, scheme: str = "seq",
                      impl: str = "gather"):
@@ -279,7 +358,9 @@ def mla_decode_paged(params, cfg: MLAConfig, x_t, pool: Dict[str, Any],
     produce garbage the runtime discards.  Returns (out (B, D), pool).
 
     ``impl``: 'gather' (the reference view) or 'kernel' (the paged decode
-    kernel); 'naive' always takes the gathered view.
+    kernel); 'naive' always takes the gathered view.  A quantized pool is
+    written quantized; the kernel gets its scales, the gathered view is
+    dequantized.
     """
     _check(scheme, impl)
     pos = lengths[:, None]
@@ -298,7 +379,7 @@ def mla_decode_paged(params, cfg: MLAConfig, x_t, pool: Dict[str, Any],
         q_full = torch.cat([q_eff, q_rope], dim=-1).contiguous()
         o_lat = kops.mla_decode_paged_attention(
             q_full, pool["ckv"], pool["krope"], block_table, lengths,
-            impl="kernel", softmax_scale=scale)
+            impl="kernel", softmax_scale=scale, **_scales(pool))
         o = torch.einsum("bhk,khv->bhv", o_lat, w_uv)
         return torch.einsum("bhv,hvd->bd", o, w_o), pool
 
@@ -306,14 +387,8 @@ def mla_decode_paged(params, cfg: MLAConfig, x_t, pool: Dict[str, Any],
     S = ckv_c.shape[1]
     valid = cachelib.paged_valid_mask(S, lengths)[:, None]   # (B, 1, S)
     if scheme == "naive":
-        k_nope = torch.einsum("bsk,khn->bshn", ckv_c,
-                              params["w_uk"].to(ckv_c.dtype))
-        v_full = torch.einsum("bsk,khv->bshv", ckv_c,
-                              params["w_uv"].to(ckv_c.dtype))
-        q = torch.cat([q_nope, q_rope], dim=-1)
-        k = torch.cat([k_nope, krope_c[:, :, None, :].to(k_nope.dtype)
-                       .expand(*k_nope.shape[:3], cfg.qk_rope_dim)], dim=-1)
-        scores = _f32_product("bhd,bshd->bhs", q.to(k.dtype), k) * scale
+        scores, v_full = _naive_scores(params, cfg, q_nope, q_rope, ckv_c,
+                                       krope_c, scale)
         scores = torch.where(valid, scores, NEG_INF)
         p = torch.softmax(scores, dim=-1)
         o = _f32_product("bhs,bshv->bhv", p.to(v_full.dtype),

@@ -1,32 +1,86 @@
-"""Checks shared by the CUDA kernel wrappers (``mla_decode``,
+"""Checks shared by the MLA kernel wrappers (``mla_decode``,
 ``mla_prefill``): what the kernels take, validated before any pointer is
 handed to them."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from .ref import RESCALES
+
+# dtype codes of the C entry points (csrc/mla_paged_common.cuh: kF32 ...)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+POOL_CODES = {torch.int8: 2, torch.float8_e4m3fn: 3}   # quantized storage
 MAX_DL = 512          # csrc/mla_paged_common.cuh: kMaxDl
 MAX_DR = 512
 TILE = 16             # csrc/mla_paged_common.cuh: kTile
 
 
-def check_pool_args(q_full, ckv_pages, krope_pages, block_tables, *ints):
-    """Raise ValueError unless the tensors are what the paged kernels
-    take: one CUDA device, contiguous, q and pool in one float dtype the
-    kernels are built for, int32 tables and per-request ints."""
-    tensors = (q_full, ckv_pages, krope_pages, block_tables) + ints
-    dev = q_full.device
+def check_rescale(rescale: str) -> None:
+    if rescale not in RESCALES:
+        raise ValueError(f"unknown rescale {rescale!r}; expected {RESCALES}")
+
+
+def ptr(t) -> Optional[int]:
+    """A tensor's device pointer for ctypes; None (NULL) for None."""
+    return None if t is None else t.data_ptr()
+
+
+def _check_devices(*tensors) -> None:
+    dev = tensors[0].device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
-        raise ValueError(f"the paged kernels need every operand on one CUDA "
+        raise ValueError(f"the MLA kernels need every operand on one CUDA "
                          f"device, got {[str(t.device) for t in tensors]}")
+
+
+def _check_q(q_full) -> None:
     if q_full.dtype not in DTYPE_CODES:
         raise ValueError(f"unsupported dtype {q_full.dtype}; the kernels "
                          f"take {sorted(map(str, DTYPE_CODES))}")
-    if ckv_pages.dtype != q_full.dtype or krope_pages.dtype != q_full.dtype:
-        raise ValueError("q_full, ckv_pages and krope_pages must share one "
-                         f"dtype, got {q_full.dtype}, {ckv_pages.dtype}, "
-                         f"{krope_pages.dtype}")
+
+
+def _check_widths(q_full, Dl: int, Dr: int) -> None:
+    if q_full.shape[-1] != Dl + Dr:
+        raise ValueError(f"q_full's last dim {q_full.shape[-1]} != "
+                         f"Dl + Dr = {Dl + Dr}")
+    if Dl % TILE or not 0 < Dl <= MAX_DL or not 0 < Dr <= MAX_DR:
+        raise ValueError(f"the kernels take Dl a multiple of {TILE} up to "
+                         f"{MAX_DL} and 0 < Dr <= {MAX_DR}, got Dl={Dl}, "
+                         f"Dr={Dr}")
+
+
+def check_pool_args(q_full, ckv_pages, krope_pages, block_tables, *ints,
+                    ckv_scales=None, krope_scales=None) -> int:
+    """Raise ValueError unless the tensors are what the paged kernels
+    take: one CUDA device, contiguous, q in a float dtype the kernels are
+    built for, the pool in q's dtype or quantized (int8 / fp8 e4m3fn)
+    with (N, bs, 1) f32 scales for both leaves, int32 tables and
+    per-request ints.  Returns the pool's dtype code."""
+    scales = tuple(s for s in (ckv_scales, krope_scales) if s is not None)
+    tensors = (q_full, ckv_pages, krope_pages, block_tables) + ints + scales
+    _check_devices(*tensors)
+    _check_q(q_full)
+    if ckv_pages.dtype != krope_pages.dtype:
+        raise ValueError(f"ckv_pages and krope_pages must share one dtype, "
+                         f"got {ckv_pages.dtype}, {krope_pages.dtype}")
+    if ckv_pages.dtype in POOL_CODES:
+        if len(scales) != 2:
+            raise ValueError(f"a {ckv_pages.dtype} pool needs ckv_scales and "
+                             f"krope_scales")
+        shape = tuple(ckv_pages.shape[:2]) + (1,)
+        for s in scales:
+            if s.dtype != torch.float32 or tuple(s.shape) != shape:
+                raise ValueError(f"scales must be float32 {shape}, got "
+                                 f"{s.dtype} {tuple(s.shape)}")
+        code = POOL_CODES[ckv_pages.dtype]
+    elif ckv_pages.dtype != q_full.dtype:
+        raise ValueError(f"an unquantized pool must be in q_full's dtype "
+                         f"{q_full.dtype}, got {ckv_pages.dtype}")
+    elif scales:
+        raise ValueError("scales come only with an int8 / fp8 pool")
+    else:
+        code = DTYPE_CODES[q_full.dtype]
     for t in (block_tables,) + ints:
         if t.dtype != torch.int32:
             raise ValueError(f"block tables and lengths must be int32, got "
@@ -39,19 +93,36 @@ def check_pool_args(q_full, ckv_pages, krope_pages, block_tables, *ints):
         raise ValueError(f"pool pages must be (N, bs, Dl) and (N, bs, Dr), "
                          f"got {tuple(ckv_pages.shape)} and "
                          f"{tuple(krope_pages.shape)}")
-    Dl, Dr = ckv_pages.shape[-1], krope_pages.shape[-1]
-    if q_full.shape[-1] != Dl + Dr:
-        raise ValueError(f"q_full's last dim {q_full.shape[-1]} != "
-                         f"Dl + Dr = {Dl + Dr}")
-    if Dl % TILE or not 0 < Dl <= MAX_DL or not 0 < Dr <= MAX_DR:
-        raise ValueError(f"the kernels take Dl a multiple of {TILE} up to "
-                         f"{MAX_DL} and 0 < Dr <= {MAX_DR}, got Dl={Dl}, "
-                         f"Dr={Dr}")
+    _check_widths(q_full, ckv_pages.shape[-1], krope_pages.shape[-1])
     B = q_full.shape[0]
     if block_tables.dim() != 2 or block_tables.shape[0] != B \
             or any(t.shape != (B,) for t in ints):
         raise ValueError(f"block_tables must be (B, nb) and lengths (B,) "
                          f"with B = {B}")
+    return code
+
+
+def check_cache_args(q_full, ckv, krope) -> None:
+    """Raise ValueError unless the operands are what the contiguous decode
+    kernel takes: one CUDA device, q_full (B, H, Dl+Dr) contiguous, ckv
+    (B, S, Dl) and krope (B, S, Dr) in q's dtype with a contiguous last
+    dimension (any batch and position strides)."""
+    _check_devices(q_full, ckv, krope)
+    _check_q(q_full)
+    if ckv.dtype != q_full.dtype or krope.dtype != q_full.dtype:
+        raise ValueError(f"q_full, ckv and krope must share one dtype, got "
+                         f"{q_full.dtype}, {ckv.dtype}, {krope.dtype}")
+    if not q_full.is_contiguous():
+        raise ValueError("q_full must be contiguous")
+    if q_full.dim() != 3 or ckv.dim() != 3 or krope.dim() != 3 \
+            or ckv.shape[:2] != krope.shape[:2] \
+            or ckv.shape[0] != q_full.shape[0]:
+        raise ValueError(f"expected q_full (B, H, Dl+Dr), ckv (B, S, Dl), "
+                         f"krope (B, S, Dr); got {tuple(q_full.shape)}, "
+                         f"{tuple(ckv.shape)}, {tuple(krope.shape)}")
+    if ckv.stride(-1) != 1 or krope.stride(-1) != 1:
+        raise ValueError("ckv and krope need a contiguous last dimension")
+    _check_widths(q_full, ckv.shape[-1], krope.shape[-1])
 
 
 def raise_on_error(err: int, name: str) -> None:

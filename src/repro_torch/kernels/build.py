@@ -26,20 +26,21 @@ from typing import Dict, List
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("mla_decode_paged", "mla_prefill_paged", "flash_attention_fwd",
-           "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+KERNELS = ("mla_decode_paged", "mla_prefill_paged", "mla_decode",
+           "flash_attention_fwd", "flash_attention_bwd_dq",
+           "flash_attention_bwd_dkv")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LL = ctypes.c_longlong
 # host arrays: the flash-attention strides (int64) and dims (int32)
 _LLP, _IP = ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int)
 # argtypes of each library's C entry point (csrc/<name>.cu, extern "C")
 SIGNATURES = {
-    "mla_decode_paged": [_P, _P, _P, _P, _P, _P] + [_I] * 7
-                        + [_F, _I, _I, _P],
-    "mla_prefill_paged": [_P, _P, _P, _P, _P, _P, _P] + [_I] * 8
-                         + [_F, _I, _I, _P],
+    "mla_decode_paged": [_P] * 8 + [_I] * 7 + [_F, _I, _I, _I, _P],
+    "mla_prefill_paged": [_P] * 9 + [_I] * 8 + [_F, _I, _I, _I, _P],
+    "mla_decode": [_P] * 4 + [_I] * 5 + [_LL] * 4 + [_I, _F, _I, _I, _P],
     "flash_attention_fwd": [_P] * 5 + [_LLP, _IP, _F, _P],
     "flash_attention_bwd_dq": [_P] * 7 + [_LLP, _IP, _F, _P],
     "flash_attention_bwd_dkv": [_P] * 8 + [_LLP, _IP, _F, _P],

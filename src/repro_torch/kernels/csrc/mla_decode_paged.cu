@@ -6,10 +6,14 @@
 //   o[b,h] = sum_j softmax_j(scale * (q_lat[b,h] . ckv_j + q_rope[b,h] . krope_j)) ckv_j
 // over positions j <= indices[b], reached through block_tables[b, j / bs];
 // an index of -1 gives a zero row.  f32 accumulation, output in q's dtype.
+// The pool is in q's dtype (f32, bf16) or quantized (int8, fp8 e4m3) with
+// one f32 scale per token slot, dequantized in registers as each tile is
+// staged (mla_paged_common.cuh: PagedRows).
 //
 // What bounds it on this card: the bytes of the latent pool it reads.
 // Each decode step reads every live request's (indices[b] + 1) x (Dl + Dr)
-// cache rows once — at DeepSeek-V2 widths 1,152 bytes per token in bf16 —
+// cache rows once — at DeepSeek-V2 widths 1,152 bytes per token in bf16,
+// 584 in int8 / fp8 with the two scales —
 // against about 2 x 128 x 1,088 FLOP per token for all 128 heads, far
 // below the card's 295 FLOP/byte ridge, so the 3.35 TB/s of HBM is the
 // limit.  The design reads each cache row from HBM once per CTA of 16
@@ -24,10 +28,13 @@
 
 namespace mla {
 
-template <typename T, bool kExpAdd>
+template <typename T, typename P, bool kScaled, bool kExpAdd>
 __global__ void __launch_bounds__(kThreads)
-decode_paged_kernel(const T* __restrict__ q, const T* __restrict__ ckv,
-                    const T* __restrict__ krope, const int* __restrict__ bt,
+decode_paged_kernel(const T* __restrict__ q, const P* __restrict__ ckv,
+                    const P* __restrict__ krope,
+                    const float* __restrict__ ckv_s,
+                    const float* __restrict__ krope_s,
+                    const int* __restrict__ bt,
                     const int* __restrict__ indices, T* __restrict__ out,
                     int H, int Dl, int Dr, int N, int bs, int nb,
                     float scale) {
@@ -35,58 +42,42 @@ decode_paged_kernel(const T* __restrict__ q, const T* __restrict__ ckv,
   const int h0 = blockIdx.x * kRows;
   const int idx = indices[b];
   const int D = Dl + Dr;
+  const PagedRows<P, kScaled> rows{ckv, krope, ckv_s, krope_s,
+                                   bt + (size_t)b * nb, nb, bs, N, Dl, Dr};
   // decode is the one-row chunk of the prefill walk: every head sits at
   // chunk row 0, attends positions <= idx, and is live iff idx >= 0
   attend_rows<T, kExpAdd>(q + ((size_t)b * H + h0) * D,
                           out + ((size_t)b * H + h0) * Dl, h0,
-                          min(kRows, H - h0), H, idx, idx >= 0 ? 1 : 0,
-                          ckv, krope, bt + (size_t)b * nb, nb, bs, N, Dl, Dr,
-                          scale);
-}
-
-template <typename T, bool kExpAdd>
-cudaError_t launch(const void* q, const void* ckv, const void* krope,
-                   const void* bt, const void* indices, void* out, int B,
-                   int H, int Dl, int Dr, int N, int bs, int nb, float scale,
-                   cudaStream_t stream) {
-  auto kernel = decode_paged_kernel<T, kExpAdd>;
-  const size_t smem = smem_bytes(Dl + Dr);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((H + kRows - 1) / kRows, B);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(ckv),
-      static_cast<const T*>(krope), static_cast<const int*>(bt),
-      static_cast<const int*>(indices), static_cast<T*>(out), H, Dl, Dr, N,
-      bs, nb, scale);
-  return cudaGetLastError();
+                          min(kRows, H - h0), H, idx, idx >= 0 ? 1 : 0, rows,
+                          Dl, Dr, scale);
 }
 
 }  // namespace mla
 
-// dtype: 0 = float32, 1 = bfloat16.  exp_add: 1 = AMLA rescale, 0 = mul.
+// dtype: q and out, 0 = float32, 1 = bfloat16.  pool_dtype: dtype for an
+// unquantized pool, 2 = int8 or 3 = fp8 e4m3 with ckv_s / krope_s (N, bs,
+// 1) f32 scales (null otherwise).  exp_add: 1 = AMLA rescale, 0 = mul.
 // Returns the cudaError_t of the launch (0 = success).
 extern "C" int mla_decode_paged(const void* q, const void* ckv,
-                                const void* krope, const void* bt,
+                                const void* krope, const void* ckv_s,
+                                const void* krope_s, const void* bt,
                                 const void* indices, void* out, int B, int H,
                                 int Dl, int Dr, int N, int bs, int nb,
-                                float scale, int dtype, int exp_add,
-                                void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return exp_add ? mla::launch<float, true>(q, ckv, krope, bt, indices, out,
-                                              B, H, Dl, Dr, N, bs, nb, scale, s)
-                   : mla::launch<float, false>(q, ckv, krope, bt, indices,
-                                               out, B, H, Dl, Dr, N, bs, nb,
-                                               scale, s);
-  if (dtype == 1)
-    return exp_add
-               ? mla::launch<__nv_bfloat16, true>(q, ckv, krope, bt, indices,
-                                                  out, B, H, Dl, Dr, N, bs,
-                                                  nb, scale, s)
-               : mla::launch<__nv_bfloat16, false>(q, ckv, krope, bt, indices,
-                                                   out, B, H, Dl, Dr, N, bs,
-                                                   nb, scale, s);
-  return (int)cudaErrorInvalidValue;
+                                float scale, int dtype, int pool_dtype,
+                                int exp_add, void* stream) {
+  return (int)mla::dispatch_pool(
+      dtype, pool_dtype, exp_add,
+      [&](auto qt, auto pt, auto scaled, auto ea) -> cudaError_t {
+        using T = typename decltype(qt)::type;
+        using P = typename decltype(pt)::type;
+        return mla::launch_rows(
+            mla::decode_paged_kernel<T, P, decltype(scaled)::value,
+                                     decltype(ea)::value>,
+            H, B, Dl + Dr, static_cast<cudaStream_t>(stream),
+            static_cast<const T*>(q), static_cast<const P*>(ckv),
+            static_cast<const P*>(krope), static_cast<const float*>(ckv_s),
+            static_cast<const float*>(krope_s), static_cast<const int*>(bt),
+            static_cast<const int*>(indices), static_cast<T*>(out), H, Dl,
+            Dr, N, bs, nb, scale);
+      });
 }

@@ -1,13 +1,17 @@
-// Shared device code of the two paged MLA attention kernels
-// (mla_decode_paged.cu, mla_prefill_paged.cu): the AMLA exponent-add
-// rescale, the online-softmax tile update and the block-table walk.
+// Shared device code of the three MLA attention kernels
+// (mla_decode_paged.cu, mla_prefill_paged.cu, mla_decode.cu): the AMLA
+// exponent-add rescale, the online-softmax tile update, the two ways a
+// CTA reaches its request's latent rows (through a block table, or at a
+// plain stride), the dequantizing loads of a quantized pool, and the
+// host-side dispatch over element types.
 //
 // Absorbed MLA is multi-query attention with ONE latent KV head: every
 // query row (a head, or a (chunk row, head) pair) attends the same
 // {ckv | krope} rows of its request.  A CTA therefore owns kRows query
-// rows of one request and walks that request's pool positions in tiles of
-// kTile, gathering each tile through the block table into shared memory
-// once and reusing it for all kRows rows:
+// rows of one request and walks that request's positions in tiles of
+// kTile, staging each tile into shared memory once (converted to f32,
+// and multiplied by its slot's scale for an int8 / fp8 pool) and reusing
+// it for all kRows rows:
 //
 //   thread t = (row r = t / kTile, lane = t % kTile)
 //   scores : thread (r, lane) computes the score of row r against the
@@ -20,22 +24,29 @@
 // The running (m, l, acc) state is f32 in registers; tiles past the
 // CTA's last valid position are never visited.  Plain CUDA-core FMAs, no
 // tensor cores, no TMA, no split over the KV length: a simple kernel that
-// is right first.
+// is right first.  No f32 copy of a quantized pool exists anywhere but in
+// the staged tile.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <type_traits>
 
 namespace mla {
 
 constexpr int kRows = 16;                   // query rows per CTA
-constexpr int kTile = 16;                   // pool positions per staged tile
+constexpr int kTile = 16;                   // positions per staged tile
 constexpr int kThreads = kRows * kTile;     // 256
 constexpr int kMaxDl = 512;                 // latent width the registers hold
 constexpr int kAcc = kMaxDl / kTile;        // output dims per thread
 constexpr float kNegInf = -1073741824.0f;   // -2^30: the finite mask value
 constexpr float kInvLn2 = 1.4426950408889634f;
 
+// Element loads in f32: the compute dtypes (f32, bf16) and the quantized
+// pool's 1-byte codes (int8, fp8 e4m3, the layout of torch.float8_e4m3fn).
 template <typename T>
 __device__ __forceinline__ float to_f32(T x);
 template <>
@@ -43,6 +54,14 @@ __device__ __forceinline__ float to_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+template <>
+__device__ __forceinline__ float to_f32<int8_t>(int8_t x) {
+  return static_cast<float>(x);
+}
+template <>
+__device__ __forceinline__ float to_f32<__nv_fp8_e4m3>(__nv_fp8_e4m3 x) {
+  return static_cast<float>(x);
 }
 
 template <typename T>
@@ -79,23 +98,69 @@ __device__ __forceinline__ float row_sum(float v) {
   return v;
 }
 
+// One request's rows in the paged pool, reached through its block-table
+// row bt.  P is the pool's element type.  With kScaled (an int8 / fp8
+// pool) each element is multiplied in registers by its slot's f32 scale,
+// read through the same block-table lookup as the row.  Entries outside
+// [0, N) read as zeros.
+template <typename P, bool kScaled>
+struct PagedRows {
+  const P* ckv;            // (N, bs, Dl)
+  const P* krope;          // (N, bs, Dr)
+  const float* ckv_s;      // (N, bs, 1), kScaled only
+  const float* krope_s;
+  const int* bt;           // (nb,)
+  int nb, bs, N, Dl, Dr;
+
+  __device__ int reach() const { return nb * bs; }
+
+  __device__ float load(int p, int d) const {
+    const int blk = bt[p / bs];
+    if (blk < 0 || blk >= N) return 0.0f;
+    const size_t slot = (size_t)blk * bs + p % bs;
+    if (d < Dl) {
+      const float v = to_f32(ckv[slot * Dl + d]);
+      if constexpr (kScaled) return v * ckv_s[slot];
+      return v;
+    }
+    const float v = to_f32(krope[slot * Dr + (d - Dl)]);
+    if constexpr (kScaled) return v * krope_s[slot];
+    return v;
+  }
+};
+
+// One request's rows of the contiguous cache: position p of ckv at
+// ckv + p * ckv_sp, its last dimension contiguous.  Any position stride,
+// so a view of a larger cache needs no copy; S positions, no padding.
+template <typename P>
+struct DenseRows {
+  const P* ckv;
+  const P* krope;
+  long long ckv_sp, krope_sp;
+  int S, Dl;
+
+  __device__ int reach() const { return S; }
+
+  __device__ float load(int p, int d) const {
+    return d < Dl ? to_f32(ckv[p * ckv_sp + d])
+                  : to_f32(krope[p * krope_sp + (d - Dl)]);
+  }
+};
+
 // Dynamic shared memory of one CTA, in bytes.
 inline size_t smem_bytes(int D) {
   return sizeof(float) * (size_t(kRows + kTile) * (D + 1) + kRows * kTile);
 }
 
 // One CTA: query rows row0 .. row0 + n_rows - 1 of one request.  Row r
-// belongs to chunk row c = (row0 + r) / H, attends pool positions
-// <= start + c, and is live only if c < nv (dead rows return exact zeros).
-// q and out point at the tile's first row; rows are contiguous, D = Dl + Dr
-// wide in q and Dl wide in out.  bt is the request's block-table row.
-template <typename T, bool kExpAdd>
+// belongs to chunk row c = (row0 + r) / H, attends positions <= start + c
+// (and < rows.reach()), and is live only if c < nv (dead rows return
+// exact zeros).  q and out point at the tile's first row; rows are
+// contiguous, D = Dl + Dr wide in q and Dl wide in out.
+template <typename T, bool kExpAdd, typename Rows>
 __device__ void attend_rows(const T* __restrict__ q, T* __restrict__ out,
                             int row0, int n_rows, int H, int start, int nv,
-                            const T* __restrict__ ckv,
-                            const T* __restrict__ krope,
-                            const int* __restrict__ bt, int nb, int bs,
-                            int N, int Dl, int Dr, float scale) {
+                            const Rows& rows, int Dl, int Dr, float scale) {
   extern __shared__ float smem[];
   const int D = Dl + Dr;
   const int stride = D + 1;      // odd row stride: conflict-free columns
@@ -116,7 +181,7 @@ __device__ void attend_rows(const T* __restrict__ q, T* __restrict__ out,
   const int c_first = row0 / H;
   const int c_last = (row0 + n_rows - 1) / H;
   int n_pos = 0;
-  if (c_first < nv) n_pos = min(start + min(nv - 1, c_last) + 1, nb * bs);
+  if (c_first < nv) n_pos = min(start + min(nv - 1, c_last) + 1, rows.reach());
   const int n_tiles = (max(n_pos, 0) + kTile - 1) / kTile;
 
   const int c = (row0 + r) / H;
@@ -135,16 +200,7 @@ __device__ void attend_rows(const T* __restrict__ q, T* __restrict__ out,
     for (int i = t; i < kTile * D; i += kThreads) {
       const int j = i / D, d = i % D;
       const int p = p0 + j;
-      float v = 0.0f;
-      if (p < n_pos) {
-        const int blk = bt[p / bs];
-        if (blk >= 0 && blk < N) {
-          const size_t slot = (size_t)blk * bs + p % bs;
-          v = d < Dl ? to_f32(ckv[slot * Dl + d])
-                     : to_f32(krope[slot * Dr + (d - Dl)]);
-        }
-      }
-      kv_s[j * stride + d] = v;
+      kv_s[j * stride + d] = p < n_pos ? rows.load(p, d) : 0.0f;
     }
     __syncthreads();
 
@@ -202,6 +258,57 @@ __device__ void attend_rows(const T* __restrict__ q, T* __restrict__ out,
       }
     }
   }
+}
+
+// ------------------------------------------------------ host dispatch --
+
+template <typename T>
+struct Type {
+  using type = T;
+};
+
+// dtype codes of the C entry points (repro_torch/kernels/_launch.py)
+constexpr int kF32 = 0, kBF16 = 1, kInt8 = 2, kFP8 = 3;
+
+// f(Type<T>{}, integral_constant<bool, kExpAdd>{}) for the q / output
+// dtype code (kF32, kBF16) and the rescale flag.
+template <typename F>
+cudaError_t dispatch_q(int dtype, int exp_add, F&& f) {
+  auto rescale = [&](auto qt) -> cudaError_t {
+    return exp_add ? f(qt, std::true_type{}) : f(qt, std::false_type{});
+  };
+  if (dtype == kF32) return rescale(Type<float>{});
+  if (dtype == kBF16) return rescale(Type<__nv_bfloat16>{});
+  return cudaErrorInvalidValue;
+}
+
+// f(Type<T>{}, Type<P>{}, integral_constant<bool, kScaled>{},
+//   integral_constant<bool, kExpAdd>{}): the pool is unquantized (P = T,
+// pool_dtype == dtype) or quantized (kInt8 / kFP8 codes with scales).
+template <typename F>
+cudaError_t dispatch_pool(int dtype, int pool_dtype, int exp_add, F&& f) {
+  return dispatch_q(dtype, exp_add, [&](auto qt, auto ea) -> cudaError_t {
+    if (pool_dtype == dtype) return f(qt, qt, std::false_type{}, ea);
+    if (pool_dtype == kInt8)
+      return f(qt, Type<int8_t>{}, std::true_type{}, ea);
+    if (pool_dtype == kFP8)
+      return f(qt, Type<__nv_fp8_e4m3>{}, std::true_type{}, ea);
+    return cudaErrorInvalidValue;
+  });
+}
+
+// Set the CTA's dynamic shared memory and launch one CTA per (16 rows,
+// request); returns the launch's error.
+template <typename Kernel, typename... Args>
+cudaError_t launch_rows(Kernel kernel, int n_rows, int B, int D,
+                        cudaStream_t stream, Args... args) {
+  const size_t smem = smem_bytes(D);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n_rows + kRows - 1) / kRows, B);
+  kernel<<<grid, kThreads, smem, stream>>>(args...);
+  return cudaGetLastError();
 }
 
 }  // namespace mla

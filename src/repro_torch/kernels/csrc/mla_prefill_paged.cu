@@ -7,7 +7,8 @@
 //   o[b,c,h] = sum_j softmax_j(scale * (q_lat[b,c,h] . ckv_j + q_rope[b,c,h] . krope_j)) ckv_j.
 // Rows with c >= n_valid[b], and idle requests (n_valid 0), return exact
 // zeros.  The chunk's own latents are already in the pool, so the in-chunk
-// causal triangle rides the same block-table walk.
+// causal triangle rides the same block-table walk.  The pool is in q's
+// dtype or quantized (int8, fp8 e4m3 with per-slot f32 scales), as in K1.
 //
 // What bounds it on this card: operations.  A chunk of C rows x H heads
 // reads the request's resident prefix once (1,152 bytes per token in bf16
@@ -27,10 +28,13 @@
 
 namespace mla {
 
-template <typename T, bool kExpAdd>
+template <typename T, typename P, bool kScaled, bool kExpAdd>
 __global__ void __launch_bounds__(kThreads)
-prefill_paged_kernel(const T* __restrict__ q, const T* __restrict__ ckv,
-                     const T* __restrict__ krope, const int* __restrict__ bt,
+prefill_paged_kernel(const T* __restrict__ q, const P* __restrict__ ckv,
+                     const P* __restrict__ krope,
+                     const float* __restrict__ ckv_s,
+                     const float* __restrict__ krope_s,
+                     const int* __restrict__ bt,
                      const int* __restrict__ lengths,
                      const int* __restrict__ n_valid, T* __restrict__ out,
                      int C, int H, int Dl, int Dr, int N, int bs, int nb,
@@ -39,57 +43,40 @@ prefill_paged_kernel(const T* __restrict__ q, const T* __restrict__ ckv,
   const int row0 = blockIdx.x * kRows;     // flattened (chunk row, head)
   const int R = C * H;
   const int D = Dl + Dr;
+  const PagedRows<P, kScaled> rows{ckv, krope, ckv_s, krope_s,
+                                   bt + (size_t)b * nb, nb, bs, N, Dl, Dr};
   attend_rows<T, kExpAdd>(q + ((size_t)b * R + row0) * D,
                           out + ((size_t)b * R + row0) * Dl, row0,
                           min(kRows, R - row0), H, lengths[b], n_valid[b],
-                          ckv, krope, bt + (size_t)b * nb, nb, bs, N, Dl, Dr,
-                          scale);
-}
-
-template <typename T, bool kExpAdd>
-cudaError_t launch(const void* q, const void* ckv, const void* krope,
-                   const void* bt, const void* lengths, const void* n_valid,
-                   void* out, int B, int C, int H, int Dl, int Dr, int N,
-                   int bs, int nb, float scale, cudaStream_t stream) {
-  auto kernel = prefill_paged_kernel<T, kExpAdd>;
-  const size_t smem = smem_bytes(Dl + Dr);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((C * H + kRows - 1) / kRows, B);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(ckv),
-      static_cast<const T*>(krope), static_cast<const int*>(bt),
-      static_cast<const int*>(lengths), static_cast<const int*>(n_valid),
-      static_cast<T*>(out), C, H, Dl, Dr, N, bs, nb, scale);
-  return cudaGetLastError();
+                          rows, Dl, Dr, scale);
 }
 
 }  // namespace mla
 
-// dtype: 0 = float32, 1 = bfloat16.  exp_add: 1 = AMLA rescale, 0 = mul.
-// Returns the cudaError_t of the launch (0 = success).
+// dtype, pool_dtype, exp_add: as mla_decode_paged.  Returns the
+// cudaError_t of the launch (0 = success).
 extern "C" int mla_prefill_paged(const void* q, const void* ckv,
-                                 const void* krope, const void* bt,
+                                 const void* krope, const void* ckv_s,
+                                 const void* krope_s, const void* bt,
                                  const void* lengths, const void* n_valid,
                                  void* out, int B, int C, int H, int Dl,
                                  int Dr, int N, int bs, int nb, float scale,
-                                 int dtype, int exp_add, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return exp_add
-               ? mla::launch<float, true>(q, ckv, krope, bt, lengths, n_valid,
-                                          out, B, C, H, Dl, Dr, N, bs, nb,
-                                          scale, s)
-               : mla::launch<float, false>(q, ckv, krope, bt, lengths,
-                                           n_valid, out, B, C, H, Dl, Dr, N,
-                                           bs, nb, scale, s);
-  if (dtype == 1)
-    return exp_add ? mla::launch<__nv_bfloat16, true>(
-                         q, ckv, krope, bt, lengths, n_valid, out, B, C, H,
-                         Dl, Dr, N, bs, nb, scale, s)
-                   : mla::launch<__nv_bfloat16, false>(
-                         q, ckv, krope, bt, lengths, n_valid, out, B, C, H,
-                         Dl, Dr, N, bs, nb, scale, s);
-  return (int)cudaErrorInvalidValue;
+                                 int dtype, int pool_dtype, int exp_add,
+                                 void* stream) {
+  return (int)mla::dispatch_pool(
+      dtype, pool_dtype, exp_add,
+      [&](auto qt, auto pt, auto scaled, auto ea) -> cudaError_t {
+        using T = typename decltype(qt)::type;
+        using P = typename decltype(pt)::type;
+        return mla::launch_rows(
+            mla::prefill_paged_kernel<T, P, decltype(scaled)::value,
+                                      decltype(ea)::value>,
+            C * H, B, Dl + Dr, static_cast<cudaStream_t>(stream),
+            static_cast<const T*>(q), static_cast<const P*>(ckv),
+            static_cast<const P*>(krope), static_cast<const float*>(ckv_s),
+            static_cast<const float*>(krope_s), static_cast<const int*>(bt),
+            static_cast<const int*>(lengths),
+            static_cast<const int*>(n_valid), static_cast<T*>(out), C, H,
+            Dl, Dr, N, bs, nb, scale);
+      });
 }

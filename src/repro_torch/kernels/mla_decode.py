@@ -1,11 +1,16 @@
-"""Wrapper of the paged absorbed-MLA flash-decode CUDA kernel (K1,
-``csrc/mla_decode_paged.cu``), the port of the Pallas
-``repro.kernels.mla_decode.mla_decode_paged_kernel``.
+"""Wrappers of the absorbed-MLA flash-decode CUDA kernels, the ports of
+the Pallas kernels of ``repro.kernels.mla_decode``:
 
-For CUDA tensors it launches the kernel on the current stream (and raises
-if it cannot); for CPU tensors it runs the kernel's plain PyTorch version,
-``ref.mla_decode_paged_ref`` with the same ``rescale``.  Nothing else
-falls back.  ``mla_decode_paged_kernel.launches`` counts kernel launches.
+  * ``mla_decode_paged_kernel`` — K1, ``csrc/mla_decode_paged.cu``
+    (``mla_decode_paged_kernel``): the paged pool, bf16 / f32 or int8 /
+    fp8 with per-slot scales;
+  * ``mla_decode_kernel`` — K3, ``csrc/mla_decode.cu``
+    (``mla_decode_kernel``): one contiguous latent cache per request.
+
+For CUDA tensors each launches its kernel on the current stream (and
+raises if it cannot); for CPU tensors it runs the kernel's plain PyTorch
+version in ``ref`` with the same ``rescale``.  Nothing else falls back.
+``<wrapper>.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -14,37 +19,46 @@ from typing import Optional
 import torch
 
 from . import build, ref
-from ._launch import DTYPE_CODES, check_pool_args, raise_on_error
+from ._launch import (DTYPE_CODES, check_cache_args, check_pool_args,
+                      check_rescale, ptr, raise_on_error)
 
 
 def mla_decode_paged_kernel(q_full, ckv_pages, krope_pages, block_tables,
                             indices, *, softmax_scale: Optional[float] = None,
+                            ckv_scales=None, krope_scales=None,
                             rescale: str = "exp_add"):
     """Paged flash-decode over the latent block pool.
 
     q_full (B, H, Dl+Dr); ckv_pages (N, bs, Dl); krope_pages (N, bs, Dr);
     block_tables (B, nb) int32; indices (B,) int32 — newest valid position
-    per request (-1 = inactive slot -> zero output).  Returns (B, H, Dl) in
-    q_full's dtype.  ``rescale``: 'exp_add' (AMLA, default) or 'mul'."""
-    if rescale not in ref.RESCALES:
-        raise ValueError(f"unknown rescale {rescale!r}; expected "
-                         f"{ref.RESCALES}")
+    per request (-1 = inactive slot -> zero output).  A quantized pool
+    (int8 / fp8 e4m3fn pages) passes ``ckv_scales`` / ``krope_scales``
+    (N, bs, 1) f32; the kernel dequantizes in registers.  Returns
+    (B, H, Dl) in q_full's dtype.  ``rescale``: 'exp_add' (AMLA, default)
+    or 'mul'."""
+    check_rescale(rescale)
+    ref.check_scales(ckv_scales, krope_scales)
     B, H, D = q_full.shape
     scale = softmax_scale if softmax_scale is not None else D ** -0.5
     if q_full.device.type == "cpu":
         return ref.mla_decode_paged_ref(q_full, ckv_pages, krope_pages,
                                         block_tables, indices,
-                                        softmax_scale=scale, rescale=rescale)
-    check_pool_args(q_full, ckv_pages, krope_pages, block_tables, indices)
+                                        softmax_scale=scale, rescale=rescale,
+                                        ckv_scales=ckv_scales,
+                                        krope_scales=krope_scales)
+    pool_code = check_pool_args(q_full, ckv_pages, krope_pages, block_tables,
+                                indices, ckv_scales=ckv_scales,
+                                krope_scales=krope_scales)
     N, bs, Dl = ckv_pages.shape
     out = torch.empty((B, H, Dl), dtype=q_full.dtype, device=q_full.device)
     if B == 0:
         return out
     err = build.load("mla_decode_paged").mla_decode_paged(
         q_full.data_ptr(), ckv_pages.data_ptr(), krope_pages.data_ptr(),
-        block_tables.data_ptr(), indices.data_ptr(), out.data_ptr(),
-        B, H, Dl, krope_pages.shape[-1], N, bs, block_tables.shape[1],
-        float(scale), DTYPE_CODES[q_full.dtype], int(rescale == "exp_add"),
+        ptr(ckv_scales), ptr(krope_scales), block_tables.data_ptr(),
+        indices.data_ptr(), out.data_ptr(), B, H, Dl, krope_pages.shape[-1],
+        N, bs, block_tables.shape[1], float(scale), DTYPE_CODES[q_full.dtype],
+        pool_code, int(rescale == "exp_add"),
         torch.cuda.current_stream(q_full.device).cuda_stream)
     raise_on_error(err, "mla_decode_paged")
     mla_decode_paged_kernel.launches += 1
@@ -52,3 +66,44 @@ def mla_decode_paged_kernel(q_full, ckv_pages, krope_pages, block_tables,
 
 
 mla_decode_paged_kernel.launches = 0
+
+
+def mla_decode_kernel(q_full, ckv, krope, index: int, *,
+                      softmax_scale: Optional[float] = None,
+                      rescale: str = "exp_add"):
+    """Flash-decode over a contiguous latent cache.
+
+    q_full (B, H, Dl+Dr) = [q_latent ; q_rope]; ckv (B, S, Dl), krope
+    (B, S, Dr) in q's dtype, any S, any batch / position strides with a
+    contiguous last dimension (views are read in place, nothing is
+    padded or copied); ``index`` a host int — the newest valid position,
+    shared by the batch (positions > index are never read; a negative
+    index gives zero rows).  Returns (B, H, Dl) in q_full's dtype.
+    ``rescale``: 'exp_add' (AMLA, default) or 'mul'."""
+    check_rescale(rescale)
+    if isinstance(index, torch.Tensor):
+        raise TypeError("index must be a host int (a device scalar would "
+                        "sync every step)")
+    index = int(index)
+    B, H, D = q_full.shape
+    scale = softmax_scale if softmax_scale is not None else D ** -0.5
+    if q_full.device.type == "cpu":
+        return ref.mla_decode_ref(q_full, ckv, krope, index,
+                                  softmax_scale=scale, rescale=rescale)
+    check_cache_args(q_full, ckv, krope)
+    S, Dl = ckv.shape[1], ckv.shape[2]
+    out = torch.empty((B, H, Dl), dtype=q_full.dtype, device=q_full.device)
+    if B == 0 or S == 0:
+        return out.zero_()
+    err = build.load("mla_decode").mla_decode(
+        q_full.data_ptr(), ckv.data_ptr(), krope.data_ptr(), out.data_ptr(),
+        B, H, S, Dl, krope.shape[-1], ckv.stride(0), ckv.stride(1),
+        krope.stride(0), krope.stride(1), index, float(scale),
+        DTYPE_CODES[q_full.dtype], int(rescale == "exp_add"),
+        torch.cuda.current_stream(q_full.device).cuda_stream)
+    raise_on_error(err, "mla_decode")
+    mla_decode_kernel.launches += 1
+    return out
+
+
+mla_decode_kernel.launches = 0

@@ -2,8 +2,9 @@
 ``csrc/mla_prefill_paged.cu``), the port of the Pallas
 ``repro.kernels.mla_prefill.mla_prefill_paged_kernel``.
 
-For CUDA tensors it launches the kernel on the current stream (and raises
-if it cannot); for CPU tensors it runs the kernel's plain PyTorch version,
+The pool is bf16 / f32 or int8 / fp8 with per-slot scales.  For CUDA
+tensors it launches the kernel on the current stream (and raises if it
+cannot); for CPU tensors it runs the kernel's plain PyTorch version,
 ``ref.mla_prefill_paged_ref`` with the same ``rescale``.  Nothing else
 falls back.  ``mla_prefill_paged_kernel.launches`` counts kernel launches.
 """
@@ -14,41 +15,47 @@ from typing import Optional
 import torch
 
 from . import build, ref
-from ._launch import DTYPE_CODES, check_pool_args, raise_on_error
+from ._launch import (DTYPE_CODES, check_pool_args, check_rescale, ptr,
+                      raise_on_error)
 
 
 def mla_prefill_paged_kernel(q_full, ckv_pages, krope_pages, block_tables,
                              lengths, n_valid, *,
                              softmax_scale: Optional[float] = None,
+                             ckv_scales=None, krope_scales=None,
                              rescale: str = "exp_add"):
     """Paged chunked-prefill flash attention over the latent block pool.
 
     q_full (B, C, H, Dl+Dr); ckv_pages (N, bs, Dl); krope_pages
     (N, bs, Dr); block_tables (B, nb) int32; lengths (B,) int32 — absolute
     position of each row's first chunk token; n_valid (B,) int32 — real
-    tokens per row (0 = idle slot -> zero rows).  Returns (B, C, H, Dl) in
-    q_full's dtype.  ``rescale``: 'exp_add' (AMLA, default) or 'mul'."""
-    if rescale not in ref.RESCALES:
-        raise ValueError(f"unknown rescale {rescale!r}; expected "
-                         f"{ref.RESCALES}")
+    tokens per row (0 = idle slot -> zero rows).  A quantized pool passes
+    ``ckv_scales`` / ``krope_scales`` (N, bs, 1) f32, as for the decode
+    kernel.  Returns (B, C, H, Dl) in q_full's dtype.  ``rescale``:
+    'exp_add' (AMLA, default) or 'mul'."""
+    check_rescale(rescale)
+    ref.check_scales(ckv_scales, krope_scales)
     B, C, H, D = q_full.shape
     scale = softmax_scale if softmax_scale is not None else D ** -0.5
     if q_full.device.type == "cpu":
         return ref.mla_prefill_paged_ref(q_full, ckv_pages, krope_pages,
                                          block_tables, lengths, n_valid,
-                                         softmax_scale=scale, rescale=rescale)
-    check_pool_args(q_full, ckv_pages, krope_pages, block_tables, lengths,
-                    n_valid)
+                                         softmax_scale=scale, rescale=rescale,
+                                         ckv_scales=ckv_scales,
+                                         krope_scales=krope_scales)
+    pool_code = check_pool_args(q_full, ckv_pages, krope_pages, block_tables,
+                                lengths, n_valid, ckv_scales=ckv_scales,
+                                krope_scales=krope_scales)
     N, bs, Dl = ckv_pages.shape
     out = torch.empty((B, C, H, Dl), dtype=q_full.dtype, device=q_full.device)
     if B == 0 or C == 0:
         return out
     err = build.load("mla_prefill_paged").mla_prefill_paged(
         q_full.data_ptr(), ckv_pages.data_ptr(), krope_pages.data_ptr(),
-        block_tables.data_ptr(), lengths.data_ptr(), n_valid.data_ptr(),
-        out.data_ptr(), B, C, H, Dl, krope_pages.shape[-1], N, bs,
-        block_tables.shape[1], float(scale), DTYPE_CODES[q_full.dtype],
-        int(rescale == "exp_add"),
+        ptr(ckv_scales), ptr(krope_scales), block_tables.data_ptr(),
+        lengths.data_ptr(), n_valid.data_ptr(), out.data_ptr(), B, C, H, Dl,
+        krope_pages.shape[-1], N, bs, block_tables.shape[1], float(scale),
+        DTYPE_CODES[q_full.dtype], pool_code, int(rescale == "exp_add"),
         torch.cuda.current_stream(q_full.device).cuda_stream)
     raise_on_error(err, "mla_prefill_paged")
     mla_prefill_paged_kernel.launches += 1

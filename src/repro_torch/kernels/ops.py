@@ -6,6 +6,10 @@
   impl='kernel' the hand-written CUDA kernel for CUDA tensors; its plain
                 blockwise version for CPU tensors (``flash_attention`` /
                 ``mla_decode`` / ``mla_prefill`` wrappers)
+
+The paged functions take a quantized pool's ``ckv_scales`` /
+``krope_scales`` (N, bs, 1) f32: the kernels dequantize in registers,
+the oracle on the gathered f32 view.
 """
 from __future__ import annotations
 
@@ -13,7 +17,7 @@ from typing import Optional
 
 from . import ref
 from .flash_attention import flash_attention
-from .mla_decode import mla_decode_paged_kernel
+from .mla_decode import mla_decode_kernel, mla_decode_paged_kernel
 from .mla_prefill import mla_prefill_paged_kernel
 
 IMPLS = ("ref", "kernel")
@@ -37,9 +41,26 @@ def attention(q, k, v, *, impl: str = "ref", causal: bool = True,
     return flash_attention(q, k, v, causal, window, q_offset, softmax_scale)
 
 
+def mla_decode_attention(q_full, ckv, krope, index: int, *,
+                         impl: str = "ref",
+                         softmax_scale: Optional[float] = None,
+                         rescale: str = "exp_add"):
+    """Absorbed-MLA decode over a contiguous latent cache: q_full
+    (B,H,Dl+Dr), ckv (B,S,Dl), krope (B,S,Dr), one host-int ``index``
+    shared by the batch -> (B,H,Dl).  ``rescale`` as for
+    :func:`mla_decode_paged_attention`."""
+    _check_impl(impl)
+    if impl == "ref":
+        return ref.mla_decode_ref(q_full, ckv, krope, index,
+                                  softmax_scale=softmax_scale)
+    return mla_decode_kernel(q_full, ckv, krope, index,
+                             softmax_scale=softmax_scale, rescale=rescale)
+
+
 def mla_decode_paged_attention(q_full, ckv_pages, krope_pages, block_tables,
                                indices, *, impl: str = "ref",
                                softmax_scale: Optional[float] = None,
+                               ckv_scales=None, krope_scales=None,
                                rescale: str = "exp_add"):
     """Paged absorbed-MLA decode: q_full (B,H,Dl+Dr), pool pages
     (N,bs,Dl)/(N,bs,Dr), block_tables (B,nb), per-request ``indices``
@@ -50,16 +71,21 @@ def mla_decode_paged_attention(q_full, ckv_pages, krope_pages, block_tables,
     if impl == "ref":
         return ref.mla_decode_paged_ref(q_full, ckv_pages, krope_pages,
                                         block_tables, indices,
-                                        softmax_scale=softmax_scale)
+                                        softmax_scale=softmax_scale,
+                                        ckv_scales=ckv_scales,
+                                        krope_scales=krope_scales)
     return mla_decode_paged_kernel(q_full, ckv_pages, krope_pages,
                                    block_tables, indices,
                                    softmax_scale=softmax_scale,
+                                   ckv_scales=ckv_scales,
+                                   krope_scales=krope_scales,
                                    rescale=rescale)
 
 
 def mla_prefill_paged_attention(q_full, ckv_pages, krope_pages, block_tables,
                                 lengths, n_valid, *, impl: str = "ref",
                                 softmax_scale: Optional[float] = None,
+                                ckv_scales=None, krope_scales=None,
                                 rescale: str = "exp_add"):
     """Paged chunked-prefill MLA attention: q_full (B,C,H,Dl+Dr), pool
     pages (N,bs,Dl)/(N,bs,Dr), block_tables (B,nb), per-request
@@ -69,8 +95,12 @@ def mla_prefill_paged_attention(q_full, ckv_pages, krope_pages, block_tables,
     if impl == "ref":
         return ref.mla_prefill_paged_ref(q_full, ckv_pages, krope_pages,
                                          block_tables, lengths, n_valid,
-                                         softmax_scale=softmax_scale)
+                                         softmax_scale=softmax_scale,
+                                         ckv_scales=ckv_scales,
+                                         krope_scales=krope_scales)
     return mla_prefill_paged_kernel(q_full, ckv_pages, krope_pages,
                                     block_tables, lengths, n_valid,
                                     softmax_scale=softmax_scale,
+                                    ckv_scales=ckv_scales,
+                                    krope_scales=krope_scales,
                                     rescale=rescale)

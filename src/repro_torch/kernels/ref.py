@@ -1,17 +1,24 @@
-"""Plain PyTorch versions of the two paged MLA attention kernels (port of
+"""Plain PyTorch versions of the three MLA attention kernels (port of
 ``repro.kernels.ref``, plus the online-softmax tile update of
 ``repro.kernels.mla_decode``), and the dense flash-attention oracle
 :func:`flash_attention_ref`.
 
-Each function takes the kernel's inputs and returns its output:
+Each MLA function takes the kernel's inputs and returns its output:
 
-  * ``rescale=None`` — the exact oracle: gather each request's pages into a
-    contiguous view and reduce with one masked softmax (the JAX package's
-    ``mla_decode_paged_ref`` / ``mla_prefill_paged_ref``);
+  * ``rescale=None`` — the exact oracle: one masked softmax over the
+    contiguous cache (``mla_decode_ref``) or over each request's pages
+    gathered into a contiguous view (``mla_decode_paged_ref`` /
+    ``mla_prefill_paged_ref``), as the JAX package's oracles do;
   * ``rescale='exp_add' | 'mul'`` — the kernel's own arithmetic: walk the
-    block table one pool block at a time with the online-softmax update
+    cache in tiles (``block_k`` positions of the contiguous cache, one
+    pool block of the paged one) with the online-softmax update
     :func:`softmax_tile_update` (AMLA exponent addition or the classic
     multiply), so a CPU run follows the same rounding path as the kernel.
+
+A quantized pool (int8 / fp8 codes) comes with ``ckv_scales`` /
+``krope_scales`` (N, bs, 1) f32: the oracle dequantizes the gathered
+view, the walk each tile it reads.  Caches are taken as they are, never
+padded.
 
 The CUDA wrappers (``mla_decode``, ``mla_prefill``) run these for CPU
 tensors; ``chip_smoke.py`` holds the kernels against them on the card.
@@ -96,39 +103,112 @@ def softmax_tile_update(s, mask, ckv, acc, m, l, *, rescale: str):
     return acc, m_new, l
 
 
-def _gather(pages, bt):
+def _state(B, R, Dl, device):
+    """Zeroed online-softmax state (acc, m, l) of B x R query rows."""
+    return (torch.zeros((B, R, Dl), dtype=torch.float32, device=device),
+            torch.full((B, R, 1), NEG_INF, dtype=torch.float32, device=device),
+            torch.zeros((B, R, 1), dtype=torch.float32, device=device))
+
+
+def _tile_step(q, ckv, krope, k_pos, limit, row_ok, scale, rescale, state):
+    """Score one f32 tile (ckv (B, n, Dl), krope (B, n, Dr) at positions
+    k_pos (n,)) with the two-term product and fold it into ``state``."""
+    Dl = ckv.shape[-1]
+    s = (q[..., :Dl] @ ckv.transpose(1, 2)
+         + q[..., Dl:] @ krope.transpose(1, 2)) * scale
+    mask = (k_pos[None, None, :] <= limit[..., None]) & row_ok[..., None]
+    s = torch.where(mask, s, NEG_INF)
+    return softmax_tile_update(s, mask, ckv, *state, rescale=rescale)
+
+
+def _finish(state):
+    acc, _, l = state
+    return acc / torch.where(l == 0.0, 1.0, l)
+
+
+def _pages(pages, scales, idx):
+    """Pool pages ``idx`` in f32, dequantized when ``scales`` is given."""
+    x = pages[idx].float()
+    return x if scales is None else x * scales[idx]
+
+
+def _gather(pages, scales, bt):
+    """The gathered (B, nb*bs, D) view; f32 and dequantized for a
+    quantized pool (the JAX package's ``_dequant_gathered``)."""
     B, nb = bt.shape
-    return pages[bt.long()].reshape(B, nb * pages.shape[1], pages.shape[-1])
+    x = pages[bt.long()].reshape(B, nb * pages.shape[1], pages.shape[-1])
+    if scales is None:
+        return x
+    return x.float() * scales[bt.long()].reshape(B, nb * pages.shape[1], 1)
 
 
-def _walk(q, ckv_pages, krope_pages, bt, limit, row_ok, scale, rescale):
+def check_scales(ckv_scales, krope_scales) -> None:
+    if (ckv_scales is None) != (krope_scales is None):
+        raise ValueError("pass both ckv_scales and krope_scales or neither")
+
+
+def _walk(q, ckv_pages, krope_pages, bt, limit, row_ok, scale, rescale,
+          ckv_scales=None, krope_scales=None):
     """Block-by-block online softmax over the pool, as the kernels do it.
     q (B, R, Dl+Dr); row r of request b attends pool positions
     <= limit[b, r] when row_ok[b, r].  Returns f32 (B, R, Dl)."""
     B, R, _ = q.shape
     bs, Dl = ckv_pages.shape[1], ckv_pages.shape[-1]
     q = q.float()
-    acc = torch.zeros((B, R, Dl), dtype=torch.float32, device=q.device)
-    m = torch.full((B, R, 1), NEG_INF, dtype=torch.float32, device=q.device)
-    l = torch.zeros((B, R, 1), dtype=torch.float32, device=q.device)
+    state = _state(B, R, Dl, q.device)
     slots = torch.arange(bs, device=q.device)
     for j in range(bt.shape[1]):
         blk = bt[:, j].long()
-        ckv = ckv_pages[blk].float()                      # (B, bs, Dl)
-        krope = krope_pages[blk].float()                  # (B, bs, Dr)
-        s = (q[..., :Dl] @ ckv.transpose(1, 2)
-             + q[..., Dl:] @ krope.transpose(1, 2)) * scale
-        k_pos = j * bs + slots
-        mask = (k_pos[None, None, :] <= limit[..., None]) & row_ok[..., None]
-        s = torch.where(mask, s, NEG_INF)
-        acc, m, l = softmax_tile_update(s, mask, ckv, acc, m, l,
-                                        rescale=rescale)
-    return acc / torch.where(l == 0.0, 1.0, l)
+        state = _tile_step(q, _pages(ckv_pages, ckv_scales, blk),
+                           _pages(krope_pages, krope_scales, blk),
+                           j * bs + slots, limit, row_ok, scale, rescale,
+                           state)
+    return _finish(state)
+
+
+def mla_decode_ref(q_full, ckv, krope, index: int, *,
+                   softmax_scale: Optional[float] = None,
+                   rescale: Optional[str] = None, block_k: int = 512):
+    """Contiguous-cache absorbed-MLA decode (the plain version of K3).
+
+    q_full : (B, H, Dl+Dr) = [q_latent ; q_rope]
+    ckv    : (B, S, Dl); krope: (B, S, Dr) — the split latent cache, any
+             S (no padding: a ragged last tile is sliced, not padded)
+    index  : host int — newest valid position, shared by the batch
+             (attend to positions <= index)
+    Returns (B, H, Dl) in q_full's dtype.
+
+    ``rescale=None`` is the exact oracle (the JAX package's
+    ``mla_decode_ref``); otherwise the kernel's walk over ``block_k``
+    positions a tile, tiles past ``index`` skipped, so a negative index
+    yields zero rows as the kernels give them."""
+    B, H, D = q_full.shape
+    S, Dl = ckv.shape[1], ckv.shape[2]
+    index = int(index)
+    scale = softmax_scale if softmax_scale is not None else D ** -0.5
+    pos = torch.arange(S, device=q_full.device)
+    if rescale is None:
+        cache = torch.cat([ckv, krope], dim=-1).float()
+        s = torch.einsum("bhd,bsd->bhs", q_full.float(), cache) * scale
+        s = torch.where(pos <= index, s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bhs,bsk->bhk", p, ckv.float())
+        return o.to(q_full.dtype)
+    q = q_full.float()
+    state = _state(B, H, Dl, q.device)
+    limit = torch.full((B, H), index, device=q.device)
+    ok = torch.ones((B, H), dtype=torch.bool, device=q.device)
+    for j0 in range(0, min(index + 1, S), block_k):
+        j1 = min(j0 + block_k, S)
+        state = _tile_step(q, ckv[:, j0:j1].float(), krope[:, j0:j1].float(),
+                           pos[j0:j1], limit, ok, scale, rescale, state)
+    return _finish(state).to(q_full.dtype)
 
 
 def mla_decode_paged_ref(q_full, ckv_pages, krope_pages, block_tables,
                          indices, *, softmax_scale: Optional[float] = None,
-                         rescale: Optional[str] = None):
+                         rescale: Optional[str] = None, ckv_scales=None,
+                         krope_scales=None):
     """Paged absorbed-MLA decode.
 
     q_full      : (B, H, Dl+Dr)
@@ -136,6 +216,7 @@ def mla_decode_paged_ref(q_full, ckv_pages, krope_pages, block_tables,
     block_tables: (B, nb) int32 — request-local block j -> pool block
     indices     : (B,) int32 — newest valid position per request (attend to
                   pos <= indices[b]; a negative index yields a zero row).
+    ckv_scales, krope_scales: (N, bs, 1) f32 for a quantized pool.
     Returns (B, H, Dl) in q_full's dtype.
     """
     B, H, D = q_full.shape
@@ -145,9 +226,10 @@ def mla_decode_paged_ref(q_full, ckv_pages, krope_pages, block_tables,
         limit = indices[:, None].expand(B, H)
         ok = torch.ones((B, H), dtype=torch.bool, device=q_full.device)
         return _walk(q_full, ckv_pages, krope_pages, block_tables, limit, ok,
-                     scale, rescale).to(q_full.dtype)
-    ckv = _gather(ckv_pages, block_tables)
-    krope = _gather(krope_pages, block_tables)
+                     scale, rescale, ckv_scales,
+                     krope_scales).to(q_full.dtype)
+    ckv = _gather(ckv_pages, ckv_scales, block_tables)
+    krope = _gather(krope_pages, krope_scales, block_tables)
     cache = torch.cat([ckv, krope], dim=-1).float()
     s = torch.einsum("bhd,bsd->bhs", q_full.float(), cache) * scale
     valid = torch.arange(nb * bs, device=q_full.device)[None, :] \
@@ -161,7 +243,8 @@ def mla_decode_paged_ref(q_full, ckv_pages, krope_pages, block_tables,
 def mla_prefill_paged_ref(q_full, ckv_pages, krope_pages, block_tables,
                           lengths, n_valid, *,
                           softmax_scale: Optional[float] = None,
-                          rescale: Optional[str] = None):
+                          rescale: Optional[str] = None, ckv_scales=None,
+                          krope_scales=None):
     """Paged chunked-prefill attention (multi-query sibling of
     :func:`mla_decode_paged_ref`).
 
@@ -172,6 +255,7 @@ def mla_prefill_paged_ref(q_full, ckv_pages, krope_pages, block_tables,
                   each row's first chunk token; n_valid: (B,) int32 — real
                   tokens per row (rows past it, and idle rows with n_valid
                   0, yield EXACT ZEROS).
+    ckv_scales, krope_scales: (N, bs, 1) f32 for a quantized pool.
     Chunk token c attends pool positions <= lengths[b] + c.
     Returns (B, C, H, Dl) in q_full's dtype.
     """
@@ -186,10 +270,11 @@ def mla_prefill_paged_ref(q_full, ckv_pages, krope_pages, block_tables,
         limit = q_pos[:, :, None].expand(B, C, H).reshape(B, C * H)
         ok = row_ok[:, :, None].expand(B, C, H).reshape(B, C * H)
         o = _walk(q_full.reshape(B, C * H, D), ckv_pages, krope_pages,
-                  block_tables, limit, ok, scale, rescale)
+                  block_tables, limit, ok, scale, rescale, ckv_scales,
+                  krope_scales)
         return o.reshape(B, C, H, Dl).to(q_full.dtype)
-    ckv = _gather(ckv_pages, block_tables)
-    krope = _gather(krope_pages, block_tables)
+    ckv = _gather(ckv_pages, ckv_scales, block_tables)
+    krope = _gather(krope_pages, krope_scales, block_tables)
     cache = torch.cat([ckv, krope], dim=-1).float()
     s = torch.einsum("bchd,bsd->bchs", q_full.float(), cache) * scale
     k_pos = torch.arange(nb * bs, device=q_full.device)

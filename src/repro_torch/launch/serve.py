@@ -1,39 +1,59 @@
-"""Serving launcher of the port: a synthetic request batch through the
-paged continuous-batching engine.
+"""Serving launcher of the port: prefill a batch of prompts and decode,
+over contiguous caches (the default) or through the paged
+continuous-batching engine (``--paged``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b \
-        --smoke --paged --impl kernel
+        --smoke --impl kernel
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b \
+        --smoke --paged --cache-dtype fp8 --impl kernel
 
-``--paged`` serves the batch through ``PagedMLAEngine``: paged latent pool,
-per-request block tables, chunked prefill, mid-generation admission, the
-radix prefix cache.  It is the only serving path ported so far, and the
-flag is required.  ``--scheme auto`` re-runs the rc / ru / seq dispatch
-every decode step on the live (batch, max cache_len) point, priced for
-``--platform`` (default ``h100``).
+Without ``--paged`` the batch prefills together through the contiguous
+MHA-mode prefill (``runtime.steps.make_prefill_step``: the
+flash-attention forward kernel under ``--impl kernel``) into one latent
+cache per request of prompt + gen + 1 positions, then decodes one token
+per step for the whole batch (``make_serve_step``: kernel K3 under
+``--impl kernel``).  ``--scheme auto`` picks rc / ru / seq once, for
+(batch, prompt + gen) on ``--platform``, and prints its choice.
+
+``--paged`` serves the batch as a request stream through
+``PagedMLAEngine``: paged latent pool, per-request block tables, chunked
+prefill, mid-generation admission, the radix prefix cache; ``--scheme
+auto`` re-runs the dispatch every decode step on the live (batch, max
+cache_len) point.
 
   --arch / --smoke    model config (``--smoke``: the tiny CI config)
-  --batch N           requests, arriving two steps apart
+  --batch N           requests (paged: arriving two steps apart)
   --prompt-len N      tokens per prompt
   --gen N             tokens generated per request
   --scheme S          auto | naive | seq | rc | ru
   --platform P        hwmodel platform auto_dispatch prices against
-  --impl I            paged attention: 'ref' (gathered view) or 'kernel'
+  --impl I            attention: 'ref' (dense / gathered view) or 'kernel'
                       (the CUDA kernels; their plain versions on CPU)
   --seed N            weight init and prompts
+  --device D          cuda (default) or cpu
+
+Paged only (each raises without ``--paged``):
+
   --block-size N      tokens per pool block
   --num-blocks N      pool blocks (0 = sized for the batch)
   --no-prefix-cache   disable radix prefix-cache block sharing
-  --prefill-chunk N   chunk size of the batched paged prefill
+  --prefill-chunk N   chunk size of the batched paged prefill; 0 prefills
+                      each request alone through the contiguous prefill
+                      and scatters it into the pool ('per_request'; the
+                      prefix cache is then off)
+  --cache-dtype D     pool storage: bf16 (the compute dtype) | int8 |
+                      fp8 (e4m3; 1-byte codes with per-slot f32 scales,
+                      dequantized in the kernels' registers; needs
+                      --prefill-chunk > 0)
   --n N               parallel samples per request (one prefill, n-way fork)
   --admission A       cache_aware | fcfs admission order
   --admission-age-bound N
                       bypasses of cache-aware admission before a waiting
                       request is served regardless
-  --device D          cuda (default) or cpu
 
 Weights are random (``--seed``) and f32, as in the JAX launcher; sampling
-is greedy.  Seeded sampling, the int8/fp8 pool, speculative decoding, the
-async engine, the HTTP frontend, meshes and telemetry are on ROADMAP.md.
+is greedy.  Seeded sampling, speculative decoding, the async engine, the
+HTTP frontend, meshes and telemetry are on ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -45,9 +65,12 @@ import numpy as np
 import torch
 
 from .. import configs, models
+from ..core import mla as mlalib
+from ..core.schemes import auto_dispatch
 from ..hwmodel.platforms import PLATFORMS
 from ..nn import module as nnm
-from ..runtime import PagedMLAEngine, Request, SamplingParams, blocks_for
+from ..runtime import (PagedMLAEngine, Request, SamplingParams, blocks_for,
+                       make_prefill_step, make_serve_step)
 
 
 def build_engine(cfg, params, *, batch: int, max_len: int, n: int = 1,
@@ -55,11 +78,13 @@ def build_engine(cfg, params, *, batch: int, max_len: int, n: int = 1,
                  impl: str = "ref", scheme: str = "auto",
                  platform: str = "h100", prefix_cache: bool = True,
                  prefill_chunk: int = 32, admission: str = "cache_aware",
-                 admission_age_bound: int = 64,
+                 admission_age_bound: int = 64, cache_dtype: str = "bf16",
                  compute_dtype=torch.float32,
                  device="cuda") -> PagedMLAEngine:
     """A paged engine sized for ``batch`` request groups of up to
-    ``max_len`` tokens (prompt + generation), each forked ``n`` ways."""
+    ``max_len`` tokens (prompt + generation), each forked ``n`` ways.
+    ``prefill_chunk`` 0 prefills per request (``prefill_mode=
+    'per_request'``)."""
     per_req = blocks_for(max_len + 1, block_size)
     # fork children share the prompt blocks; each needs its own tail run
     per_group = per_req + (n - 1) * blocks_for(gen + 1, block_size)
@@ -68,7 +93,9 @@ def build_engine(cfg, params, *, batch: int, max_len: int, n: int = 1,
         block_size=block_size, max_batch=max(batch, n),
         max_blocks_per_req=per_req, compute_dtype=compute_dtype, impl=impl,
         scheme=scheme, platform=PLATFORMS[platform],
-        enable_prefix_cache=prefix_cache, prefill_chunk=prefill_chunk,
+        enable_prefix_cache=prefix_cache,
+        prefill_mode="chunked" if prefill_chunk else "per_request",
+        prefill_chunk=prefill_chunk or 32, cache_dtype=cache_dtype,
         admission=admission, admission_age_bound=admission_age_bound,
         device=device)
 
@@ -111,13 +138,70 @@ def serve_paged(engine: PagedMLAEngine, requests: List[Request], *,
     return summary
 
 
+def serve_contiguous(cfg, params, *, batch: int, prompt_len: int, gen: int,
+                     scheme: str = "auto", platform: str = "h100",
+                     impl: str = "ref", seed: int = 0,
+                     compute_dtype=torch.float32, device="cuda",
+                     log=print) -> dict:
+    """Prefill ``batch`` random prompts of ``prompt_len`` tokens together,
+    then decode ``gen - 1`` greedy steps over contiguous caches; log a
+    report and return {scheme, tokens (B, gen), prefill_s, decode_s,
+    decode_steps}, times from the host clock around work that ends in a
+    device synchronize."""
+    if scheme == "auto":
+        cap = prompt_len + gen
+        scheme = auto_dispatch(cfg.mla_config(), PLATFORMS[platform],
+                               cache_len=cap, batch=batch)
+        log(f"[serve] auto_dispatch({platform}, L={cap}, B={batch}) -> "
+            f"scheme '{scheme}'")
+    params = _prepare_mla(params, cfg, scheme)
+    prefill = make_prefill_step(cfg, capacity=prompt_len + gen + 1,
+                                compute_dtype=compute_dtype, impl=impl,
+                                scheme=scheme)
+    step = make_serve_step(cfg, compute_dtype=compute_dtype, impl=impl,
+                           scheme=scheme)
+    rng = np.random.default_rng(seed + 1)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (batch, prompt_len)),
+                           device=device)
+    sync = torch.cuda.synchronize if torch.device(device).type == "cuda" \
+        else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, toks)
+    out = [torch.argmax(logits, dim=-1)]
+    sync()
+    prefill_s = time.perf_counter() - t0
+    log(f"[serve] prefill {batch}x{prompt_len}: {prefill_s:.2f}s")
+    t0 = time.perf_counter()
+    for i in range(gen - 1):
+        logits, cache = step(params, out[-1], cache, prompt_len + i)
+        out.append(torch.argmax(logits, dim=-1))
+    sync()
+    decode_s = time.perf_counter() - t0
+    tokens = torch.stack(out, dim=1).cpu().numpy()
+    log(f"[serve] decoded {gen - 1} steps in {decode_s:.2f}s "
+        f"({(gen - 1) * batch / max(decode_s, 1e-9):.1f} tok/s), "
+        f"scheme={scheme}")
+    log(f"[serve] sample: {tokens[0][:16]}")
+    return {"scheme": scheme, "tokens": tokens, "prefill_s": prefill_s,
+            "decode_s": decode_s, "decode_steps": gen - 1,
+            "last_logits": logits}
+
+
+def _prepare_mla(params, cfg, scheme: str):
+    """Attach the absorbed weights 'ru' streams; other schemes skip it."""
+    if scheme != "ru":
+        return params
+    return mlalib.attach_absorbed_tree(params, cfg.mla_config())
+
+
 def main(argv: Optional[List[str]] = None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--paged", action="store_true",
                     help="continuous batching over the paged latent pool "
-                         "(required: the only serving path ported)")
+                         "(default: contiguous caches)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
@@ -132,7 +216,13 @@ def main(argv: Optional[List[str]] = None):
     ap.add_argument("--no-prefix-cache", action="store_true",
                     help="disable radix prefix-cache block sharing")
     ap.add_argument("--prefill-chunk", type=int, default=32,
-                    help="batched paged prefill chunk size")
+                    help="batched paged prefill chunk size (0 = "
+                         "per-request contiguous prefill)")
+    ap.add_argument("--cache-dtype", default="bf16",
+                    choices=("bf16", "int8", "fp8"),
+                    help="paged pool storage: int8 / fp8 quantize on "
+                         "write with per-slot f32 scales; needs --paged "
+                         "and --prefill-chunk > 0")
     ap.add_argument("--n", type=int, default=1,
                     help="parallel samples per request (prefill once, "
                          "fork n ways copy-on-write)")
@@ -141,20 +231,29 @@ def main(argv: Optional[List[str]] = None):
     ap.add_argument("--admission-age-bound", type=int, default=64)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
-    if not args.paged:
-        raise SystemExit("only --paged serving is ported (the contiguous "
-                         "path is on ROADMAP.md)")
+    paged_only = {"--cache-dtype": args.cache_dtype != "bf16",
+                  "--n": args.n != 1}
+    if not args.paged and any(paged_only.values()):
+        raise SystemExit(f"{[k for k, v in paged_only.items() if v]} "
+                         f"require --paged")
 
     cfg = configs.smoke(args.arch) if args.smoke else configs.full(args.arch)
     params = nnm.init_params(models.model_defs(cfg), seed=args.seed,
                              dtype=torch.float32, device=args.device)
+    if not args.paged:
+        serve_contiguous(cfg, params, batch=args.batch,
+                         prompt_len=args.prompt_len, gen=args.gen,
+                         scheme=args.scheme, platform=args.platform,
+                         impl=args.impl, seed=args.seed, device=args.device)
+        return
     engine = build_engine(
         cfg, params, batch=args.batch, max_len=args.prompt_len + args.gen,
         n=args.n, gen=args.gen, block_size=args.block_size,
         num_blocks=args.num_blocks, impl=args.impl, scheme=args.scheme,
         platform=args.platform, prefix_cache=not args.no_prefix_cache,
         prefill_chunk=args.prefill_chunk, admission=args.admission,
-        admission_age_bound=args.admission_age_bound, device=args.device)
+        admission_age_bound=args.admission_age_bound,
+        cache_dtype=args.cache_dtype, device=args.device)
     serve_paged(engine, synthetic_requests(
         cfg, batch=args.batch, prompt_len=args.prompt_len, gen=args.gen,
         n=args.n, seed=args.seed))

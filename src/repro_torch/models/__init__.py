@@ -1,19 +1,25 @@
-"""Model API of the port (paged MLA serving and training of decoder-only
-models):
+"""Model API of the port (MLA serving, contiguous and paged, and training
+of decoder-only models):
 
     model_defs(cfg)                                   param definitions
     forward(params, cfg, tokens, ...)                 -> logits, aux
+    prefill(params, cfg, tokens, capacity=...)        -> logits, cache
+    decode_step_contiguous(params, cfg, token, cache, index, ...)
+                                                      -> logits, cache
     prefill_chunk_paged(params, cfg, tokens, pool, block_tables, lengths,
                         n_valid, ...)                 -> logits, pool
     decode_step(params, cfg, token, pool, block_tables, lengths, ...)
                                                       -> logits, pool
-    init_paged_cache(cfg, num_blocks, block_size, dtype, device)
+    init_cache(cfg, batch, capacity, dtype, device)
+    init_paged_cache(cfg, num_blocks, block_size, dtype, device,
+                     cache_dtype)
 """
 from __future__ import annotations
 
 from . import lm
 from .common import ModelConfig, Sub
-from .lm import decode_step, forward, init_paged_cache, prefill_chunk_paged
+from .lm import (decode_step, decode_step_contiguous, forward, init_cache,
+                 init_paged_cache, prefill, prefill_chunk_paged)
 
 
 def model_defs(cfg: ModelConfig):
@@ -23,6 +29,6 @@ def model_defs(cfg: ModelConfig):
     return lm.lm_defs(cfg)
 
 
-__all__ = ["ModelConfig", "Sub", "decode_step", "forward",
-           "init_paged_cache", "lm",
-           "model_defs", "prefill_chunk_paged"]
+__all__ = ["ModelConfig", "Sub", "decode_step", "decode_step_contiguous",
+           "forward", "init_cache", "init_paged_cache", "lm", "model_defs",
+           "prefill", "prefill_chunk_paged"]

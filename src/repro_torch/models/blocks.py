@@ -1,16 +1,19 @@
 """Sublayer bodies: (pre-norm mixer) + (pre-norm FFN), dispatched on the
-``Sub`` descriptor (port of the paged MLA serving modes of
-``repro.models.blocks``).
+``Sub`` descriptor (port of the MLA modes of ``repro.models.blocks``).
 
     sub_defs(cfg, desc, d_ff)                -> param defs
-    sub_apply(params, cfg, desc, x, ctx)     -> (x, pool, aux)
+    sub_apply(params, cfg, desc, x, ctx)     -> (x, cache, aux)
+    sub_cache(cfg, desc, batch, capacity, ...)    this sublayer's
+                                                  contiguous latent cache
     sub_paged_cache(cfg, desc, ..., device)  -> this sublayer's paged pool
 
-Only MLA attention with a dense or MoE FFN is ported, in the two paged
-serving modes ('decode', 'prefill_chunk') and in 'train' (MHA-mode MLA
-over the whole sequence, attention dense with ``impl='ref'`` or in the
-flash-attention kernels with ``impl='kernel'``); other mixers and modes
-raise ``NotImplementedError``.
+Only MLA attention with a dense or MoE FFN is ported, in the modes
+'train' and 'prefill' (MHA-mode MLA over the whole sequence, attention
+dense with ``impl='ref'`` or in the flash-attention kernels with
+``impl='kernel'``; 'prefill' also returns a contiguous latent cache),
+'decode' (contiguous when ``ctx.lengths`` is None, else paged) and
+'prefill_chunk' (paged); other mixers and modes raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -26,20 +29,22 @@ from ..nn import layers as nl
 from . import moe as moelib
 from .common import ModelConfig, Sub
 
-MODES = ("decode", "prefill_chunk", "train")
+MODES = ("decode", "prefill_chunk", "prefill", "train")
 # engine/model ``impl`` -> the attention path of core.mla
 _MLA_IMPL = {"ref": "gather", "kernel": "kernel"}
 
 
 @dataclasses.dataclass
 class Ctx:
-    mode: str                       # decode | prefill_chunk | train
+    mode: str                       # decode | prefill_chunk | prefill | train
     impl: str = "ref"               # attention impl: 'ref' | 'kernel'
     scheme: str = "seq"             # MLA execution scheme
-    positions: Any = None           # (B, L) int — train only
-    cache: Optional[Dict] = None    # this sublayer's paged pool
-    block_tables: Any = None        # (B, max_blocks) int32
-    lengths: Any = None             # (B,) int32 — ragged per request
+    positions: Any = None           # (B, L) int — train / prefill
+    cache: Optional[Dict] = None    # this sublayer's cache or paged pool
+    index: int = 0                  # contiguous decode: tokens cached
+    capacity: int = 0               # prefill: S of the returned cache
+    block_tables: Any = None        # (B, max_blocks) int32 — paged
+    lengths: Any = None             # (B,) int32 — paged, ragged
     n_valid: Any = None             # (B,) int32 — chunked prefill only
 
 
@@ -65,22 +70,33 @@ def sub_defs(cfg: ModelConfig, desc: Sub, d_ff: Optional[int] = None) -> Dict:
     return d
 
 
+def sub_cache(cfg: ModelConfig, desc: Sub, batch: int, capacity: int,
+              dtype=torch.bfloat16, device="cuda") -> Dict:
+    """Contiguous decode state of one sublayer: its (B, S) latent cache."""
+    _supported(cfg, desc)
+    return cachelib.latent_cache(batch, capacity, cfg.kv_lora_rank,
+                                 cfg.qk_rope_dim, dtype, device)
+
+
 def sub_paged_cache(cfg: ModelConfig, desc: Sub, num_blocks: int,
-                    block_size: int, dtype=torch.bfloat16,
-                    device="cuda") -> Dict:
-    """Paged decode state of one sublayer: its latent block pool."""
+                    block_size: int, dtype=torch.bfloat16, device="cuda",
+                    cache_dtype: Optional[str] = None) -> Dict:
+    """Paged decode state of one sublayer: its latent block pool
+    (quantized with scale leaves for ``cache_dtype`` 'int8' / 'fp8')."""
     _supported(cfg, desc)
     return cachelib.paged_latent_cache(num_blocks, block_size,
                                        cfg.kv_lora_rank, cfg.qk_rope_dim,
-                                       dtype, device)
+                                       dtype, device, cache_dtype)
 
 
 AUX_KEYS = ("balance", "z_loss", "dropped_frac")
 
 
 def _mla_seq(params, cfg: ModelConfig, desc: Sub, x, ctx: Ctx):
-    """Train forward of one MLA sublayer over the whole sequence.
-    x: (B, L, D) normalized input."""
+    """Train / prefill forward of one MLA sublayer over the whole sequence.
+    x: (B, L, D) normalized input.  Returns (out, cache): in 'prefill'
+    mode a contiguous latent cache of ``ctx.capacity`` (or L) positions
+    holding the L entries, else None."""
     attn_fn = None
     if ctx.impl == "kernel":
         def attn_fn(q, k, v, softmax_scale):
@@ -90,26 +106,40 @@ def _mla_seq(params, cfg: ModelConfig, desc: Sub, x, ctx: Ctx):
                 softmax_scale=softmax_scale).transpose(1, 2)
     elif ctx.impl != "ref":
         raise NotImplementedError(
-            f"train impl {ctx.impl!r}: the port trains with 'ref' or "
+            f"{ctx.mode} impl {ctx.impl!r}: the port runs 'ref' or "
             f"'kernel'; 'chunked' comes with core/chunked_attention.py "
             f"(ROADMAP.md queue 1, item 17)")
-    out, _ = mlalib.mla_prefill(params, cfg.mla_config(), x, ctx.positions,
-                                attn_fn=attn_fn)
-    return out
+    mcfg = cfg.mla_config()
+    prefill = ctx.mode == "prefill"
+    out, entries = mlalib.mla_prefill(params, mcfg, x, ctx.positions,
+                                      attn_fn=attn_fn, return_cache=prefill)
+    if not prefill:
+        return out, None
+    B, L, _ = x.shape
+    cache = cachelib.latent_cache(B, ctx.capacity or L, mcfg.kv_lora_rank,
+                                  mcfg.qk_rope_dim, x.dtype, x.device)
+    return out, cachelib.update_latent(cache, entries["ckv"],
+                                       entries["krope"], 0)
 
 
 def sub_apply(params, cfg: ModelConfig, desc: Sub, x, ctx: Ctx):
     """x: (B, D) for decode, (B, C, D) for prefill_chunk, (B, L, D) for
-    train.  Returns (x, pool, aux) — aux holds f32 scalars (zeros without
-    a router); pool is None in train mode."""
+    train and prefill.  Returns (x, cache, aux) — aux holds f32 scalars
+    (zeros without a router); cache is the new contiguous cache in
+    prefill mode, the updated cache or pool in the decode modes, None in
+    train mode."""
     _supported(cfg, desc)
     if ctx.mode not in MODES:
         raise NotImplementedError(
             f"mode {ctx.mode!r}: the port runs {MODES} only (ROADMAP.md)")
     h = nl.rmsnorm(params["ln1"], x, cfg.norm_eps)
     pool = ctx.cache
-    if ctx.mode == "train":
-        a = _mla_seq(params["attn"], cfg, desc, h, ctx)
+    if ctx.mode in ("train", "prefill"):
+        a, pool = _mla_seq(params["attn"], cfg, desc, h, ctx)
+    elif ctx.mode == "decode" and ctx.lengths is None:
+        a, pool = mlalib.mla_decode(
+            params["attn"], cfg.mla_config(), h, ctx.cache, ctx.index,
+            scheme=ctx.scheme, impl=_MLA_IMPL[ctx.impl])
     elif ctx.mode == "decode":
         a, pool = mlalib.mla_decode_paged(
             params["attn"], cfg.mla_config(), h, ctx.cache,

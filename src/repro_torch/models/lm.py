@@ -1,4 +1,4 @@
-"""Decoder-only LM for paged MLA serving and training (port of
+"""Decoder-only LM for MLA serving and training (port of
 ``repro.models.lm``).
 
 Layer stack = prefix + periods + suffix of ``ModelConfig.layer_plan``.
@@ -10,12 +10,16 @@ reference's ``jax.checkpoint`` of the scanned body).
 
     lm_defs(cfg)                                              param defs
     forward(params, cfg, tokens, ...)                   -> logits, aux
+    prefill(params, cfg, tokens, capacity=...)          -> logits, cache
+    decode_step_contiguous(params, cfg, token, cache, index, ...)
+                                                        -> logits, cache
     prefill_chunk_paged(params, cfg, tokens, pool, ...) -> logits, pool
     decode_step(params, cfg, token, pool, ...)          -> logits, pool
+    init_cache(cfg, batch, capacity, ...)                     cache tree
     init_paged_cache(cfg, num_blocks, block_size, ...)        pool tree
 
-Pools are updated in place (``core.cache``); the returned pool tree is the
-one passed in.
+Caches and pools are updated in place (``core.cache``); the returned tree
+is the one passed in (``prefill`` returns a new one).
 """
 from __future__ import annotations
 
@@ -28,7 +32,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..nn import layers as nl
 from ..nn import module as nnm
-from .blocks import AUX_KEYS, Ctx, sub_apply, sub_defs, sub_paged_cache
+from .blocks import (AUX_KEYS, Ctx, sub_apply, sub_cache, sub_defs,
+                     sub_paged_cache)
 from .common import ModelConfig, Sub
 
 
@@ -77,20 +82,38 @@ def layers(cfg: ModelConfig, tree) -> Iterator[Tuple[Sub, Dict]]:
         yield desc, tree["suffix"][f"l{i}"]
 
 
+def _layout(cfg: ModelConfig, leaf) -> Dict:
+    """A tree laid out like the layers of :func:`lm_defs`, ``leaf(desc)``
+    at each layer."""
+    prefix, period, n_periods, suffix = cfg.layer_plan()
+    return {
+        "prefix": {f"l{i}": leaf(d) for i, d in enumerate(prefix)},
+        "period": [{f"s{i}": leaf(d) for i, d in enumerate(period)}
+                   for _ in range(n_periods)],
+        "suffix": {f"l{i}": leaf(d) for i, d in enumerate(suffix)},
+    }
+
+
 def _run_stack(params, cfg: ModelConfig, x, ctx: Ctx, pools=None):
     """Returns (x, pools, aux summed over layers).  ``pools`` (laid out
-    like the params) is None in train mode."""
+    like the params) is None in train mode; in prefill mode the tree of
+    new contiguous caches is returned in its place."""
     prefix, period, n_periods, suffix = cfg.layer_plan()
     aux_sum = {k: x.new_zeros((), dtype=torch.float32) for k in AUX_KEYS}
+    if ctx.mode == "prefill":
+        pools = _layout(cfg, lambda _: None)
 
     def run(descs, p_node, pool_node, keys, x):
         """The sublayers ``keys`` of one node, in order; returns x and
-        their summed aux as a tuple (checkpoint-friendly)."""
+        their summed aux as a tuple (checkpoint-friendly).  A new cache
+        (prefill) is stored into ``pool_node``."""
         aux_tot = [x.new_zeros((), dtype=torch.float32) for _ in AUX_KEYS]
         for desc, key in zip(descs, keys):
             pool = pool_node[key] if pool_node is not None else None
-            x, _, aux = sub_apply(p_node[key], cfg, desc, x,
-                                  dataclasses.replace(ctx, cache=pool))
+            x, new, aux = sub_apply(p_node[key], cfg, desc, x,
+                                    dataclasses.replace(ctx, cache=pool))
+            if ctx.mode == "prefill":
+                pool_node[key] = new
             aux_tot = [a + aux[k] for a, k in zip(aux_tot, AUX_KEYS)]
         return (x, *aux_tot)
 
@@ -153,6 +176,40 @@ def forward(params, cfg: ModelConfig, tokens, *,
     return _logits(params, cfg, x), aux
 
 
+def prefill(params, cfg: ModelConfig, tokens, *, capacity: int = 0,
+            compute_dtype=torch.bfloat16, impl: str = "ref",
+            scheme: str = "seq"):
+    """Contiguous prefill of a batch of equal-length prompts.
+
+    tokens: (B, L).  Runs MLA in MHA mode over the whole prompt (the
+    attention dense under 'ref', in the flash-attention forward kernel
+    under 'kernel') and returns (last-token logits (B, V), a contiguous
+    cache tree of ``capacity`` (default L) positions holding the L
+    entries), for :func:`decode_step_contiguous`.  ``scheme`` matters at
+    decode only."""
+    x = _embed(params, cfg, tokens, compute_dtype)
+    B, L, _ = x.shape
+    positions = torch.arange(L, device=x.device).expand(B, L)
+    ctx = Ctx(mode="prefill", impl=impl, scheme=scheme, positions=positions,
+              capacity=capacity or L)
+    x, caches, _ = _run_stack(params, cfg, x, ctx)
+    return _logits(params, cfg, x[:, -1]), caches
+
+
+def decode_step_contiguous(params, cfg: ModelConfig, token, cache,
+                           index: int, *, compute_dtype=torch.bfloat16,
+                           impl: str = "ref", scheme: str = "seq"):
+    """One decode step over contiguous caches: token (B,), ``index`` a host
+    int (the tokens already cached, shared by the batch).  The JAX
+    package's ``decode_step(token, cache, index)``; its paged form is
+    :func:`decode_step` here.  ``impl`` 'kernel' runs the latent
+    attention in kernel K3.  Returns (logits (B, V), cache)."""
+    x = _embed(params, cfg, token, compute_dtype)
+    ctx = Ctx(mode="decode", impl=impl, scheme=scheme, index=int(index))
+    x, cache, _ = _run_stack(params, cfg, x, ctx, cache)
+    return _logits(params, cfg, x), cache
+
+
 def prefill_chunk_paged(params, cfg: ModelConfig, tokens, pool,
                         block_tables, lengths, n_valid, *,
                         compute_dtype=torch.bfloat16, impl: str = "ref",
@@ -165,7 +222,7 @@ def prefill_chunk_paged(params, cfg: ModelConfig, tokens, pool,
     logits matter only for the chunk that finishes a request's prompt.
     ``impl`` 'kernel' runs the chunk attention in the paged prefill kernel;
     'ref' on the gathered block-table view."""
-    x = nl.embed(params["embed"], tokens, compute_dtype)
+    x = _embed(params, cfg, tokens, compute_dtype)
     ctx = Ctx(mode="prefill_chunk", impl=impl, scheme=scheme,
               block_tables=block_tables, lengths=lengths, n_valid=n_valid)
     x, pool, _ = _run_stack(params, cfg, x, ctx, pool)
@@ -180,27 +237,29 @@ def decode_step(params, cfg: ModelConfig, token, pool, block_tables,
     """Paged continuous-batching decode: token (B,), ``lengths`` (B,)
     int32 ragged per-request cache lengths, ``block_tables`` (B, nb).
     Returns (logits (B, V), pool)."""
-    x = nl.embed(params["embed"], token, compute_dtype)
+    x = _embed(params, cfg, token, compute_dtype)
     ctx = Ctx(mode="decode", impl=impl, scheme=scheme,
               block_tables=block_tables, lengths=lengths)
     x, pool, _ = _run_stack(params, cfg, x, ctx, pool)
     return _logits(params, cfg, x), pool
 
 
+def init_cache(cfg: ModelConfig, batch: int, capacity: int,
+               dtype=torch.bfloat16, device="cuda") -> Dict:
+    """Contiguous cache tree laid out like the layers of :func:`lm_defs`:
+    one (batch, capacity, .) latent cache per MLA layer."""
+    return _layout(cfg, lambda d: sub_cache(cfg, d, batch, capacity, dtype,
+                                            device))
+
+
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
-                     dtype=torch.bfloat16, device="cuda") -> Dict:
+                     dtype=torch.bfloat16, device="cuda",
+                     cache_dtype=None) -> Dict:
     """Pool tree laid out like the layers of :func:`lm_defs`: one
     (num_blocks, block_size, .) latent block pool per MLA layer, shared by
-    all requests.  Block tables and lengths live outside it (one table
-    per request, shared across layers)."""
-    def pool(desc):
-        return sub_paged_cache(cfg, desc, num_blocks, block_size, dtype,
-                               device)
-
-    prefix, period, n_periods, suffix = cfg.layer_plan()
-    return {
-        "prefix": {f"l{i}": pool(d) for i, d in enumerate(prefix)},
-        "period": [{f"s{i}": pool(d) for i, d in enumerate(period)}
-                   for _ in range(n_periods)],
-        "suffix": {f"l{i}": pool(d) for i, d in enumerate(suffix)},
-    }
+    all requests (int8 / fp8 with scale leaves for ``cache_dtype``).
+    Block tables and lengths live outside it (one table per request,
+    shared across layers)."""
+    return _layout(cfg, lambda d: sub_paged_cache(cfg, d, num_blocks,
+                                                  block_size, dtype, device,
+                                                  cache_dtype))

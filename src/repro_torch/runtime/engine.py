@@ -17,9 +17,16 @@ block tables, copy-on-write, preemption) to the device steps of
 ``impl='kernel'`` runs the paged attention in the CUDA kernels (K1 for
 decode, K2 for prefill chunks; their plain versions on CPU tensors);
 ``impl='ref'`` on the gathered block-table view.  The pool is updated in
-place.  Seeded sampling, the int8/fp8 pool, speculative decoding,
-per-request prefill, the async engine, meshes and telemetry are not
-ported yet: asking for them raises ``NotImplementedError`` (ROADMAP.md).
+place, in the compute dtype (``cache_dtype='bf16'``) or quantized
+(``'int8'`` / ``'fp8'``: 1-byte codes with per-slot f32 scales, written
+by the chunked prefill and the decode step, dequantized in the kernels'
+registers).  ``prefill_mode='per_request'`` prefills each admitted
+request alone through the contiguous MHA-mode prefill
+(``steps.make_prefill_step``) and scatters its cache into the pool in
+whole blocks; it turns the prefix cache off and refuses a quantized pool,
+as the reference does.  Seeded sampling, speculative decoding, the async
+engine, meshes and telemetry are not ported yet: asking for them raises
+``NotImplementedError`` (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -37,7 +44,8 @@ from ..core import mla as mlalib
 from ..core.schemes import PlatformPoint, auto_dispatch
 from ..models.common import ModelConfig
 from .loop import drive
-from .scheduler import ContinuousScheduler, Request
+from .scheduler import ContinuousScheduler, Request, blocks_for
+from .steps import make_prefill_step, scatter_prefill_to_paged
 
 
 def _not_ported(what: str):
@@ -109,12 +117,16 @@ class PagedMLAEngine:
                              f"'kernel'")
         if prefill_mode not in ("chunked", "per_request"):
             raise ValueError(f"unknown prefill_mode {prefill_mode!r}")
+        cache_dtype = "bf16" if cache_dtype is None else cache_dtype
+        cachelib.cache_dtype_info(cache_dtype)   # validate the name early
+        if cache_dtype != "bf16" and prefill_mode != "chunked":
+            raise NotImplementedError(
+                "quantized cache_dtype requires prefill_mode='chunked' "
+                "(the per-request scatter carries no scales)")
         if prefill_mode != "chunked":
-            raise _not_ported("prefill_mode='per_request'")
-        if cache_dtype not in (None, "bf16"):
-            if cache_dtype not in cachelib.CACHE_DTYPES:
-                raise ValueError(f"unknown cache_dtype {cache_dtype!r}")
-            raise _not_ported(f"the {cache_dtype} latent pool")
+            # the per-request path recomputes and rewrites WHOLE prompts,
+            # which would scatter over read-only shared blocks
+            enable_prefix_cache = False
         if temperature > 0.0:
             raise _not_ported("seeded sampling (temperature > 0)")
         if spec_k:
@@ -132,11 +144,12 @@ class PagedMLAEngine:
         self.params = mlalib.attach_absorbed_tree(params, self.mla) \
             if scheme in ("auto", "ru") else params
         self.compute_dtype = compute_dtype
-        self.cache_dtype = "bf16"
+        self.cache_dtype = cache_dtype
         self.impl = impl
         self.scheme = scheme
         self.platform = platform
         self.block_size = block_size
+        self.prefill_mode = prefill_mode
         self.prefill_chunk = int(prefill_chunk)
         if self.prefill_chunk < 1:
             raise ValueError("prefill_chunk must be >= 1")
@@ -153,14 +166,17 @@ class PagedMLAEngine:
             admission=admission,
             admission_age_bound=admission_age_bound)
         self.pool = models.init_paged_cache(cfg, num_blocks, block_size,
-                                            compute_dtype, self.device)
+                                            compute_dtype, self.device,
+                                            cache_dtype)
         self.pending = np.zeros((max_batch,), np.int32)   # next token to feed
         self._last_scheme: Optional[str] = None
         self.stats = EngineStats()
-        # bytes one cached token occupies across ALL layers of the pool
+        # bytes one cached token occupies across ALL layers of the pool,
+        # at its storage dtype
         self.cache_token_bytes = cfg.n_layers * cachelib.bytes_per_token_latent(
             cfg.kv_lora_rank, cfg.qk_rope_dim,
-            dtype_bytes=torch.empty((), dtype=compute_dtype).element_size())
+            dtype_bytes=torch.empty((), dtype=compute_dtype).element_size(),
+            cache_dtype=cache_dtype)
 
     # ----------------------------------------------------------- device ---
 
@@ -239,6 +255,27 @@ class PagedMLAEngine:
                 self._fork_and_seed(slot, logits[slot][None], step_i)
                 if self.sched.record_prefill_sample(slot, tok, step_i) is None:
                     self.pending[slot] = tok
+
+    def _run_per_request_prefill(self, admitted, step_i: int) -> None:
+        """Contiguous prefill of each admitted request alone (capacity
+        rounded up to whole blocks), its cache scattered into the pool in
+        whole blocks.  Incompatible with prefix sharing."""
+        for slot, req in admitted:
+            cap = blocks_for(req.plen, self.block_size) * self.block_size
+            prefill = make_prefill_step(self.cfg, capacity=cap,
+                                        compute_dtype=self.compute_dtype,
+                                        impl=self.impl)
+            logits, cache = prefill(
+                self.params,
+                self._dev(np.asarray(req.prompt, np.int64)[None]))
+            self.pool = scatter_prefill_to_paged(
+                self.pool, cache, self._dev(self.sched.block_table[slot]))
+            self.stats.prefill_tokens += req.plen
+            tok = self._sample_tokens(logits[0][None], [slot])[slot]
+            self.sched.commit_prefill(slot)
+            self._fork_and_seed(slot, logits[0][None], step_i)
+            if self.sched.record_prefill_sample(slot, tok, step_i) is None:
+                self.pending[slot] = tok
 
     def _fork_and_seed(self, slot: int, row, step_i: int) -> None:
         """Fork a just-prefilled n > 1 parent (scheduler.fork_group) and
@@ -332,7 +369,10 @@ class PagedMLAEngine:
             if was_decoding:
                 self.stats.mid_gen_admissions += 1
         if admitted:
-            self._run_chunked_prefill(admitted, step_i)
+            if self.prefill_mode == "chunked":
+                self._run_chunked_prefill(admitted, step_i)
+            else:
+                self._run_per_request_prefill(admitted, step_i)
             # fork-group tail copies land before both forks' decode writes
             self._drain_cow()
 

@@ -1,13 +1,23 @@
-"""The training step (port of the single-device training half of
-``repro.runtime.steps``): the causal-LM loss and ``make_train_step``.
+"""Step builders (port of the single-device half of
+``repro.runtime.steps``): the causal-LM loss and the training step, the
+contiguous serving steps, and the per-request prefill handoff into the
+paged pool.
 
     lm_loss(params, cfg, tokens, labels, ...)  -> (loss, metrics)
     make_train_step(cfg, opt_cfg, ts)          -> step(params, opt_state,
                                                        batch)
+    make_prefill_step(cfg, capacity=...)       -> fn(params, tokens)
+                                                  -> (logits, cache)
+    make_serve_step(cfg)                       -> fn(params, token, cache,
+                                                     index) -> (logits,
+                                                                cache)
+    scatter_prefill_to_paged(pool, cache, pages) -> pool
 
-The step takes gradients with ``torch.autograd.grad`` over the plain
-param tree and applies the in-place AdamW of ``optim.adamw``: it
-overwrites the params and moments it is given and returns them.
+The training step takes gradients with ``torch.autograd.grad`` over the
+plain param tree and applies the in-place AdamW of ``optim.adamw``: it
+overwrites the params and moments it is given and returns them.  The
+serving steps run under ``torch.inference_mode()``; the serve step
+updates the cache it is given in place (the reference donates it).
 """
 from __future__ import annotations
 
@@ -18,6 +28,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .. import models
+from ..core import cache as cachelib
 from ..models.common import ModelConfig
 from ..nn import layers as nl
 from ..optim import AdamWConfig, adamw_update
@@ -137,3 +148,78 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
         return params, opt_state, {**metrics, **opt_metrics}
 
     return step
+
+
+# ------------------------------------------------------------- serving ---
+
+
+def make_prefill_step(cfg: ModelConfig, *, capacity: int,
+                      compute_dtype=torch.bfloat16, impl: str = "ref",
+                      scheme: str = "seq"):
+    """Returns fn(params, tokens (B, L)) -> (last-token logits (B, V), a
+    contiguous cache tree of ``capacity`` positions holding the L
+    entries).  MHA-mode prefill: ``impl`` 'kernel' attends in the
+    flash-attention forward kernel."""
+
+    def run(params, tokens):
+        with torch.inference_mode():
+            return models.prefill(params, cfg, tokens, capacity=capacity,
+                                  compute_dtype=compute_dtype, impl=impl,
+                                  scheme=scheme)
+
+    return run
+
+
+def make_serve_step(cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
+                    impl: str = "ref", scheme: str = "seq"):
+    """Returns fn(params, token (B,), cache, index) -> (logits (B, V),
+    cache): one decode step over contiguous caches, the new token written
+    at the host int ``index``, the cache updated in place.  ``impl``
+    'kernel' attends in kernel K3."""
+
+    def run(params, token, cache, index: int):
+        with torch.inference_mode():
+            return models.decode_step_contiguous(
+                params, cfg, token, cache, index,
+                compute_dtype=compute_dtype, impl=impl, scheme=scheme)
+
+    return run
+
+
+def _layer_pairs(pool_tree, cache_tree):
+    """(pool, cache) of each layer of two trees laid out alike."""
+    if isinstance(pool_tree, dict) and "ckv" in pool_tree:
+        yield pool_tree, cache_tree
+        return
+    keys = pool_tree.keys() if isinstance(pool_tree, dict) \
+        else range(len(pool_tree))
+    for k in keys:
+        yield from _layer_pairs(pool_tree[k], cache_tree[k])
+
+
+def scatter_prefill_to_paged(pool_tree, cache_tree, pages):
+    """Write one request's contiguous prefill cache (batch 1, every
+    layer) into the paged pool at its ``pages`` ((max_blocks,) int32
+    tensor, padded with the null block), in place.  Whole blocks are
+    written; the tail inside the last block is masked at attention time.
+
+    A quantized pool raises, as in the reference: the contiguous cache
+    carries no scales — use chunked prefill, whose writes quantize."""
+    pairs = list(_layer_pairs(pool_tree, cache_tree))
+    if any(cachelib.is_quantized_pool(pool) for pool, _ in pairs):
+        raise NotImplementedError(
+            "scatter_prefill_to_paged does not support quantized pools; "
+            "use prefill_mode='chunked'")
+    for pool, cache in pairs:
+        for name in ("ckv", "krope"):
+            bs = pool[name].shape[-2]
+            contig = cache[name][0]                           # (cap, D)
+            n_pg = -(-contig.shape[0] // bs)
+            pad = n_pg * bs - contig.shape[0]
+            if pad:
+                contig = torch.cat([contig, contig.new_zeros(
+                    (pad, contig.shape[1]))])
+            cachelib.write_blocks_paged(
+                pool[name], pages[:n_pg],
+                contig.reshape(n_pg, bs, contig.shape[1]))
+    return pool_tree

@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
-paged MLA attention kernels (K1 decode, K2 chunked prefill) and flash
+paged MLA attention kernels (K1 decode, K2 chunked prefill; bf16 / f32
+and int8 / fp8 pools), the contiguous-cache decode kernel K3 and flash
 attention (K4 forward, K5 dQ, K6 dK/dV), and one bf16 training step of
 the smoke model with the flash kernels against the dense path.
 
@@ -23,9 +24,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import cache as tcache
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.mla_decode import mla_decode_paged_kernel
+from repro_torch.kernels.mla_decode import (mla_decode_kernel,
+                                            mla_decode_paged_kernel)
 from repro_torch.kernels.mla_prefill import mla_prefill_paged_kernel
 
 pytestmark = pytest.mark.gpu
@@ -116,6 +119,137 @@ def test_kernel_rejects_what_it_does_not_take():
                                     a["idx"])
     before = mla_decode_paged_kernel.launches
     mla_decode_paged_kernel(q, ckv, krope, bt, idx)
+    torch.cuda.synchronize()
+    assert mla_decode_paged_kernel.launches == before + 1
+
+
+# (B, H, S, Dl, Dr, index): ragged S, the first token, a full cache, the
+# widths of DeepSeek-V2 with an S that is no multiple of the tile
+K3_CASES = [(2, 8, 100, 32, 8, 57), (1, 4, 64, 32, 8, 0),
+            (1, 16, 256, 64, 16, 255), (3, 128, 2081, 512, 64, 2050)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", K3_CASES)
+def test_contiguous_decode_kernel_on_card(case, dtype, tol):
+    """K3 against its plain version, both rescales; the cache's tail past
+    index poisoned with 1e4 must not matter; index -1 gives zero rows."""
+    dev = _cuda()
+    B, H, S, Dl, Dr, index = case
+    g = torch.Generator(device=dev)
+    g.manual_seed(S)
+    q, ckv, krope = (torch.randn(shape, generator=g, device=dev).to(dtype)
+                     for shape in ((B, H, Dl + Dr), (B, S, Dl), (B, S, Dr)))
+    clean = [t.clone() for t in (ckv, krope)]
+    ckv[:, index + 1:] = 1e4
+    krope[:, index + 1:] = 1e4
+    for rescale in tref.RESCALES:
+        got = mla_decode_kernel(q, ckv, krope, index, rescale=rescale)
+        _close(got, tref.mla_decode_ref(q, *clean, index, rescale=rescale),
+               tol)
+        _close(got, tref.mla_decode_ref(q, *clean, index), tol)
+        assert (mla_decode_kernel(q, ckv, krope, -1, rescale=rescale)
+                == 0).all()
+
+
+def test_contiguous_decode_kernel_reads_strided_views():
+    """Views of a larger cache (batch and position strides of the parent,
+    an offset start) are read in place and agree with contiguous copies;
+    one launch each."""
+    dev = _cuda()
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    big = torch.randn((4, 50, 96), generator=g, device=dev)
+    q = torch.randn((2, 8, 40), generator=g, device=dev)
+    ckv, krope = big[::2, 5:42, :32], big[::2, 5:42, 64:72]
+    assert not ckv.is_contiguous()
+    before = mla_decode_kernel.launches
+    got = mla_decode_kernel(q, ckv, krope, 30)
+    want = mla_decode_kernel(q, ckv.contiguous(), krope.contiguous(), 30)
+    torch.cuda.synchronize()
+    _close(got, want, 1e-6)
+    _close(got, tref.mla_decode_ref(q, ckv, krope, 30), 1e-4)
+    assert mla_decode_kernel.launches == before + 2
+
+
+def _quantized_pool(dev, N, bs, Dl, Dr, cache_dtype, seed):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    qdtype, qmax = tcache.cache_dtype_info(cache_dtype)
+    ckv, cs = tcache.quantize_latent(
+        torch.randn((N, bs, Dl), generator=g, device=dev), qmax, qdtype)
+    krope, rs = tcache.quantize_latent(
+        torch.randn((N, bs, Dr), generator=g, device=dev), qmax, qdtype)
+    return ckv, krope, cs, rs
+
+
+@pytest.mark.parametrize("cache_dtype", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_quantized_paged_kernels_on_card(dtype, tol, cache_dtype):
+    """K1 and K2 on an int8 / fp8 pool with per-slot scales against their
+    plain versions given the same pool (both rescales), at the adversarial
+    shapes of the bf16 cases (first token, inactive slot, idle rows)."""
+    dev = _cuda()
+    for (B, H, Dl, Dr, bs, nb, N, idx), pre in zip(DECODE_CASES,
+                                                    PREFILL_CASES):
+        ckv, krope, cs, rs = _quantized_pool(dev, N, bs, Dl, Dr,
+                                             cache_dtype, N)
+        rng = np.random.default_rng(0)
+        q, bt, ind = _on(dev, dtype, rng.standard_normal((B, H, Dl + Dr)),
+                         rng.integers(0, N, (B, nb)).astype(np.int32),
+                         np.asarray(idx, np.int32))
+        qkw = dict(ckv_scales=cs, krope_scales=rs)
+        for rescale in tref.RESCALES:
+            got = mla_decode_paged_kernel(q, ckv, krope, bt, ind,
+                                          rescale=rescale, **qkw)
+            _close(got, tref.mla_decode_paged_ref(
+                q, ckv, krope, bt, ind, rescale=rescale, **qkw), tol)
+        B, C, H, Dl, Dr, bs, nb, N, lengths, n_valid = pre
+        ckv, krope, cs, rs = _quantized_pool(dev, N, bs, Dl, Dr,
+                                             cache_dtype, N + 1)
+        q, bt, ln, nv = _on(dev, dtype,
+                            rng.standard_normal((B, C, H, Dl + Dr)),
+                            rng.integers(0, N, (B, nb)).astype(np.int32),
+                            np.asarray(lengths, np.int32),
+                            np.asarray(n_valid, np.int32))
+        qkw = dict(ckv_scales=cs, krope_scales=rs)
+        for rescale in tref.RESCALES:
+            got = mla_prefill_paged_kernel(q, ckv, krope, bt, ln, nv,
+                                           rescale=rescale, **qkw)
+            _close(got, tref.mla_prefill_paged_ref(
+                q, ckv, krope, bt, ln, nv, rescale=rescale, **qkw), tol)
+
+
+def test_quantized_kernels_reject_bad_scales():
+    dev = _cuda()
+    ckv, krope, cs, rs = _quantized_pool(dev, 6, 4, 32, 8, "int8", 0)
+    q = torch.zeros((2, 4, 40), device=dev)
+    bt = torch.zeros((2, 3), dtype=torch.int32, device=dev)
+    idx = torch.zeros(2, dtype=torch.int32, device=dev)
+    for bad in (dict(ckv_scales=cs), dict(krope_scales=rs),
+                dict(ckv_scales=cs.double(), krope_scales=rs),
+                dict(ckv_scales=cs[:, :2], krope_scales=rs),
+                dict(ckv_scales=cs[..., 0], krope_scales=rs)):
+        with pytest.raises(ValueError):
+            mla_decode_paged_kernel(q, ckv, krope, bt, idx, **bad)
+        with pytest.raises(ValueError):
+            mla_prefill_paged_kernel(q[:, None], ckv, krope, bt, idx, idx,
+                                     **bad)
+    with pytest.raises(ValueError):              # codes without scales
+        mla_decode_paged_kernel(q, ckv, krope, bt, idx)
+    with pytest.raises(ValueError):              # scales on a float pool
+        mla_decode_paged_kernel(q, ckv.float(), krope.float(), bt, idx,
+                                ckv_scales=cs, krope_scales=rs)
+    with pytest.raises(ValueError):              # K3 takes no int8 cache
+        mla_decode_kernel(q, ckv[:2], krope[:2], 1)
+    with pytest.raises(ValueError):              # a strided last dimension
+        mla_decode_kernel(q, torch.zeros((2, 5, 64), device=dev)[..., ::2],
+                          torch.zeros((2, 5, 8), device=dev), 1)
+    before = mla_decode_paged_kernel.launches
+    mla_decode_paged_kernel(q, ckv, krope, bt, idx, ckv_scales=cs,
+                            krope_scales=rs)
     torch.cuda.synchronize()
     assert mla_decode_paged_kernel.launches == before + 1
 

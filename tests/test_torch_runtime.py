@@ -4,7 +4,8 @@ the cost model and scheme dispatch, and ``PagedMLAEngine`` end to end —
 logits within 1e-4 (f32, four layers of ~1e-7 reduction-order noise) and
 greedy tokens identical, with prefix-cache hits, a forced recompute
 preemption, an n=2 fork, stop sequences and cancel.  Also: the port
-imports without jax, unported options raise, and the serving CLI runs.
+imports without jax, unported options raise, and the serving CLI runs
+(paged and contiguous).
 
 The smoke config runs at drop-free MoE capacity (capacity_factor =
 n_experts / top_k, as the JAX package's serving benchmark does): below
@@ -254,8 +255,7 @@ def test_engine_rejects_what_is_not_ported(models_pair):
     _, tcfg, _, tp = models_pair
     kw = dict(num_blocks=8, block_size=4, max_batch=2, scheme="seq",
               device="cpu")
-    for bad in (dict(temperature=0.7), dict(cache_dtype="int8"),
-                dict(spec_k=2), dict(prefill_mode="per_request"),
+    for bad in (dict(temperature=0.7), dict(spec_k=2),
                 dict(mesh=object()), dict(telemetry=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TEngine(tcfg, tp, **kw, **bad)
@@ -295,8 +295,9 @@ def test_serve_cli_runs_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "[serve] paged: 12 decode tokens" in out
     assert "2 groups forked" in out
-    with pytest.raises(SystemExit):
-        tserve.main(["--arch", ARCH, "--smoke"])          # --paged required
+    tserve.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--batch",
+                 "2", "--prompt-len", "9", "--gen", "4"])  # contiguous
+    assert "[serve] decoded 3 steps" in capsys.readouterr().out
 
 
 def test_absorbed_tree_is_a_copy(models_pair):
