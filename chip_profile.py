@@ -36,11 +36,15 @@ time by kernel.
 from __future__ import annotations
 
 import os
+import re
 import sys
 import time
 import types
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+# kernel names of K1 / K3 (csrc/mla_decode*.cu, csrc/mla_decode_tc.cuh)
+MLA_DECODE = re.compile(r"mla::(tc::combine_kernel|decode(_paged)?(_tc)?"
+                        r"_kernel)\b")
 
 
 def report(torch, prof, wall, spans) -> int:
@@ -68,6 +72,13 @@ def report(torch, prof, wall, spans) -> int:
         print(f"  {e.self_device_time_total / 1e6:8.3f} s "
               f"{100 * e.self_device_time_total / 1e6 / busy:5.1f} % "
               f"x{e.count:<6d} {e.key[:90]}")
+    # the MLA decode kernel of the run (K1 or K3): its walk and, for bf16
+    # q, the combine kernel that merges the splits
+    mla = [e for e in dev if MLA_DECODE.search(e.key)]
+    t = sum(e.self_device_time_total for e in mla) / 1e6
+    print(f"[kernels] MLA decode (walk + combine): {t:.3f} s, "
+          f"{100 * t / busy:.1f} % of device time, "
+          f"{sum(e.count for e in mla)} launches")
     return 0
 
 

@@ -17,13 +17,20 @@ Phases, each printing its own lines; any failure exits non-zero:
      pools with per-slot scales; the contiguous decode kernel K3 at the
      contiguous path's shapes (B=8, H=128, S = 2048 + 32 + 1 = 2081) at
      index S - 1 and at a mid index with the tail poisoned, held row by
-     row (``row_rel``); the flash-attention kernels K4 (forward),
-     K5 (dQ) and K6 (dK/dV) in f32 and bf16 at small shapes (GQA, MQA,
-     windows, a query offset, ragged lengths, Dqk != Dv up to 576) and at
-     the training path's shapes (B=2, H=128, L=4096, Dqk=192, Dv=128,
-     causal, (B, L, H, D) tensors passed as transposed views), each
-     output held row by row; each kernel's time beside its plain
-     version's, the PyTorch library call's (SDPA) and its bound;
+     row (``row_rel``); bf16 K3 and K1 (the tensor-core split walk) at
+     indices one short of, on and one past a split boundary of the
+     wrapper's plan, on bf16, int8 and fp8 pools for K1, against their
+     plain walks and the split walk's model; the flash-attention kernels
+     K4 (forward), K5 (dQ) and K6 (dK/dV) in f32 and bf16 at small
+     shapes (GQA, MQA, windows, a query offset, ragged lengths, Dqk != Dv
+     up to 576) and at the training path's shapes (B=2, H=128, L=4096,
+     Dqk=192, Dv=128, causal, (B, L, H, D) tensors passed as transposed
+     views), each output held row by row; each kernel's time beside its plain
+     version's, the PyTorch library call's (SDPA) and its bound, the
+     fraction of the bound reached and, for K1 and K3, the split count
+     and grid their wrappers recorded at launch, their times and SDPA's
+     also without the device sleep (the wrapper's host work included),
+     and bf16 K1 on a table as wide as the pool;
   3. paged serving at full width — DeepSeek-V2 (d_model 5120, 128 heads,
      160 experts top-6 at the config's capacity factor, vocab 102400)
      cut to 4 layers, random bf16 weights on the card; a short warm-up
@@ -168,16 +175,27 @@ def card_line() -> str:
 # ----------------------------------------------------------------- timing --
 
 
-def time_ms(torch, fn, flush, reps: int = 15) -> float:
+# ~1 ms of device clock cycles: queued before each timed call, so the
+# host's work in the wrapper (checks, allocation, the launches) is done
+# before the start event fires and the events time only the device
+SLEEP_CYCLES = 2_000_000
+
+
+def time_ms(torch, fn, flush, reps: int = 15, sleep: bool = True) -> float:
     """Median device time of ``fn`` over ``reps`` launches, CUDA events
     around each; the L2 is flushed before each one (a decode layer finds
-    its pool cold: the other layers' weights stream in between)."""
+    its pool cold: the other layers' weights stream in between), and the
+    device then sleeps while the host enqueues ``fn``'s work.  With
+    ``sleep=False`` the device idles while the host works, and the
+    events time the wrapper's host work too where it is the longer."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         flush.zero_()
+        if sleep:
+            torch.cuda._sleep(SLEEP_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -311,27 +329,58 @@ def hold_paged(torch, cases, label):
     return errs
 
 
+def launched_plan(kern) -> dict:
+    """The split plan ``kern`` (K1 or K3) recorded at its last launch; it
+    must be the tensor-core walk's (bf16 q)."""
+    plan = dict(kern.last_plan, grid=list(kern.last_plan["grid"]))
+    if not plan["n_split"] > 0:
+        raise AssertionError(f"{kern.__name__} ran bf16 on attend_rows, not "
+                             f"the tensor-core walk: {plan}")
+    return plan
+
+
+def plan_text(r) -> str:
+    return (f"n_split {r['n_split']} of {r['split_pos']} positions, grid "
+            f"{tuple(r['grid'])}")
+
+
+def host_text(r) -> str:
+    return (f"without the device sleep (host work included): "
+            f"{r['ms_with_host']:.4f} ms"
+            + (f", SDPA {r['library_ms_with_host']:.4f} ms"
+               if "library_ms_with_host" in r else ""))
+
+
 def time_paged(torch, cases, work, flush, label, lib=None):
-    """Times (exp_add) and bounds of K1 and K2 on ``cases``."""
+    """Times (exp_add) and bounds of K1 and K2 on ``cases``; K1 also
+    without the device sleep, beside its library call, and its plan."""
     rows = {}
     for name, (kern, plain, args, kw) in cases.items():
         n_bytes, n_ops = work[name]
         kw = dict(kw, rescale="exp_add")
         bound_ms, bound_by = bound(n_bytes, n_ops)
-        rows[name] = dict(
-            ms=time_ms(torch, functools.partial(kern, *args, **kw), flush),
-            plain_ms=time_ms(torch, functools.partial(plain, *args, **kw),
-                             flush, reps=5),
-            bound_ms=bound_ms, bound_by=bound_by)
+        run = functools.partial(kern, *args, **kw)
+        rows[name] = r = dict(ms=time_ms(torch, run, flush))
+        decode = name == "mla_decode_paged"
+        if decode:                              # the tensor-core walk
+            r.update(launched_plan(kern),
+                     ms_with_host=time_ms(torch, run, flush, sleep=False))
+        r.update(plain_ms=time_ms(torch, functools.partial(plain, *args,
+                                                           **kw),
+                                  flush, reps=5),
+                 bound_ms=bound_ms, bound_by=bound_by)
         if lib is not None:
-            rows[name]["library_ms"] = time_ms(torch, lib[name], flush,
-                                               reps=5)
-        r = rows[name]
+            r["library_ms"] = time_ms(torch, lib[name], flush, reps=5)
+            if decode:
+                r["library_ms_with_host"] = time_ms(torch, lib[name], flush,
+                                                    reps=5, sleep=False)
         log(f"[kernels] {name} {label} time {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, "
             + (f"SDPA {r['library_ms']:.4f} ms, " if lib else "")
             + f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}: "
-            f"{n_bytes / 1e6:.2f} MB, {n_ops / 1e9:.2f} GFLOP)")
+            f"{n_bytes / 1e6:.2f} MB, {n_ops / 1e9:.2f} GFLOP; "
+            f"{r['bound_ms'] / r['ms']:.4f} of it reached)"
+            + (f", {plan_text(r)}; {host_text(r)}" if decode else ""))
     return rows
 
 
@@ -362,6 +411,8 @@ def check_kernels(torch):
                           "bf16", lib)
         for name in rows:
             rows[name]["max_abs_err"] = errs[name]
+        rows["mla_decode_paged"]["pool_wide_table"] = time_pool_wide_table(
+            torch, cases["mla_decode_paged"], ckv.shape[0], flush)
     ckv32, krope32, bt = paged_inputs(torch, torch.float32, need, 3)
     for cache_dtype in ("int8", "fp8"):
         qdtype, qmax = cachelib.cache_dtype_info(cache_dtype)
@@ -380,6 +431,35 @@ def check_kernels(torch):
             for name, r in timed.items():
                 rows[name][cache_dtype] = dict(r, max_abs_err=errs[name])
     return rows
+
+
+def time_pool_wide_table(torch, case, n_blocks: int, flush) -> dict:
+    """bf16 K1 at phase 2's load with each table widened to the whole pool
+    (n_blocks - 1 entries, the scheduler's width without
+    ``max_blocks_per_req``; the added entries are the null block).  K1
+    splits the table's reach, so the live positions fall in the first
+    splits: held against the plain walk (``row_rel`` and allclose), its
+    time and plan."""
+    kern, plain, (q, ckv, krope, bt, idx), kw = case
+    wide = torch.zeros((B, n_blocks - 1), dtype=torch.int32, device="cuda")
+    wide[:, :bt.shape[1]] = bt
+    args, kw = (q, ckv, krope, wide, idx), dict(kw, rescale="exp_add")
+    got = kern(*args, **kw)
+    torch.cuda.synchronize()
+    want = plain(*args, **kw)
+    tol = TOL["bfloat16"]
+    err = row_rel(torch, got, want)
+    if not (err <= tol and torch.allclose(got.float(), want.float(),
+                                          atol=tol, rtol=tol)):
+        raise AssertionError("mla_decode_paged on a pool-wide table "
+                             "disagrees with its plain version")
+    r = dict(ms=time_ms(torch, functools.partial(kern, *args, **kw), flush))
+    r.update(launched_plan(kern))
+    log(f"[kernels] mla_decode_paged bf16 on a pool-wide table "
+        f"({n_blocks - 1} blocks, phase 2's indices): time {r['ms']:.4f} "
+        f"ms, {plan_text(r)}; largest per-row |kernel - plain| / |plain| "
+        f"{err:.3g} (bound {tol})")
+    return r
 
 
 def check_contiguous_kernel(torch):
@@ -443,21 +523,139 @@ def check_contiguous_kernel(torch):
                                                                 None]
         kw = dict(softmax_scale=SCALE, rescale="exp_add")
         bound_ms, bound_by = bound(n_bytes, n_ops)
-        row.update(
-            ms=time_ms(torch, functools.partial(kern, q, ckv, krope, last,
-                                                **kw), flush),
-            plain_ms=time_ms(torch, functools.partial(
-                ref.mla_decode_ref, q, ckv, krope, last, **kw), flush,
-                reps=5),
-            bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-                q[:, :, None], k, v, attn_mask=mask, scale=SCALE), flush,
-                reps=5))
+        run = functools.partial(kern, q, ckv, krope, last, **kw)
+        sdpa = lambda: F.scaled_dot_product_attention(
+            q[:, :, None], k, v, attn_mask=mask, scale=SCALE)
+        row.update(ms=time_ms(torch, run, flush))
+        row.update(launched_plan(kern),
+                   ms_with_host=time_ms(torch, run, flush, sleep=False),
+                   plain_ms=time_ms(torch, functools.partial(
+                       ref.mla_decode_ref, q, ckv, krope, last, **kw), flush,
+                       reps=5),
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   library_ms=time_ms(torch, sdpa, flush, reps=5),
+                   library_ms_with_host=time_ms(torch, sdpa, flush, reps=5,
+                                                sleep=False))
         log(f"[kernels] mla_decode bf16 at index {last} of S={S_CONTIG}: "
             f"time {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, SDPA "
             f"{row['library_ms']:.4f} ms, bound {bound_ms:.5f} ms "
-            f"({bound_by}: {n_bytes / 1e6:.2f} MB, {n_ops / 1e9:.2f} GFLOP)")
+            f"({bound_by}: {n_bytes / 1e6:.2f} MB, {n_ops / 1e9:.2f} GFLOP; "
+            f"{bound_ms / row['ms']:.4f} of it reached), {plan_text(row)}; "
+            f"{host_text(row)}")
     return {"mla_decode": row}
+
+
+def split_pos_for(torch, n_pos: int) -> int:
+    """The split length the wrappers' plan (``_launch.decode_plan``) gives
+    n_pos positions at the path's B and H: where to look for boundaries.
+    Each check then reads the plan its launch recorded."""
+    from repro_torch.kernels import _launch
+
+    plan = _launch.decode_plan(n_pos, B, H, torch.device("cuda"))
+    return plan["split_pos"]
+
+
+def check_launched_split(kern, sp: int) -> None:
+    plan = launched_plan(kern)
+    if plan["split_pos"] != sp:
+        raise AssertionError(f"{kern.__name__} launched {plan}, the check "
+                             f"expected splits of {sp}")
+
+
+def split_boundary_indices(torch, S: int) -> dict:
+    """The largest indices i < S that end, under their own split plan
+    (B, H of the path), one short of a split boundary, on one (the last
+    split full) and one past one (the last split holds one position)."""
+    found = {}
+    for i in range(S - 1, 0, -1):
+        sp = split_pos_for(torch, i + 1)
+        kind = {sp - 1: "short of", 0: "on", 1: "past"}.get((i + 1) % sp)
+        if kind and kind not in found and i + 1 > sp:
+            found[kind] = (i, sp)
+        if len(found) == 3:
+            return found
+    raise AssertionError(f"no split boundary below S={S}")
+
+
+def check_split_boundaries(torch):
+    """The bf16 tensor-core walk of K3 and K1 at the paths' shapes, with
+    indices one short of, on and one past a split boundary of the
+    wrapper's plan (each launch's recorded plan checked), both rescales:
+    K3 held row by row (``row_rel``) against its plain walk and the split
+    walk's model (``ref.mla_decode_split_ref``); K1 on bf16, int8 and fp8
+    pools with a table of 8 requests (the path's longest, three around
+    the first boundary, two around the second, a first token, an
+    inactive slot) held row by row and with allclose against both, the
+    inactive row exactly 0."""
+    from repro_torch.core import cache as cachelib
+    from repro_torch.kernels import mla_decode, ref
+
+    tol = TOL["bfloat16"]
+    g = torch.Generator(device="cuda")
+    g.manual_seed(5)
+    q, ckv, krope = (torch.randn(shape, generator=g, device="cuda").bfloat16()
+                     for shape in ((B, H, DL + DR), (B, S_CONTIG, DL),
+                                   (B, S_CONTIG, DR)))
+    for kind, (index, sp) in split_boundary_indices(torch, S_CONTIG).items():
+        for rescale in ref.RESCALES:
+            kw = dict(softmax_scale=SCALE, rescale=rescale)
+            got = mla_decode.mla_decode_kernel(q, ckv, krope, index, **kw)
+            torch.cuda.synchronize()
+            check_launched_split(mla_decode.mla_decode_kernel, sp)
+            err = row_rel(torch, got, ref.mla_decode_ref(q, ckv, krope,
+                                                         index, **kw))
+            err_split = row_rel(torch, got, ref.mla_decode_split_ref(
+                q, ckv, krope, index, split_pos=sp, **kw))
+            log(f"[kernels] mla_decode bf16 {rescale} index {index} "
+                f"({kind} a boundary of splits of {sp}): largest per-row "
+                f"|kernel - plain| / |plain| {err:.3g}, vs the split walk "
+                f"{err_split:.3g} (bound {tol})")
+            if not max(err, err_split) <= tol:
+                raise AssertionError(f"mla_decode at split boundary index "
+                                     f"{index} disagrees")
+    nb = max(-(-n // BS) for n in NEED_DEC) + 2
+    sp = split_pos_for(torch, nb * BS)
+    indices = [NEED_DEC[0] - 1, sp - 1, sp, sp + 1, 2 * sp - 1, 2 * sp, 0,
+               -1]
+    assert max(indices) < NEED_DEC[0], indices
+    ckv, krope, bt = paged_inputs(torch, torch.float32,
+                                  [i + 1 for i in indices], 6)
+    assert bt.shape[1] == nb
+    idx = torch.tensor(indices, dtype=torch.int32, device="cuda")
+    q = torch.randn((B, H, DL + DR), generator=g, device="cuda").bfloat16()
+    for pool in ("bf16", "int8", "fp8"):
+        if pool == "bf16":
+            args, qkw = (q, ckv.bfloat16(), krope.bfloat16(), bt, idx), {}
+        else:
+            qdtype, qmax = cachelib.cache_dtype_info(pool)
+            c, cs = cachelib.quantize_latent(ckv, qmax, qdtype)
+            r, rs = cachelib.quantize_latent(krope, qmax, qdtype)
+            args, qkw = (q, c, r, bt, idx), dict(ckv_scales=cs,
+                                                 krope_scales=rs)
+        for rescale in ref.RESCALES:
+            kw = dict(softmax_scale=SCALE, rescale=rescale, **qkw)
+            got = mla_decode.mla_decode_paged_kernel(*args, **kw)
+            torch.cuda.synchronize()
+            check_launched_split(mla_decode.mla_decode_paged_kernel, sp)
+            plain = ref.mla_decode_paged_ref(*args, **kw)
+            split = ref.mla_decode_split_ref(*args[:3], idx, split_pos=sp,
+                                             block_tables=bt, **kw)
+            errs = [(got.float() - w.float()).abs().max().item()
+                    for w in (plain, split)]
+            rels = [row_rel(torch, got, w) for w in (plain, split)]
+            ok = max(rels) <= tol and all(
+                torch.allclose(got.float(), w.float(), atol=tol, rtol=tol)
+                for w in (plain, split))
+            zero = bool((got[7] == 0).all())
+            log(f"[kernels] mla_decode_paged bf16 {pool} pool {rescale}, "
+                f"indices {indices} around splits of {sp}: largest per-row "
+                f"|kernel - plain| / |plain| {rels[0]:.3g}, vs the split "
+                f"walk {rels[1]:.3g} (bound {tol}); max|kernel - plain| "
+                f"{errs[0]:.3g}, vs the split walk {errs[1]:.3g} (tol {tol} "
+                f"abs+rel), inactive row exactly 0: {zero}")
+            if not (ok and zero):
+                raise AssertionError(f"mla_decode_paged {pool} at split "
+                                     f"boundaries disagrees")
 
 
 def library_calls(torch, q1, q2, ckv, krope, bt, idx, ln, nv, scale):
@@ -1337,6 +1535,7 @@ def main() -> int:
 
     rows = check_kernels(torch)
     rows.update(check_contiguous_kernel(torch))
+    check_split_boundaries(torch)
     rows.update(check_flash(torch))
     by_path = full_width(torch, np)
     token_parity(torch, np)

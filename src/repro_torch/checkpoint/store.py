@@ -13,6 +13,10 @@ which ``steps`` skips.  A list in the tree (the port's per-layer
 the JAX package's scanned-period layout.  numpy has no bfloat16 (the
 reference relies on ml_dtypes), so bf16 leaves are stored as their
 uint16 bit patterns and their keys listed under ``bf16`` in meta.json.
+The JAX package saves its ml_dtypes bf16 leaves with ``np.savez`` as they
+are, and they load back as 2-byte void (``|V2``) arrays: any such leaf
+is read as bf16 too, so a bf16 checkpoint of the JAX package restores
+here bit for bit.
 """
 from __future__ import annotations
 
@@ -64,7 +68,7 @@ def _unflatten_into(flat: Dict[str, np.ndarray], template, bf16: set):
             raise KeyError(f"checkpoint missing leaf {key}")
         a = flat[key][index] if index else flat[key]
         a = np.array(a)           # contiguous, writable, shape kept
-        if key in bf16:
+        if key in bf16 or (a.dtype.kind == "V" and a.dtype.itemsize == 2):
             return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
         return torch.from_numpy(a)
 

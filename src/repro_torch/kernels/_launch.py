@@ -3,7 +3,8 @@
 handed to them."""
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
 import torch
 
@@ -15,6 +16,11 @@ POOL_CODES = {torch.int8: 2, torch.float8_e4m3fn: 3}   # quantized storage
 MAX_DL = 512          # csrc/mla_paged_common.cuh: kMaxDl
 MAX_DR = 512
 TILE = 16             # csrc/mla_paged_common.cuh: kTile
+ROWS = 16             # csrc/mla_paged_common.cuh: kRows, heads a CTA
+# the tensor-core decode walk of csrc/mla_decode_tc.cuh (bf16 q)
+TC_ROWS = 64          # kRowsTC: heads a CTA
+TC_POS = 64           # kPos: positions a staged tile
+TC_MAX_K = 576        # kMaxK: Dl + round16(Dr) its buffers hold
 
 
 def check_rescale(rescale: str) -> None:
@@ -123,6 +129,60 @@ def check_cache_args(q_full, ckv, krope) -> None:
     if ckv.stride(-1) != 1 or krope.stride(-1) != 1:
         raise ValueError("ckv and krope need a contiguous last dimension")
     _check_widths(q_full, ckv.shape[-1], krope.shape[-1])
+
+
+def tc_walk_takes(q_full, Dl: int, Dr: int, tensors=(), strides=()) -> bool:
+    """Whether a decode call runs the tensor-core walk: bf16 q, Dr a
+    multiple of 8 and Dl + round16(Dr) <= TC_MAX_K (its copies move 16
+    bytes of bf16, 8 of codes), every operand 16-byte aligned and every
+    element stride a multiple of 8.  Anything else the checks admit (f32
+    q above all) runs the CUDA-core walk ``attend_rows``."""
+    return (q_full.dtype == torch.bfloat16 and Dr % 8 == 0
+            and Dl + -(-Dr // 16) * 16 <= TC_MAX_K
+            and all(t.data_ptr() % 16 == 0 for t in (q_full,) + tensors)
+            and all(s % 8 == 0 for s in strides))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def split_plan(n_pos: int, B: int, H: int, sms: int) -> Tuple[int, int]:
+    """(n_split, split_pos) of the tensor-core walk over positions
+    [0, n_pos): whole tiles of TC_POS positions a split, and as many
+    splits as keep ceil(H / TC_ROWS) x B x n_split CTAs (one an SM, for
+    their shared memory) within one wave of ``sms`` SMs; none is empty
+    for a request that reaches n_pos."""
+    tiles = -(-max(n_pos, 0) // TC_POS)
+    if tiles == 0:
+        return 1, TC_POS
+    n = min(tiles, max(1, sms // (-(-H // TC_ROWS) * B)))
+    per_split = -(-tiles // n)
+    return -(-tiles // per_split), per_split * TC_POS
+
+
+def decode_plan(n_pos: int, B: int, H: int, device) -> dict:
+    """The launch plan of a bf16 decode call on the tensor-core walk:
+    ``split_plan`` over n_pos positions on ``device``'s SMs and the grid
+    (ceil(H / TC_ROWS), n_split, B).  The wrappers record the plan they
+    launched as ``<wrapper>.last_plan``."""
+    n_split, split_pos = split_plan(n_pos, B, H, sm_count(device))
+    return dict(n_split=n_split, split_pos=split_pos,
+                grid=(-(-H // TC_ROWS), n_split, B))
+
+
+def rows_plan(B: int, H: int) -> dict:
+    """The launch plan of a decode call on ``attend_rows``: no splits, a
+    CTA for every ROWS heads of a request."""
+    return dict(n_split=0, split_pos=0, grid=(-(-H // ROWS), B))
+
+
+def tc_workspace(q_full, B: int, H: int, Dl: int, n_split: int):
+    """The f32 partials of the tensor-core walk, (acc | m, l) of every
+    (request, head, split): B * H * n_split * (Dl + 2) floats."""
+    return torch.empty(B * H * n_split * (Dl + 2), dtype=torch.float32,
+                       device=q_full.device)
 
 
 def raise_on_error(err: int, name: str) -> None:

@@ -38,9 +38,11 @@ _LL = ctypes.c_longlong
 _LLP, _IP = ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int)
 # argtypes of each library's C entry point (csrc/<name>.cu, extern "C")
 SIGNATURES = {
-    "mla_decode_paged": [_P] * 8 + [_I] * 7 + [_F, _I, _I, _I, _P],
+    "mla_decode_paged": [_P] * 8 + [_I] * 7 + [_F, _I, _I, _I, _P, _I, _I,
+                                                _P],
     "mla_prefill_paged": [_P] * 9 + [_I] * 8 + [_F, _I, _I, _I, _P],
-    "mla_decode": [_P] * 4 + [_I] * 5 + [_LL] * 4 + [_I, _F, _I, _I, _P],
+    "mla_decode": [_P] * 4 + [_I] * 5 + [_LL] * 4 + [_I, _F, _I, _I, _P, _I,
+                                                     _I, _P],
     "flash_attention_fwd": [_P] * 5 + [_LLP, _IP, _F, _P],
     "flash_attention_bwd_dq": [_P] * 7 + [_LLP, _IP, _F, _P],
     "flash_attention_bwd_dkv": [_P] * 8 + [_LLP, _IP, _F, _P],

@@ -15,6 +15,11 @@ Each MLA function takes the kernel's inputs and returns its output:
     :func:`softmax_tile_update` (AMLA exponent addition or the classic
     multiply), so a CPU run follows the same rounding path as the kernel.
 
+:func:`mla_decode_split_ref` is the walk of the tensor-core decode
+kernels (K1 and K3 for bf16 q): the positions cut into splits, each
+walked from a fresh state, the splits merged as their combine kernel
+merges them.
+
 A quantized pool (int8 / fp8 codes) comes with ``ckv_scales`` /
 ``krope_scales`` (N, bs, 1) f32: the oracle dequantizes the gathered
 view, the walk each tile it reads.  Caches are taken as they are, never
@@ -203,6 +208,80 @@ def mla_decode_ref(q_full, ckv, krope, index: int, *,
         state = _tile_step(q, ckv[:, j0:j1].float(), krope[:, j0:j1].float(),
                            pos[j0:j1], limit, ok, scale, rescale, state)
     return _finish(state).to(q_full.dtype)
+
+
+def merge_splits(parts, rescale: str):
+    """Merge the states (acc, m, l) of splits of the positions, as the
+    combine kernel does: a split with l = 0 saw no position and is left
+    out (its acc is never read); the others are rescaled to the largest
+    m, by exp_add_rescale (every m is an integer under 'exp_add', so the
+    factor is an exact power of two) or by exp(m - M) ('mul').  Returns
+    acc / l in f32."""
+    acc = torch.stack([a for a, _, _ in parts])
+    m = torch.stack([m for _, m, _ in parts])
+    l = torch.stack([l for _, _, l in parts])
+    live = l > 0.0
+    top = torch.where(live, m, NEG_INF).amax(dim=0)
+    if rescale == "exp_add":
+        d_i = torch.clamp(m - top, -254.0, 0.0).to(torch.int32)
+        acc = torch.where(live, exp_add_rescale(acc, d_i), 0.0).sum(dim=0)
+        l = torch.where(live, exp_add_rescale(l, d_i), 0.0).sum(dim=0)
+    elif rescale == "mul":
+        corr = torch.exp(m - top)
+        acc = torch.where(live, acc * corr, 0.0).sum(dim=0)
+        l = torch.where(live, l * corr, 0.0).sum(dim=0)
+    else:
+        raise ValueError(f"unknown rescale {rescale!r}; expected {RESCALES}")
+    return acc / torch.where(l == 0.0, 1.0, l)
+
+
+def mla_decode_split_ref(q_full, ckv, krope, indices, *, split_pos: int,
+                         tile: int = 64, softmax_scale: Optional[float] = None,
+                         rescale: str = "exp_add", block_tables=None,
+                         ckv_scales=None, krope_scales=None):
+    """The split walk of the tensor-core decode kernels, in f32.
+
+    Contiguous (K3): ckv (B, S, Dl), krope (B, S, Dr), ``indices`` the
+    host int index.  Paged (K1): ckv / krope are the pool's pages
+    (N, bs, .) read through ``block_tables`` (B, nb), ``indices`` (B,)
+    int32, with (N, bs, 1) f32 scales for a quantized pool.
+
+    Positions [s * split_pos, (s + 1) * split_pos) form split s
+    (``split_pos`` a multiple of ``tile``, as ``_launch.split_plan``
+    makes it); each split is walked from a fresh state in tiles of
+    ``tile`` positions, positions past a request's index masked, and the
+    splits are merged by :func:`merge_splits`.  A split that starts past
+    a request's index (or every split, for an index of -1) contributes
+    nothing.  Returns (B, H, Dl) in q_full's dtype."""
+    if split_pos <= 0 or split_pos % tile:
+        raise ValueError(f"split_pos {split_pos} must be a positive "
+                         f"multiple of the tile {tile}")
+    B, H, D = q_full.shape
+    scale = softmax_scale if softmax_scale is not None else D ** -0.5
+    if block_tables is not None:
+        check_scales(ckv_scales, krope_scales)
+        ckv = _gather(ckv, ckv_scales, block_tables)
+        krope = _gather(krope, krope_scales, block_tables)
+        limit = indices.to(torch.long)
+    else:
+        limit = torch.full((B,), int(indices), dtype=torch.long,
+                           device=q_full.device)
+    R, Dl = ckv.shape[1], ckv.shape[-1]
+    last = int(limit.max())
+    q = q_full.float()
+    pos = torch.arange(R, device=q.device)
+    lim = limit[:, None].expand(B, H)
+    ok = torch.ones((B, H), dtype=torch.bool, device=q.device)
+    parts = []
+    for s0 in range(0, max(R, 1), split_pos):
+        state = _state(B, H, Dl, q.device)
+        for j0 in range(s0, min(s0 + split_pos, R, last + 1), tile):
+            j1 = min(j0 + tile, s0 + split_pos, R)
+            state = _tile_step(q, ckv[:, j0:j1].float(),
+                               krope[:, j0:j1].float(), pos[j0:j1], lim, ok,
+                               scale, rescale, state)
+        parts.append(state)
+    return merge_splits(parts, rescale).to(q_full.dtype)
 
 
 def mla_decode_paged_ref(q_full, ckv_pages, krope_pages, block_tables,

@@ -2,7 +2,10 @@
 paged MLA attention kernels (K1 decode, K2 chunked prefill; bf16 / f32
 and int8 / fp8 pools), the contiguous-cache decode kernel K3 and flash
 attention (K4 forward, K5 dQ, K6 dK/dV), and one bf16 training step of
-the smoke model with the flash kernels against the dense path.
+the smoke model with the flash kernels against the dense path.  bf16 K1
+and K3 run the tensor-core split walk (csrc/mla_decode_tc.cuh); its
+cases put indices around split boundaries and are also held against the
+walk's CPU model ``ref.mla_decode_split_ref`` with the wrapper's plan.
 
 Every test here is marked ``gpu`` and skips without a CUDA device (the
 kernels have no CPU mode); on a machine with one:
@@ -171,6 +174,108 @@ def test_contiguous_decode_kernel_reads_strided_views():
     _close(got, want, 1e-6)
     _close(got, tref.mla_decode_ref(q, ckv, krope, 30), 1e-4)
     assert mla_decode_kernel.launches == before + 2
+
+
+# The tensor-core split walk of bf16 K3 / K1 (csrc/mla_decode_tc.cuh).
+# K3 (B, H, S, index): on a 132-SM card B = 1, H = 64 splits the range
+# into 64-position tiles and B = 8, H = 128 (index + 1 in 2049..2560)
+# into 320-position splits, so these indices end one short of, on, and
+# one past a split boundary; S = 40 is shorter than one split.
+K3_SPLIT_CASES = [(1, 64, 300, 62), (1, 64, 300, 63), (1, 64, 300, 64),
+                  (8, 128, 2300, 2238), (8, 128, 2300, 2239),
+                  (8, 128, 2300, 2240), (8, 128, 40, 39)]
+# K1: B = 4, H = 128 and 40 blocks of 16 give 10 splits of 64 positions
+K1_SPLIT_INDICES = [[62, 63, 64, 639], [-1, 0, 127, 128]]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", K3_SPLIT_CASES)
+def test_contiguous_decode_split_boundaries_on_card(case, dtype, tol):
+    """K3 at indices around split boundaries, both rescales, held row by
+    row and elementwise against the plain walk; bf16 (the tensor-core
+    walk) also against the split walk's CPU model with the plan the
+    wrapper launched, f32 runs the CUDA-core walk (no splits)."""
+    dev = _cuda()
+    B, H, S, index = case
+    g = torch.Generator(device=dev)
+    g.manual_seed(index)
+    q, ckv, krope = (torch.randn(shape, generator=g, device=dev).to(dtype)
+                     for shape in ((B, H, 576), (B, S, 512), (B, S, 64)))
+    for rescale in tref.RESCALES:
+        got = mla_decode_kernel(q, ckv, krope, index, rescale=rescale)
+        torch.cuda.synchronize()
+        plan = mla_decode_kernel.last_plan
+        assert (plan["n_split"] > 0) == (dtype == torch.bfloat16), plan
+        wants = [tref.mla_decode_ref(q, ckv, krope, index, rescale=rescale)]
+        if plan["n_split"]:
+            wants.append(tref.mla_decode_split_ref(
+                q, ckv, krope, index, split_pos=plan["split_pos"],
+                rescale=rescale))
+        for want in wants:
+            _row_close(got, want, tol)
+            _close(got, want, tol)
+
+
+@pytest.mark.parametrize("pool", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("idx", K1_SPLIT_INDICES)
+def test_paged_decode_split_boundaries_on_card(idx, pool):
+    """bf16 K1 on bf16 / int8 / fp8 pools at indices around its split
+    boundaries (an inactive slot and a first token included) against the
+    split walk's CPU model and the plain walk, both rescales."""
+    dev = _cuda()
+    B, H, Dl, Dr, bs, nb, N = 4, 128, 512, 64, 16, 40, 200
+    if pool == "bf16":
+        g = torch.Generator(device=dev)
+        g.manual_seed(nb)
+        ckv, krope = (torch.randn(s, generator=g, device=dev).bfloat16()
+                      for s in ((N, bs, Dl), (N, bs, Dr)))
+        qkw = {}
+    else:
+        ckv, krope, cs, rs = _quantized_pool(dev, N, bs, Dl, Dr, pool, nb)
+        qkw = dict(ckv_scales=cs, krope_scales=rs)
+    rng = np.random.default_rng(1)
+    q, bt, ind = _on(dev, torch.bfloat16, rng.standard_normal((B, H, Dl + Dr)),
+                     rng.permutation(np.arange(1, N))[:B * nb].reshape(
+                         B, nb).astype(np.int32), np.asarray(idx, np.int32))
+    for rescale in tref.RESCALES:
+        got = mla_decode_paged_kernel(q, ckv, krope, bt, ind,
+                                      rescale=rescale, **qkw)
+        torch.cuda.synchronize()
+        plan = mla_decode_paged_kernel.last_plan
+        assert plan["n_split"] > 0, plan
+        for want in (tref.mla_decode_split_ref(
+                q, ckv, krope, ind, split_pos=plan["split_pos"],
+                rescale=rescale, block_tables=bt, **qkw),
+                tref.mla_decode_paged_ref(q, ckv, krope, bt, ind,
+                                          rescale=rescale, **qkw)):
+            _row_close(got, want, 2e-2)
+            _close(got, want, 2e-2)
+        assert (got[ind < 0] == 0).all()
+
+
+@pytest.mark.parametrize("offset", [5, 3])
+def test_contiguous_decode_kernel_reads_strided_bf16_views(offset):
+    """bf16 views of a larger cache: position stride 96 and a 16-byte
+    aligned start take the tensor-core walk; a position stride of 100
+    elements (rows 8-byte aligned) takes the CUDA-core walk.  Each agrees
+    with contiguous copies and the plain walk."""
+    dev = _cuda()
+    g = torch.Generator(device=dev)
+    g.manual_seed(offset)
+    width = 96 if offset == 5 else 100
+    big = torch.randn((4, 150, width), generator=g, device=dev).bfloat16()
+    q = torch.randn((2, 8, 40), generator=g, device=dev).bfloat16()
+    ckv, krope = big[::2, offset:140, :32], big[::2, offset:140, 64:72]
+    for rescale in tref.RESCALES:
+        got = mla_decode_kernel(q, ckv, krope, 130, rescale=rescale)
+        assert (mla_decode_kernel.last_plan["n_split"] > 0) == (width == 96)
+        want = mla_decode_kernel(q, ckv.contiguous(), krope.contiguous(), 130,
+                                 rescale=rescale)
+        torch.cuda.synchronize()
+        _close(got, want, 1e-6 if width == 96 else 2e-2)
+        _close(got, tref.mla_decode_ref(q, ckv, krope, 130, rescale=rescale),
+               2e-2)
 
 
 def _quantized_pool(dev, N, bs, Dl, Dr, cache_dtype, seed):

@@ -438,25 +438,35 @@ def test_synthetic_lm_is_deterministic_and_restorable():
 # --------------------------------------------------------- checkpoints ---
 
 
-def test_checkpoints_cross_read_both_ways(tmp_path):
-    """An f32 params + AdamW-state checkpoint written by either package
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_checkpoints_cross_read_both_ways(tmp_path, dtype):
+    """A params + f32 AdamW-state checkpoint written by either package
     restores in the other, leaf for leaf (the port's period list is
-    stored stacked, the JAX layout)."""
+    stored stacked, the JAX layout).  With bf16 params, the JAX package's
+    checkpoint (ml_dtypes leaves, read back by numpy as 2-byte voids)
+    restores in the port bit for bit; the port's bf16 leaves are uint16
+    patterns the JAX package does not read as bf16, so that direction is
+    f32 only."""
     jp, tp = _params()
+    if dtype == "bfloat16":
+        jp = jax.tree.map(lambda p: p.astype(jnp.bfloat16), jp)
+        tp = tadamw.tree_map(lambda p: p.to(torch.bfloat16), tp)
     opt = toptim.AdamWConfig()
-    ts = toptim.adamw_init(tp, opt)
-    ts["mu"] = tadamw.tree_map(lambda p: p * 0.5, tp)
-    js = {"step": jnp.int32(0), "mu": jax.tree.map(lambda p: p * 0.5, jp),
-          "nu": jax.tree.map(jnp.zeros_like, jp)}
+    ts = toptim.adamw_init(tp, opt)      # f32 moments
+    ts["mu"] = tadamw.tree_map(lambda p: p.float() * 0.5, tp)
+    js = {"step": jnp.int32(0),
+          "mu": jax.tree.map(lambda p: p.astype(jnp.float32) * 0.5, jp),
+          "nu": jax.tree.map(lambda p: jnp.zeros(p.shape, jnp.float32), jp)}
     jtree = {"params": jp, "opt": js}
     ttree = {"params": tp, "opt": ts}
 
-    TStore(str(tmp_path / "t")).save(3, ttree, data_state={"step": 3})
-    restored, meta = JStore(str(tmp_path / "t")).restore(
-        3, jax.tree.map(np.asarray, jtree))
-    assert meta["step"] == 3 and meta["data_state"] == {"step": 3}
-    for a, b in zip(jax.tree.leaves(restored), jax.tree.leaves(jtree)):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    if dtype == "float32":
+        TStore(str(tmp_path / "t")).save(3, ttree, data_state={"step": 3})
+        restored, meta = JStore(str(tmp_path / "t")).restore(
+            3, jax.tree.map(np.asarray, jtree))
+        assert meta["step"] == 3 and meta["data_state"] == {"step": 3}
+        for a, b in zip(jax.tree.leaves(restored), jax.tree.leaves(jtree)):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
     JStore(str(tmp_path / "j")).save(4, jtree, data_state={"step": 4})
     store = TStore(str(tmp_path / "j"))
@@ -464,8 +474,12 @@ def test_checkpoints_cross_read_both_ways(tmp_path):
     got, meta = store.restore(4, ttree)
     assert meta["data_state"] == {"step": 4}
     for path, leaf in _flat(got).items():
-        np.testing.assert_array_equal(leaf.numpy(), _flat(ttree)[path]
-                                      .numpy(), err_msg=path)
+        want = _flat(ttree)[path]
+        assert leaf.dtype == want.dtype, path
+        if leaf.dtype == torch.bfloat16:          # bit for bit
+            leaf, want = leaf.view(torch.int16), want.view(torch.int16)
+        np.testing.assert_array_equal(leaf.numpy(), want.numpy(),
+                                      err_msg=path)
 
 
 def test_checkpoint_bf16_leaves_round_trip_as_uint16(tmp_path):
