@@ -7,6 +7,7 @@ one CUDA card:
     python3 chip_profile.py fp8           # paged serving, fp8 pool
     python3 chip_profile.py contiguous    # contiguous serving
     python3 chip_profile.py train         # training
+    python3 chip_profile.py flash         # K4's time, by ablation
 
 Builds the same model (DeepSeek-V2 widths, 4 layers, random bf16 weights,
 the config's MoE capacity) and the same 8 requests, then serves them twice
@@ -32,6 +33,20 @@ around the loss forward (``lm_loss``) and the optimizer
 (``adamw_update``); the backward runs on autograd's own threads, outside
 any span.  Prints the device busy share of the traced step and device
 time by kernel.
+
+Every mode ends with the port's kernels summed by name
+(``KERNEL_GROUPS``): MLA decode (K1 / K3) and MLA prefill (K2), each with
+its combine kernel, and the flash forward (K4) by route.
+
+``flash`` (``python3 chip_profile.py flash``) asks where K4's own time
+goes at the training path's shapes (bf16 q/k (2,128,4096,192), v
+(...,128), causal, (B, L, H, D) views): it builds patched copies of its
+tensor-core walk (``FLASH_ABLATIONS``: one part removed, or one design
+choice undone, each) into ``build/ablate/`` (listed in ``.gitignore``),
+one ``nvcc`` each, all at once, and times each beside the sound walk, in
+turns, twice, with CUDA events (device time, the L2 flushed, a device
+sleep first, as ``chip_smoke.time_ms``).  The copies compute wrong
+results on purpose; only their times are read.
 """
 from __future__ import annotations
 
@@ -42,9 +57,142 @@ import time
 import types
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-# kernel names of K1 / K3 (csrc/mla_decode*.cu, csrc/mla_decode_tc.cuh)
-MLA_DECODE = re.compile(r"mla::(tc::combine_kernel|decode(_paged)?(_tc)?"
-                        r"_kernel)\b")
+# the port's kernels by name, summed in the report: (label, pattern)
+KERNEL_GROUPS = (
+    # K1 / K3 (csrc/mla_decode*.cu, csrc/mla_decode_tc.cuh): the walk and,
+    # for bf16 q, the combine kernel that merges its splits
+    ("MLA decode (walk + combine)",
+     re.compile(r"mla::(tc::combine_kernel|decode(_paged)?(_tc)?_kernel)\b")),
+    # K2 (csrc/mla_prefill_paged.cu): its walk and its own combine
+    ("MLA prefill (walk + combine)",
+     re.compile(r"mla::(prefill_combine_kernel|prefill_paged(_tc)?_kernel)"
+                r"\b")),
+    # K4 (csrc/flash_attention_fwd*.cu*): the tensor-core walk (bf16) and
+    # the WMMA kernel
+    ("flash forward, tensor-core walk",
+     re.compile(r"fa::tc::fwd_tc_kernel\b")),
+    ("flash forward, WMMA", re.compile(r"fa::fwd_kernel\b")),
+)
+
+
+# (name, [(text of csrc/flash_attention_fwd_tc.cuh, its replacement)])
+FLASH_ABLATIONS = [
+    ("sound", []),
+    ("no exp2f", [("exp2f(fmaf(s[mt][n][e], scale2, -ms[e >> 1]))",
+                   "(fmaf(s[mt][n][e], scale2, -ms[e >> 1]))")]),
+    ("no softmax", [("    for (int mt = 0; mt < kMT; ++mt) {\n"
+                     "      // ---- the tile's row maxima",
+                     "    for (int mt = 0; mt < 0; ++mt) {\n"
+                     "      // ---- the tile's row maxima")]),
+    ("no masking", [("    if (edge) {\n", "    if (false) {\n")]),
+    ("no S product", [("            mma(s[mt][2 * np], af[mt], bfr[0], "
+                       "bfr[1]);\n            mma(s[mt][2 * np + 1], "
+                       "af[mt], bfr[2], bfr[3]);", "")]),
+    ("no PV product", [("            mma(o[mt][2 * np], pa[mt], bfr[0], "
+                        "bfr[1]);\n            mma(o[mt][2 * np + 1], "
+                        "pa[mt], bfr[2], bfr[3]);", "")]),
+    ("no K / V copies", [("  auto copy_k = [&](int t) {\n",
+                          "  auto copy_k = [&](int t) {\n    return;\n"),
+                         ("  auto copy_v = [&](int t) {\n",
+                          "  auto copy_v = [&](int t) {\n    return;\n")]),
+    # the first design's masking: the full mask test on every element of
+    # every tile, gated by `edge` inside the element loop
+    ("per-element mask test",
+     [("    if (edge) {\n#pragma unroll\n      for (int mt = 0;",
+       "    {\n#pragma unroll\n      for (int mt = 0;"),
+      ("              if (key < lo || key > hi) s[mt][n][2 * i + e] = "
+       "-INFINITY;",
+       "              if (edge && !mk(r0 + 16 * mt + g + 8 * i, key))\n"
+       "                s[mt][n][2 * i + e] = -INFINITY;")]),
+    ("score loop fully unrolled",
+     [("#pragma unroll 2\n", "#pragma unroll\n")]),
+    ("16 rows a warp (8 warps)",
+     [("if (a.Dqk <= 192) return launch_fwd<2, 12, 16>(a, B, stream);",
+       "if (a.Dqk <= 192) return launch_fwd<1, 12, 16>(a, B, stream);")]),
+]
+
+
+def flash_ablation() -> int:
+    import ctypes
+    import shutil
+    import subprocess
+
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+
+    print(f"[card] {cs.card_line()}", flush=True)
+    csrc = os.path.join(HERE, "src", "repro_torch", "kernels", "csrc")
+    header = "flash_attention_fwd_tc.cuh"
+    procs = []
+    try:
+        for i, (name, edits) in enumerate(FLASH_ABLATIONS):
+            root = os.path.join(HERE, "build", "ablate", str(i))
+            shutil.rmtree(root, ignore_errors=True)
+            shutil.copytree(csrc, root)
+            with open(os.path.join(root, header)) as fh:
+                text = fh.read()
+            for old, new in edits:
+                if old not in text:
+                    raise AssertionError(f"{name}: {old[:40]!r} not in "
+                                         f"{header}")
+                text = text.replace(old, new)
+            with open(os.path.join(root, header), "w") as fh:
+                fh.write(text)
+            lib = os.path.join(root, "lib.so")
+            procs.append((name, lib, subprocess.Popen(
+                [build.nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o", lib,
+                 os.path.join(root, "flash_attention_fwd.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        fns = {}
+        for name, lib, proc in procs:
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"{name}: nvcc failed\n{log[-3000:]}")
+            # ptxas reports the path's instantiation <2, 12, 16> (or <1, ..>)
+            regs = [ln.split("ptxas info    : ")[-1] for ln in log.splitlines()
+                    if "Used" in ln and "registers" in ln]
+            fn = ctypes.CDLL(lib).flash_attention_fwd
+            fn.argtypes = build.SIGNATURES["flash_attention_fwd"]
+            fn.restype = ctypes.c_int
+            fns[name] = fn
+            print(f"[build] {name}: {len(regs)} kernels, registers "
+                  f"{sorted(set(r.split(',')[0] for r in regs))}", flush=True)
+    finally:
+        for _, _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    path = (cs.TB, cs.TH, cs.TH, cs.TL, cs.TL, cs.TDQK, cs.TDV, None, 0)
+    q, k, v, _ = cs.flash_case_inputs(torch, path, torch.bfloat16, 5,
+                                      blhd=True)
+    out = fa._empty_like_layout(q, (cs.TB, cs.TH, cs.TL, cs.TDV))
+    lse = torch.empty((cs.TB, cs.TH, cs.TL), dtype=torch.float32,
+                      device="cuda")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    scale = cs.TDQK ** -0.5
+
+    def run(fn):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 lse.data_ptr(), fa._strides(q, k, v, out),
+                 fa._dims(q, k, v, True, None, 0, (q, k, v), 1, 0, 0), scale,
+                 fa._stream(q))
+        if err:
+            raise RuntimeError(f"launch failed: cudaError_t {err}")
+
+    times = {name: [] for name in fns}
+    for _ in range(2):
+        for name, fn in fns.items():
+            times[name].append(cs.time_ms(torch, lambda: run(fn), flush,
+                                          reps=5))
+    base = min(times["sound"])
+    for name, ts in times.items():
+        print(f"[ablate] {name}: {', '.join(f'{t:.3f}' for t in ts)} ms "
+              f"(best {min(ts) - base:+.3f} ms against the sound walk)",
+              flush=True)
+    return 0
 
 
 def report(torch, prof, wall, spans) -> int:
@@ -72,13 +220,11 @@ def report(torch, prof, wall, spans) -> int:
         print(f"  {e.self_device_time_total / 1e6:8.3f} s "
               f"{100 * e.self_device_time_total / 1e6 / busy:5.1f} % "
               f"x{e.count:<6d} {e.key[:90]}")
-    # the MLA decode kernel of the run (K1 or K3): its walk and, for bf16
-    # q, the combine kernel that merges the splits
-    mla = [e for e in dev if MLA_DECODE.search(e.key)]
-    t = sum(e.self_device_time_total for e in mla) / 1e6
-    print(f"[kernels] MLA decode (walk + combine): {t:.3f} s, "
-          f"{100 * t / busy:.1f} % of device time, "
-          f"{sum(e.count for e in mla)} launches")
+    for label, pattern in KERNEL_GROUPS:
+        group = [e for e in dev if pattern.search(e.key)]
+        t = sum(e.self_device_time_total for e in group) / 1e6
+        print(f"[kernels] {label}: {t:.3f} s, {100 * t / busy:.1f} % of "
+              f"device time, {sum(e.count for e in group)} launches")
     return 0
 
 
@@ -219,6 +365,8 @@ def main() -> int:
         return train_profile()
     if sys.argv[1:] == ["contiguous"]:
         return contiguous_profile()
+    if sys.argv[1:] == ["flash"]:
+        return flash_ablation()
     cache_dtype = "fp8" if sys.argv[1:] == ["fp8"] else "bf16"
     import dataclasses
 

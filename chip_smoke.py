@@ -20,17 +20,25 @@ Phases, each printing its own lines; any failure exits non-zero:
      row (``row_rel``); bf16 K3 and K1 (the tensor-core split walk) at
      indices one short of, on and one past a split boundary of the
      wrapper's plan, on bf16, int8 and fp8 pools for K1, against their
-     plain walks and the split walk's model; the flash-attention kernels
-     K4 (forward), K5 (dQ) and K6 (dK/dV) in f32 and bf16 at small
+     plain walks and the split walk's model; bf16 K2 on the same walk
+     (chunk rows whose limit falls on a 64-position tile edge, n_valid <
+     C, idle requests, and a table as wide as the pool; bf16, int8 and
+     fp8 pools) against its plain walk and ``ref.mla_prefill_split_ref``;
+     bf16 K4 on its tensor-core walk (a query tile edge, the causal
+     diagonal cutting a key tile, a window, a query offset, GQA / MQA,
+     rows that attend no key); every bf16 K1 / K2 / K3 / K4 launch must
+     have taken its tensor-core route (``last_plan``); the
+     flash-attention kernels K4 (forward), K5 (dQ) and K6 (dK/dV) in f32
+     and bf16 at small
      shapes (GQA, MQA, windows, a query offset, ragged lengths, Dqk != Dv
      up to 576) and at the training path's shapes (B=2, H=128, L=4096,
      Dqk=192, Dv=128, causal, (B, L, H, D) tensors passed as transposed
      views), each output held row by row; each kernel's time beside its plain
      version's, the PyTorch library call's (SDPA) and its bound, the
-     fraction of the bound reached and, for K1 and K3, the split count
-     and grid their wrappers recorded at launch, their times and SDPA's
-     also without the device sleep (the wrapper's host work included),
-     and bf16 K1 on a table as wide as the pool;
+     fraction of the bound reached and, for K1 - K4, the plan (route,
+     split count or tiles, grid) their wrappers recorded at launch, their
+     times and SDPA's also without the device sleep (the wrapper's host
+     work included), and bf16 K1 on a table as wide as the pool;
   3. paged serving at full width — DeepSeek-V2 (d_model 5120, 128 heads,
      160 experts top-6 at the config's capacity factor, vocab 102400)
      cut to 4 layers, random bf16 weights on the card; a short warm-up
@@ -38,13 +46,15 @@ Phases, each printing its own lines; any failure exits non-zero:
      512-token prefix) through the port's engine with ``impl='kernel'``,
      on a bf16 and an fp8 pool in turns (bf16, fp8, fp8, bf16); launch
      counts checked against layers x decode ticks and layers x prefill
-     chunks; kernel-path logits held against the reference path on the
-     same pool (at drop-free MoE capacity, see ``drop_free``);
+     chunks, and K1 / K2 on their tensor-core walks; kernel-path logits
+     held against the reference path on the same pool (at drop-free MoE
+     capacity, see ``drop_free``);
   4. contiguous serving at full width — the same model and weights,
      batch 8 x 2,048 prompt tokens, 32 generated, through
      ``make_prefill_step`` (MHA mode, K4 forward) and ``make_serve_step``
      (K3), ``scheme='auto'`` priced for h100, after a warm-up at the same
-     shapes; launch counts checked (K3 = layers x 31 steps, K4 = layers);
+     shapes; launch counts checked (K3 = layers x 31 steps, K4 = layers),
+     and K4 on its tensor-core walk;
      prefill and last-decode-step logits held against the reference path
      at drop-free capacity;
   5. greedy-token parity on the f32 smoke config: paged ``impl='kernel'``
@@ -56,7 +66,8 @@ Phases, each printing its own lines; any failure exits non-zero:
      moments, batch 2 x 4096 tokens, the config's MoE capacity, through
      ``make_train_step`` with ``impl='kernel'``: one warm-up step, then
      timed steps (tokens/s, ms/step, each step's loss, peak memory) with
-     K4/K5/K6 launch counts checked against layers x steps; then the
+     K4/K5/K6 launch counts checked against layers x steps and K4 on its
+     tensor-core walk; then the
      MLA call site's attention (the flash Function) in bf16 at the path's
      shapes against the dense oracle under autograd, out and the q/k/v
      gradients each as a whole;
@@ -67,7 +78,8 @@ Phases, each printing its own lines; any failure exits non-zero:
      No full-width checkpoint is written (it would be 58 GB).
 
 The line before the last is the kernel table as JSON (``launches`` sums
-the main paths that ran a kernel, ``launches_by_path`` splits them); the
+the main paths that ran a kernel, ``launches_by_path`` splits them;
+``plan`` is the plan K1 - K4's wrappers recorded at the timed launch); the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or outside a checkout of the repository, it exits non-zero and prints no
 result.
@@ -306,6 +318,8 @@ def hold_paged(torch, cases, label):
         for rescale in ref.RESCALES:
             got = kern(*args, rescale=rescale, **kw)
             torch.cuda.synchronize()
+            if label.startswith("bfloat16"):
+                launched_plan(kern)
             want = plain(*args, rescale=rescale, **kw)
             err = (got.float() - want.float()).abs().max().item()
             err_exact = (got.float() - exact.float()).abs().max().item()
@@ -330,16 +344,23 @@ def hold_paged(torch, cases, label):
 
 
 def launched_plan(kern) -> dict:
-    """The split plan ``kern`` (K1 or K3) recorded at its last launch; it
-    must be the tensor-core walk's (bf16 q)."""
+    """The plan ``kern`` recorded at its last launch; with bf16 operands
+    it must be the tensor-core route's: a split plan (K1, K2, K3;
+    ``n_split`` 0 is ``attend_rows``) or route 'tc' (K4; 'wmma' is the
+    WMMA kernel)."""
     plan = dict(kern.last_plan, grid=list(kern.last_plan["grid"]))
-    if not plan["n_split"] > 0:
-        raise AssertionError(f"{kern.__name__} ran bf16 on attend_rows, not "
-                             f"the tensor-core walk: {plan}")
+    if plan.get("route", "tc") != "tc" or plan.get("n_split", 1) <= 0:
+        raise AssertionError(f"{kern.__name__} ran bf16 off its tensor-core "
+                             f"route: {plan}")
+    if "tiles" in plan:
+        plan["tiles"] = list(plan["tiles"])
     return plan
 
 
 def plan_text(r) -> str:
+    if "route" in r:
+        return (f"route {r['route']}, tiles {tuple(r['tiles'])}, grid "
+                f"{tuple(r['grid'])}")
     return (f"n_split {r['n_split']} of {r['split_pos']} positions, grid "
             f"{tuple(r['grid'])}")
 
@@ -352,8 +373,9 @@ def host_text(r) -> str:
 
 
 def time_paged(torch, cases, work, flush, label, lib=None):
-    """Times (exp_add) and bounds of K1 and K2 on ``cases``; K1 also
-    without the device sleep, beside its library call, and its plan."""
+    """Times (exp_add) and bounds of K1 and K2 on ``cases``, also without
+    the device sleep, beside their library calls, with their plans (the
+    tensor-core walk's, bf16 q)."""
     rows = {}
     for name, (kern, plain, args, kw) in cases.items():
         n_bytes, n_ops = work[name]
@@ -361,26 +383,23 @@ def time_paged(torch, cases, work, flush, label, lib=None):
         bound_ms, bound_by = bound(n_bytes, n_ops)
         run = functools.partial(kern, *args, **kw)
         rows[name] = r = dict(ms=time_ms(torch, run, flush))
-        decode = name == "mla_decode_paged"
-        if decode:                              # the tensor-core walk
-            r.update(launched_plan(kern),
-                     ms_with_host=time_ms(torch, run, flush, sleep=False))
+        r.update(plan=launched_plan(kern),
+                 ms_with_host=time_ms(torch, run, flush, sleep=False))
         r.update(plain_ms=time_ms(torch, functools.partial(plain, *args,
                                                            **kw),
                                   flush, reps=5),
                  bound_ms=bound_ms, bound_by=bound_by)
         if lib is not None:
             r["library_ms"] = time_ms(torch, lib[name], flush, reps=5)
-            if decode:
-                r["library_ms_with_host"] = time_ms(torch, lib[name], flush,
-                                                    reps=5, sleep=False)
+            r["library_ms_with_host"] = time_ms(torch, lib[name], flush,
+                                                reps=5, sleep=False)
         log(f"[kernels] {name} {label} time {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, "
             + (f"SDPA {r['library_ms']:.4f} ms, " if lib else "")
             + f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}: "
             f"{n_bytes / 1e6:.2f} MB, {n_ops / 1e9:.2f} GFLOP; "
-            f"{r['bound_ms'] / r['ms']:.4f} of it reached)"
-            + (f", {plan_text(r)}; {host_text(r)}" if decode else ""))
+            f"{r['bound_ms'] / r['ms']:.4f} of it reached), "
+            f"{plan_text(r['plan'])}; {host_text(r)}")
     return rows
 
 
@@ -453,12 +472,12 @@ def time_pool_wide_table(torch, case, n_blocks: int, flush) -> dict:
                                           atol=tol, rtol=tol)):
         raise AssertionError("mla_decode_paged on a pool-wide table "
                              "disagrees with its plain version")
-    r = dict(ms=time_ms(torch, functools.partial(kern, *args, **kw), flush))
-    r.update(launched_plan(kern))
+    r = dict(ms=time_ms(torch, functools.partial(kern, *args, **kw), flush),
+             plan=launched_plan(kern))
     log(f"[kernels] mla_decode_paged bf16 on a pool-wide table "
         f"({n_blocks - 1} blocks, phase 2's indices): time {r['ms']:.4f} "
-        f"ms, {plan_text(r)}; largest per-row |kernel - plain| / |plain| "
-        f"{err:.3g} (bound {tol})")
+        f"ms, {plan_text(r['plan'])}; largest per-row |kernel - plain| / "
+        f"|plain| {err:.3g} (bound {tol})")
     return r
 
 
@@ -527,7 +546,7 @@ def check_contiguous_kernel(torch):
         sdpa = lambda: F.scaled_dot_product_attention(
             q[:, :, None], k, v, attn_mask=mask, scale=SCALE)
         row.update(ms=time_ms(torch, run, flush))
-        row.update(launched_plan(kern),
+        row.update(plan=launched_plan(kern),
                    ms_with_host=time_ms(torch, run, flush, sleep=False),
                    plain_ms=time_ms(torch, functools.partial(
                        ref.mla_decode_ref, q, ckv, krope, last, **kw), flush,
@@ -540,7 +559,8 @@ def check_contiguous_kernel(torch):
             f"time {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, SDPA "
             f"{row['library_ms']:.4f} ms, bound {bound_ms:.5f} ms "
             f"({bound_by}: {n_bytes / 1e6:.2f} MB, {n_ops / 1e9:.2f} GFLOP; "
-            f"{bound_ms / row['ms']:.4f} of it reached), {plan_text(row)}; "
+            f"{bound_ms / row['ms']:.4f} of it reached), "
+            f"{plan_text(row['plan'])}; "
             f"{host_text(row)}")
     return {"mla_decode": row}
 
@@ -782,6 +802,8 @@ def check_flash(torch):
     for dtype_name in ("float32", "bfloat16"):
         errs[dtype_name] = flash_compare(torch, fa, path, dtype_name, 99,
                                          blhd=True)
+        if dtype_name == "bfloat16":      # the forward's tensor-core walk
+            launched_plan(fa.flash_fwd_kernel)
         log(f"[flash] path shapes q/k ({TB},{TH},{TL},{TDQK}), v "
             f"(...,{TDV}), causal, {dtype_name}: max |kernel - plain|, "
             f"largest per-row relative error: "
@@ -839,13 +861,141 @@ def check_flash(torch):
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=lib[name])
         r = rows[name]
+        fwd = name == "flash_attention_fwd"
+        if fwd:
+            r.update(plan=launched_plan(fa.flash_fwd_kernel),
+                     ms_with_host=time_ms(torch, kern, flush, reps=5,
+                                          sleep=False),
+                     library_ms_with_host=time_ms(torch, sdpa_fwd, flush,
+                                                  reps=5, sleep=False))
         log(f"[flash] {name} bf16 time {r['ms']:.3f} ms, plain "
             f"{r['plain_ms']:.3f} ms, SDPA {r['library_ms']:.3f} ms, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}: {n_bytes / 1e9:.3f} "
-            f"GB, {n_ops / 1e12:.3f} TFLOP)")
+            f"GB, {n_ops / 1e12:.3f} TFLOP; {r['bound_ms'] / r['ms']:.4f} "
+            f"of it reached)"
+            + (f", {plan_text(r['plan'])}; {host_text(r)}" if fwd else ""))
     del q, k, v, do, out, lse, delta, flush
     torch.cuda.empty_cache()
     return rows
+
+
+# K4's tensor-core walk at its boundaries, bf16, (B, H, Hkv, Lq, Lk, Dqk,
+# Dv, window, q_offset): Lq off the 128-row query tile; the causal
+# diagonal cutting 64-key tiles mid-way (offsets 36, 120); a window alone
+# and with an offset; GQA at the path's head dims and MQA; rows that
+# attend no key (window 8 behind an offset of 100 over 32 keys).
+FLASH_TC_EDGES = [(1, 4, 4, 200, 200, 192, 128, None, 0),
+                  (1, 2, 2, 100, 136, 64, 64, None, 36),
+                  (1, 2, 2, 130, 250, 128, 128, None, 120),
+                  (1, 4, 2, 257, 257, 192, 128, 100, 0),
+                  (1, 4, 4, 200, 330, 64, 48, 70, 130),
+                  (2, 8, 2, 190, 190, 192, 128, None, 0),
+                  (1, 8, 1, 129, 129, 256, 256, None, 0),
+                  (1, 2, 2, 64, 32, 32, 32, 8, 100)]
+
+
+def check_flash_tc_edges(torch):
+    """bf16 K4 at the tensor-core walk's boundaries (``FLASH_TC_EDGES``),
+    both layouts: each launch on route 'tc', out held row by row
+    (``FLASH_ROW_TOL``) and lse within ``LSE_ATOL`` against the plain
+    version."""
+    from repro_torch.kernels import flash_attention as fa
+
+    worst = lse_worst = 0.0
+    for i, case in enumerate(FLASH_TC_EDGES):
+        for blhd in (False, True):
+            q, k, v, _ = flash_case_inputs(torch, case, torch.bfloat16,
+                                           50 + i, blhd)
+            _, _, _, _, _, D, _, window, q_offset = case
+            kw = dict(causal=True, window=window, q_offset=q_offset,
+                      scale=D ** -0.5)
+            out, lse = fa.flash_fwd_kernel(q, k, v, **kw)
+            torch.cuda.synchronize()
+            launched_plan(fa.flash_fwd_kernel)
+            out_p, lse_p = fa.flash_fwd_plain(q, k, v, **kw)
+            err = row_rel(torch, out, out_p)
+            lse_err = (lse - lse_p).abs().max().item()
+            if not (err <= FLASH_ROW_TOL["bfloat16"] and lse_err <= LSE_ATOL):
+                raise AssertionError(
+                    f"flash_attention_fwd bf16 {case} blhd={blhd}: a row's "
+                    f"|kernel - plain| / |plain| {err:.3g}, lse {lse_err:.3g}")
+            worst, lse_worst = max(worst, err), max(lse_worst, lse_err)
+    log(f"[flash] tensor-core walk at its edges, {len(FLASH_TC_EDGES)} "
+        f"cases x 2 layouts, bf16, every launch on route 'tc': largest "
+        f"per-row |kernel - plain| / |plain| {worst:.3g} (bound "
+        f"{FLASH_ROW_TOL['bfloat16']}), lse {lse_worst:.3g} (within "
+        f"{LSE_ATOL})")
+
+
+# K2's tensor-core walk at its boundaries, the path's widths (8 requests,
+# chunk 32): chunk rows whose limit lengths[b] + c falls on the
+# 64-position tile edges 63, 127 and 1023 (n_valid 32, 28 < C, 24), one
+# row at 63, rows crossing 511 / 512, a first chunk, two idle requests
+EDGE_LENGTHS = [32, 100, 0, 1000, 63, 500, 0, 5]
+EDGE_NVALID = [32, 28, 0, 24, 1, 32, 32, 0]
+
+
+def check_prefill_tc_edges(torch):
+    """bf16 K2 on the tensor-core walk at ``EDGE_LENGTHS`` /
+    ``EDGE_NVALID`` on bf16, int8 and fp8 pools, on the fitted table and
+    on one as wide as the pool, both rescales: each launch's plan is the
+    walk's, the output is held row by row (``row_rel``) and with
+    allclose against the plain walk and the split walk's model
+    (``ref.mla_prefill_split_ref``), rows past n_valid exactly 0."""
+    from repro_torch.core import cache as cachelib
+    from repro_torch.kernels import mla_prefill, ref
+
+    kern = mla_prefill.mla_prefill_paged_kernel
+    tol = TOL["bfloat16"]
+    need = [ln + nv for ln, nv in zip(EDGE_LENGTHS, EDGE_NVALID)]
+    ckv, krope, bt = paged_inputs(torch, torch.float32, need, 7)
+    wide = torch.zeros((B, ckv.shape[0] - 1), dtype=torch.int32,
+                       device="cuda")
+    wide[:, :bt.shape[1]] = bt
+    g = torch.Generator(device="cuda")
+    g.manual_seed(8)
+    q = torch.randn((B, C, H, DL + DR), generator=g,
+                    device="cuda").bfloat16()
+    i32 = lambda a: torch.tensor(a, dtype=torch.int32, device="cuda")
+    ln, nv = i32(EDGE_LENGTHS), i32(EDGE_NVALID)
+    worst = 0.0
+    for pool in ("bf16", "int8", "fp8"):
+        if pool == "bf16":
+            c, r, qkw = ckv.bfloat16(), krope.bfloat16(), {}
+        else:
+            qdtype, qmax = cachelib.cache_dtype_info(pool)
+            c, cs = cachelib.quantize_latent(ckv, qmax, qdtype)
+            r, rs = cachelib.quantize_latent(krope, qmax, qdtype)
+            qkw = dict(ckv_scales=cs, krope_scales=rs)
+        for table, tname in ((bt, "fitted"), (wide, "pool-wide")):
+            for rescale in ref.RESCALES:
+                kw = dict(softmax_scale=SCALE, rescale=rescale, **qkw)
+                got = kern(q, c, r, table, ln, nv, **kw)
+                torch.cuda.synchronize()
+                plan = launched_plan(kern)
+                wants = (ref.mla_prefill_paged_ref(q, c, r, table, ln, nv,
+                                                   **kw),
+                         ref.mla_prefill_split_ref(
+                             q, c, r, table, ln, nv,
+                             split_pos=plan["split_pos"], **kw))
+                rels = [row_rel(torch, got, w) for w in wants]
+                ok = max(rels) <= tol and all(
+                    torch.allclose(got.float(), w.float(), atol=tol,
+                                   rtol=tol) for w in wants)
+                zero = all(bool((got[b, n:] == 0).all())
+                           for b, n in enumerate(EDGE_NVALID))
+                log(f"[kernels] mla_prefill_paged bf16 {pool} pool, "
+                    f"{tname} table ({table.shape[1]} blocks), {rescale}, "
+                    f"rows ending on tile edges: largest per-row |kernel - "
+                    f"plain| / |plain| {rels[0]:.3g}, vs the split walk "
+                    f"{rels[1]:.3g} (bound {tol}), {plan_text(plan)}, "
+                    f"dead rows exactly 0: {zero}")
+                if not (ok and zero):
+                    raise AssertionError(f"mla_prefill_paged {pool} pool, "
+                                         f"{tname} table, at tile edges "
+                                         f"disagrees")
+                worst = max(worst, *rels)
+    return worst
 
 
 def sdpa_calls(torch, q, k, v, do):
@@ -986,6 +1136,9 @@ def serve_paged_full(torch, np, cfg, params, cache_dtype: str,
             "mla_prefill_paged": cfg.n_layers * chunks}
     if launches != want:
         raise AssertionError(f"kernel launches {launches} != {want}")
+    for kern in (mla_decode.mla_decode_paged_kernel,
+                 mla_prefill.mla_prefill_paged_kernel):
+        launched_plan(kern)               # bf16: the tensor-core walk
     if check_logits:
         compare_logits(torch, drop_free(cfg), reqs, engine, cache_dtype)
     del engine
@@ -1032,6 +1185,8 @@ def serve_contiguous_full(torch, np, cfg, params):
             "flash_attention_fwd": cfg.n_layers}
     if launches != want:
         raise AssertionError(f"kernel launches {launches} != {want}")
+    for kern in (mla_decode.mla_decode_kernel, fa.flash_fwd_kernel):
+        launched_plan(kern)               # bf16: the tensor-core routes
     compare_contiguous(torch, np, drop_free(cfg), params, res["scheme"])
     torch.cuda.empty_cache()
     return launches
@@ -1329,6 +1484,7 @@ def train_full_width(torch):
     want = {k_: TRAIN_LAYERS * timed for k_ in launches}
     if launches != want:
         raise AssertionError(f"kernel launches {launches} != {want}")
+    launched_plan(fa.flash_fwd_kernel)    # bf16: the tensor-core walk
     del params, opt, step, m
     gc.collect()
     torch.cuda.empty_cache()
@@ -1536,6 +1692,8 @@ def main() -> int:
     rows = check_kernels(torch)
     rows.update(check_contiguous_kernel(torch))
     check_split_boundaries(torch)
+    check_prefill_tc_edges(torch)
+    check_flash_tc_edges(torch)
     rows.update(check_flash(torch))
     by_path = full_width(torch, np)
     token_parity(torch, np)
@@ -1562,10 +1720,11 @@ def main() -> int:
     kernels = []
     for name, (src, replaces) in meta.items():
         paths = {p: n[name] for p, n in by_path.items() if name in n}
-        kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces,
+        # the contract's keys last: a row's own keys never override them
+        kernels.append({**rows[name], "name": name, "route": "cuda",
+                        "source": src, "replaces": replaces,
                         "launches": sum(paths.values()),
-                        "launches_by_path": paths, **rows[name]})
+                        "launches_by_path": paths})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

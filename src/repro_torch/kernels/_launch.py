@@ -1,6 +1,8 @@
-"""Checks shared by the MLA kernel wrappers (``mla_decode``,
-``mla_prefill``): what the kernels take, validated before any pointer is
-handed to them."""
+"""Checks and launch plans shared by the kernel wrappers (``mla_decode``,
+``mla_prefill``, ``flash_attention``): what the kernels take, validated
+before any pointer is handed to them, and which route, split count, tiles
+and grid a launch gets.  Each wrapper records the plan it launched as
+``<wrapper>.last_plan``."""
 from __future__ import annotations
 
 import functools
@@ -162,20 +164,111 @@ def split_plan(n_pos: int, B: int, H: int, sms: int) -> Tuple[int, int]:
     return -(-tiles // per_split), per_split * TC_POS
 
 
-def decode_plan(n_pos: int, B: int, H: int, device) -> dict:
+def decode_plan(n_pos: int, B: int, H: int, device,
+                sms: Optional[int] = None) -> dict:
     """The launch plan of a bf16 decode call on the tensor-core walk:
-    ``split_plan`` over n_pos positions on ``device``'s SMs and the grid
-    (ceil(H / TC_ROWS), n_split, B).  The wrappers record the plan they
-    launched as ``<wrapper>.last_plan``."""
-    n_split, split_pos = split_plan(n_pos, B, H, sm_count(device))
+    ``split_plan`` over n_pos positions on ``device``'s SMs (or ``sms``)
+    and the grid (ceil(H / TC_ROWS), n_split, B).  The wrappers record
+    the plan they launched as ``<wrapper>.last_plan``."""
+    n_split, split_pos = split_plan(n_pos, B, H, sms or sm_count(device))
     return dict(n_split=n_split, split_pos=split_pos,
                 grid=(-(-H // TC_ROWS), n_split, B))
 
 
 def rows_plan(B: int, H: int) -> dict:
-    """The launch plan of a decode call on ``attend_rows``: no splits, a
-    CTA for every ROWS heads of a request."""
+    """The launch plan of a call on ``attend_rows``: no splits, a CTA for
+    every ROWS query rows of a request (H heads for decode, C x H
+    (chunk row, head) pairs for prefill)."""
     return dict(n_split=0, split_pos=0, grid=(-(-H // ROWS), B))
+
+
+MAX_GRID_YZ = 65535   # CUDA's limit on gridDim.y and gridDim.z
+
+
+def prefill_plan(q_full, Dl: int, Dr: int, nb: int, bs: int,
+                 tensors=(), sms: Optional[int] = None) -> dict:
+    """The launch plan of a K2 (paged chunked prefill) call on q_full
+    (B, C, H, Dl + Dr): the tensor-core walk when it takes the operands
+    (``tc_walk_takes``) and B x C fits the grid's z, with ``split_plan``
+    over the table's reach (nb x bs positions; the lengths stay on the
+    device) for B x C rows of heads and the grid (ceil(H / TC_ROWS),
+    n_split, B x C); else ``attend_rows`` (n_split 0) on C x H rows a
+    request.  ``sms``: the SM count (default: q_full's device's)."""
+    B, C, H, _ = q_full.shape
+    if tc_walk_takes(q_full, Dl, Dr, tensors) and B * C <= MAX_GRID_YZ:
+        return decode_plan(nb * bs, B * C, H, q_full.device, sms)
+    return rows_plan(B, C * H)
+
+
+# flash attention forward (K4): the tensor-core walk of
+# csrc/flash_attention_fwd_tc.cuh and the WMMA kernel's tile choice
+# (csrc/flash_common.cuh choose_tiles, csrc/flash_attention_fwd.cu fwd_smem)
+FLASH_TC_ROWS = 128    # kRowsQ: query rows a CTA
+FLASH_TC_KEYS = 64     # kKeys: keys a staged tile
+FLASH_TC_MAX_D = 256   # kMaxD
+FLASH_TILES = ((64, 64), (64, 32), (32, 64), (32, 32), (16, 32), (32, 16),
+               (16, 16))
+SMEM_TWO_PER_SM = 113 * 1024
+SMEM_MAX = 232448
+
+
+def flash_fwd_tc_takes(q, k, v, out, scale: float) -> bool:
+    """Whether a K4 call runs the tensor-core walk: bf16, Dqk and Dv
+    multiples of 16 up to FLASH_TC_MAX_D, every operand 16-byte aligned
+    and its batch, head and length strides multiples of 8 elements (its
+    copies move 16 bytes), and a positive softmax scale (the walk takes
+    the row max of the unscaled scores).  Anything else the checks admit
+    (f32 above all) runs the WMMA kernel."""
+    Dqk, Dv = q.shape[-1], v.shape[-1]
+    return (q.dtype == torch.bfloat16 and scale > 0
+            and Dqk % 16 == 0 and Dv % 16 == 0
+            and Dqk <= FLASH_TC_MAX_D and Dv <= FLASH_TC_MAX_D
+            and all(t.data_ptr() % 16 == 0
+                    and all(s % 8 == 0 for s in t.stride()[:3])
+                    for t in (q, k, v, out)))
+
+
+def _round16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def _bytes(n: int, size: int) -> int:
+    return -(-n * size // 128) * 128
+
+
+def flash_fwd_smem(es: int, bq: int, bk: int, Dqk: int, Dv: int) -> int:
+    """Shared memory of a WMMA forward CTA (``fwd_smem`` of
+    csrc/flash_attention_fwd.cu) for elements of ``es`` bytes."""
+    ld = lambda cols: _round16(cols) + 16 // es
+    ldf = lambda cols: _round16(cols) + 4
+    return (_bytes(bq * ld(Dqk), es) + _bytes(bk * ld(Dqk), es)
+            + _bytes(bk * ld(Dv), es) + _bytes(bq * ldf(bk), 4)
+            + _bytes(bq * ld(bk), es) + _bytes(bq * ldf(Dv), 4)
+            + 3 * _bytes(bq, 4))
+
+
+def flash_wmma_tiles(es: int, Dqk: int, Dv: int) -> Tuple[int, int]:
+    """(bq, bk) of the WMMA forward: the first candidate whose shared
+    memory fits two CTAs on an SM, else the first that fits one
+    (``choose_tiles``; the kernel refuses any other pick)."""
+    for limit in (SMEM_TWO_PER_SM, SMEM_MAX):
+        for bq, bk in FLASH_TILES:
+            if flash_fwd_smem(es, bq, bk, Dqk, Dv) <= limit:
+                return bq, bk
+    raise ValueError(f"no WMMA tile fits head dims {Dqk}, {Dv}")
+
+
+def flash_fwd_plan(q, k, v, out, scale: float) -> dict:
+    """The launch plan of a K4 call: ``route`` 'tc' (the tensor-core
+    walk, ``flash_fwd_tc_takes``) or 'wmma', the tiles (query rows, keys)
+    a CTA takes, and the grid (ceil(Lq / rows), B x H)."""
+    B, H, Lq, Dqk = q.shape
+    if flash_fwd_tc_takes(q, k, v, out, scale):
+        route, tiles = "tc", (FLASH_TC_ROWS, FLASH_TC_KEYS)
+    else:
+        route = "wmma"
+        tiles = flash_wmma_tiles(q.element_size(), Dqk, v.shape[-1])
+    return dict(route=route, tiles=tiles, grid=(-(-Lq // tiles[0]), B * H))
 
 
 def tc_workspace(q_full, B: int, H: int, Dl: int, n_split: int):

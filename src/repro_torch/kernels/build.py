@@ -40,7 +40,8 @@ _LLP, _IP = ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int)
 SIGNATURES = {
     "mla_decode_paged": [_P] * 8 + [_I] * 7 + [_F, _I, _I, _I, _P, _I, _I,
                                                 _P],
-    "mla_prefill_paged": [_P] * 9 + [_I] * 8 + [_F, _I, _I, _I, _P],
+    "mla_prefill_paged": [_P] * 9 + [_I] * 8 + [_F, _I, _I, _I, _P, _I, _I,
+                                                 _P],
     "mla_decode": [_P] * 4 + [_I] * 5 + [_LL] * 4 + [_I, _F, _I, _I, _P, _I,
                                                      _I, _P],
     "flash_attention_fwd": [_P] * 5 + [_LLP, _IP, _F, _P],

@@ -26,8 +26,18 @@
 // work at causal L = 4096).  Both products of a key tile (S = Q K^T, then
 // O += P V) run on the tensor cores (bf16 WMMA, f32 accumulation); the
 // running (m, l) and the output accumulator stay f32 in shared memory,
-// so scores never reach device memory.  Not yet done: wgmma, TMA loads,
-// keeping O in registers, overlapping the next tile's loads.
+// so scores never reach device memory.
+//
+// Two routes, picked by the wrapper's plan (repro_torch/kernels/_launch.py,
+// flash_fwd_plan) and passed in dims[13]:
+//   * the tensor-core walk of flash_attention_fwd_tc.cuh (bf16, head dims
+//     multiples of 16 up to 256, 16-byte aligned operands): 128 query rows
+//     a CTA, mma.sync with S, P and O in registers, K and V double-buffered
+//     with cp.async.  The training and contiguous-prefill paths run it;
+//   * the WMMA kernel below, for everything else (f32 above all, and head
+//     dims the walk does not take): S, P and O in shared memory, K and V
+//     loaded synchronously.  Its tiles come from the plan (dims[14], [15])
+//     and must be the ones choose_tiles picks.
 //
 // Layout: every tensor is (B, heads, L, D) with its own element strides
 // for B, heads and L, and a contiguous last dimension, so the MLA path's
@@ -35,6 +45,7 @@
 //
 // Built by repro_torch/kernels/build.py into a shared library with a plain
 // C interface, called through ctypes by repro_torch/kernels/flash_attention.py.
+#include "flash_attention_fwd_tc.cuh"
 #include "flash_common.cuh"
 
 namespace fa {
@@ -157,11 +168,15 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(const FwdArgs a) {
   }
 }
 
+// Launch the WMMA kernel with the planned tiles (a.bq, a.bk), which must
+// be choose_tiles' pick.
 template <typename T>
 int launch(FwdArgs a, int B, cudaStream_t stream) {
   size_t smem;
-  if (!choose_tiles([&](int bq, int bk) {
-        return fwd_smem<T>(bq, bk, a.Dqk, a.Dv); }, &a.bq, &a.bk, &smem))
+  int bq, bk;
+  if (!choose_tiles([&](int bq_, int bk_) {
+        return fwd_smem<T>(bq_, bk_, a.Dqk, a.Dv); }, &bq, &bk, &smem) ||
+      bq != a.bq || bk != a.bk)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -175,7 +190,9 @@ int launch(FwdArgs a, int B, cudaStream_t stream) {
 
 // strides: 12 element strides, (B, heads, L) of q, k, v, out.
 // dims: B, H, Hkv, Lq, Lk, Dqk, Dv, causal, has_window, window, q_offset,
-//       dtype (0 = float32, 1 = bfloat16), vec (16-byte loads allowed).
+//       dtype (0 = float32, 1 = bfloat16), vec (16-byte loads allowed),
+//       route (1 = the tensor-core walk, 0 = WMMA), and the WMMA route's
+//       tiles bq, bk.
 // Returns the cudaError_t of the launch (0 = success).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* out, void* lse,
@@ -202,6 +219,31 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   a.vec = dims[12] != 0;
   a.mask = fa::Mask{dims[3], dims[4], dims[7], dims[8], dims[9], dims[10]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dims[13] == 1) {
+    if (dims[11] != 1 || !a.vec || !(scale > 0.0f))
+      return (int)cudaErrorInvalidValue;
+    fa::tc::Args t{};
+    t.q = static_cast<const __nv_bfloat16*>(q);
+    t.k = static_cast<const __nv_bfloat16*>(k);
+    t.v = static_cast<const __nv_bfloat16*>(v);
+    t.out = static_cast<__nv_bfloat16*>(out);
+    t.lse = a.lse;
+    for (int i = 0; i < 3; ++i) {
+      t.qs[i] = a.qs[i];
+      t.ks[i] = a.ks[i];
+      t.vs[i] = a.vs[i];
+      t.os[i] = a.os[i];
+    }
+    t.H = a.H;
+    t.G = a.G;
+    t.Dqk = a.Dqk;
+    t.Dv = a.Dv;
+    t.scale = a.scale;
+    t.mask = a.mask;
+    return (int)fa::tc::launch(t, B, s);
+  }
+  a.bq = dims[14];
+  a.bk = dims[15];
   if (dims[11] == 0) return fa::launch<float>(a, B, s);
   if (dims[11] == 1) return fa::launch<__nv_bfloat16>(a, B, s);
   return (int)cudaErrorInvalidValue;

@@ -103,8 +103,9 @@ extern "C" int mla_decode(const void* q, const void* ckv, const void* krope,
     const size_t smem = mla::tc::layout(Dl, Dr, false, false).total;
     auto run = [&](auto ea) -> cudaError_t {
       constexpr bool kEA = decltype(ea)::value;
-      return mla::tc::launch_split<kEA>(
-          mla::decode_tc_kernel<kEA>, smem, B, H, n_split, Dl, acc, ml,
+      return mla::tc::launch_split(
+          mla::tc::combine_kernel<kEA>, mla::decode_tc_kernel<kEA>, smem, B,
+          H, n_split, Dl, acc, ml,
           static_cast<bf16*>(out), st, static_cast<const bf16*>(q),
           static_cast<const bf16*>(ckv), static_cast<const bf16*>(krope),
           acc, ml, H, S, Dl, Dr, ckv_sb, ckv_ss, krope_sb, krope_ss, index,

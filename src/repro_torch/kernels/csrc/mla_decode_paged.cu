@@ -118,7 +118,8 @@ extern "C" int mla_decode_paged(const void* q, const void* ckv,
       constexpr bool kS = decltype(scaled)::value;
       constexpr bool kEA = decltype(ea)::value;
       const size_t smem = mla::tc::layout(Dl, Dr, kS, true).total;
-      return mla::tc::launch_split<kEA>(
+      return mla::tc::launch_split(
+          mla::tc::combine_kernel<kEA>,
           mla::decode_paged_tc_kernel<P, kS, kEA>, smem, B, H, n_split, Dl,
           acc, ml, static_cast<bf16*>(out), st, static_cast<const bf16*>(q),
           static_cast<const P*>(ckv), static_cast<const P*>(krope),

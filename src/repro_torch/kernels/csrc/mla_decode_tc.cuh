@@ -1,6 +1,10 @@
-// The tensor-core split-KV decode walk shared by the contiguous (K3,
-// mla_decode.cu) and paged (K1, mla_decode_paged.cu) absorbed-MLA decode
-// kernels for bf16 q, and the combine kernel that merges its splits.
+// The tensor-core split-KV walk shared by the absorbed-MLA kernels for
+// bf16 q: contiguous decode (K3, mla_decode.cu), paged decode (K1,
+// mla_decode_paged.cu) and paged chunked prefill (K2, mla_prefill_paged.cu:
+// a CTA's 64 rows are the heads of one (request, chunk row), which attends
+// positions <= lengths[b] + c); and the combine that merges its splits.
+// The Hopper primitives it is built from (swizzle, cp.async, ldmatrix,
+// mma.sync) are in tc_primitives.cuh.
 //
 // Absorbed MLA is multi-query attention with ONE latent KV head: all H
 // query heads of a request attend the same {ckv | krope} rows.  So a CTA
@@ -41,7 +45,8 @@
 // columns, and ckv_s[j] is folded into p_j before PV.  No dequantized
 // copy of the pool exists.
 //
-// Split-KV: the grid is (H / 64, n_split, B); split s covers positions
+// Split-KV: the grid is (H / 64, n_split, B) (B x C for K2, a "request"
+// being one (request, chunk row)); split s covers positions
 // [s * split_pos, (s + 1) * split_pos) cut at the request's last position.
 // Each CTA writes its rows' unnormalized f32 partial (acc, m, l) to a
 // workspace; a split that starts past the request's index writes l = 0
@@ -51,15 +56,13 @@
 // exp_add_rescale; under mul it is exp(m_s - M).
 #pragma once
 
-#include <mutex>
-#include <utility>
-#include <vector>
-
 #include "mla_paged_common.cuh"
+#include "tc_primitives.cuh"
 
 namespace mla {
 namespace tc {
 
+using namespace ::hopper;   // swz, cp16, ldsm4, mma, opt_in_smem, ...
 using bf16 = __nv_bfloat16;
 
 constexpr int kRowsTC = 64;        // query rows (heads) per CTA
@@ -72,7 +75,6 @@ constexpr int kMaxK = 576;         // Dl + round16(Dr) the buffers hold
 constexpr int kMaxPages = 64;      // block-table entries one tile touches
 constexpr int kSTiles = kPos / kGroups / 8;  // 8-position score tiles a warp
 constexpr int kAccTiles = kMaxDl / kGroups / 8;   // 8-column output tiles
-constexpr size_t kSmemMax = 232448;         // per-block opt-in limit, H100
 
 __host__ __device__ inline int round_up(int x, int m) {
   return (x + m - 1) / m * m;
@@ -99,62 +101,6 @@ __host__ __device__ inline Layout layout(int Dl, int Dr, bool scaled,
   L.pg = L.sc + (scaled ? 2 * 2 * kPos * sizeof(float) : 0);
   L.total = L.pg + (paged ? 2 * kMaxPages * sizeof(int) : 0);
   return L;
-}
-
-// Element offset of (row, col) in a swizzled buffer of row stride Ds.
-__device__ __forceinline__ int swz(int row, int col, int Ds) {
-  return row * Ds + (((col >> 3) ^ (row & 7)) << 3) + (col & 7);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// cp.async with zero fill: `valid` false copies no byte and writes zeros.
-__device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp8(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 8 : 0));
-}
-__device__ __forceinline__ void cp4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
-
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c += a * b: one m16n8k16 bf16 product with f32 accumulation.
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Where a request's rows are.  slot(p, pages, p0) is the row of position
@@ -523,12 +469,14 @@ __device__ void attend_split(const bf16* __restrict__ q,
   }
 }
 
-// Merge the n_split partials of one (request, head) row: grid B * H,
-// 128 threads, 4 output columns a thread.
+// Merge the n_split partials of row blockIdx.x (one (request, head), or
+// one (request, chunk row, head)) with the block's threads, 4 output
+// columns a thread.
 template <bool kExpAdd>
-__global__ void __launch_bounds__(128)
-combine_kernel(const float* __restrict__ acc, const float* __restrict__ ml,
-               bf16* __restrict__ out, int n_split, int Dl) {
+__device__ __forceinline__ void combine_row(const float* __restrict__ acc,
+                                            const float* __restrict__ ml,
+                                            bf16* __restrict__ out,
+                                            int n_split, int Dl) {
   const size_t row = blockIdx.x;
   const float* mlr = ml + row * n_split * 2;
   float M = kNegInf;
@@ -565,30 +513,20 @@ combine_kernel(const float* __restrict__ acc, const float* __restrict__ ml,
   }
 }
 
-// Raise a kernel's dynamic shared-memory ceiling to kSmemMax, which every
-// layout fits under, once for each kernel and device rather than on every
-// launch: the attribute call costs host time on a path that takes tens of
-// microseconds on the device.
-inline cudaError_t opt_in_smem(const void* kernel) {
-  static std::mutex mu;
-  static std::vector<std::pair<const void*, int>> done;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const std::lock_guard<std::mutex> lock(mu);
-  for (const auto& d : done)
-    if (d.first == kernel && d.second == dev) return cudaSuccess;
-  err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemMax);
-  if (err == cudaSuccess) done.emplace_back(kernel, dev);
-  return err;
+// The combine of the decode kernels K1 and K3: grid B * H, 128 threads.
+template <bool kExpAdd>
+__global__ void __launch_bounds__(128)
+combine_kernel(const float* __restrict__ acc, const float* __restrict__ ml,
+               bf16* __restrict__ out, int n_split, int Dl) {
+  combine_row<kExpAdd>(acc, ml, out, n_split, Dl);
 }
 
-// Launch the split kernel on grid (H / 64, n_split, B), then the combine;
-// returns the first launch error.
-template <bool kExpAdd, typename Kernel, typename... Args>
-cudaError_t launch_split(Kernel kernel, size_t smem, int B, int H,
-                         int n_split, int Dl, const float* ws_acc,
+// Launch the split kernel on grid (H / 64, n_split, B), then `combine`
+// (a kernel that calls combine_row) on B * H rows; returns the first
+// launch error.
+template <typename Combine, typename Kernel, typename... Args>
+cudaError_t launch_split(Combine combine, Kernel kernel, size_t smem, int B,
+                         int H, int n_split, int Dl, const float* ws_acc,
                          const float* ws_ml, bf16* out, cudaStream_t stream,
                          Args... args) {
   if (smem > kSmemMax) return cudaErrorInvalidValue;
@@ -598,8 +536,7 @@ cudaError_t launch_split(Kernel kernel, size_t smem, int B, int H,
   kernel<<<grid, kThreadsTC, smem, stream>>>(args...);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  combine_kernel<kExpAdd><<<B * H, 128, 0, stream>>>(ws_acc, ws_ml, out,
-                                                      n_split, Dl);
+  combine<<<B * H, 128, 0, stream>>>(ws_acc, ws_ml, out, n_split, Dl);
   return cudaGetLastError();
 }
 

@@ -14,7 +14,12 @@ Three CUDA kernels carry it (``csrc/flash_attention_fwd.cu``,
 ``flash_attention_bwd_dq.cu``, ``flash_attention_bwd_dkv.cu``), each
 behind a wrapper here that checks its operands, launches it on the
 current stream, raises on a nonzero ``cudaError_t`` and counts the launch
-(``flash_fwd_kernel.launches`` and so on).  Beside each is its plain
+(``flash_fwd_kernel.launches`` and so on).  The forward has two routes
+(``_launch.flash_fwd_plan``): bf16 with head dims that are multiples of
+16 up to 256 and aligned operands (the training and prefill paths) runs
+the tensor-core walk ``csrc/flash_attention_fwd_tc.cuh``, everything else
+the WMMA kernel; ``flash_fwd_kernel.last_plan`` is the plan of the last
+launch (route, tiles, grid).  Beside each is its plain
 blockwise PyTorch version (``*_plain``: the Pallas kernel's arithmetic,
 one key block at a time, in f32).  A wrapper runs the plain version only
 for CPU tensors; for CUDA tensors it launches the kernel or raises.
@@ -35,7 +40,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import build
-from ._launch import DTYPE_CODES, raise_on_error
+from ._launch import DTYPE_CODES, flash_fwd_plan, raise_on_error
 
 NEG_INF = -2.0 ** 30
 MAX_D = 576          # the Pallas module's stated head-dim limit
@@ -203,7 +208,9 @@ def _strides(*ts):
     return (_LL * len(vals))(*vals)
 
 
-def _dims(q, k, v, causal, window, q_offset, loads):
+def _dims(q, k, v, causal, window, q_offset, loads, *extra):
+    """The kernels' int arguments; the forward appends its plan's route
+    and WMMA tiles (``extra``)."""
     B, H, Lq, Dqk = q.shape
     Hkv, Lk, Dv = k.shape[1], k.shape[2], v.shape[-1]
     es = q.element_size()
@@ -211,7 +218,8 @@ def _dims(q, k, v, causal, window, q_offset, loads):
               and all(s * es % 16 == 0 for s in t.stride()[:3])
               for t in loads) and Dqk * es % 16 == 0 and Dv * es % 16 == 0
     vals = [B, H, Hkv, Lq, Lk, Dqk, Dv, int(causal), int(window is not None),
-            int(window or 0), int(q_offset), DTYPE_CODES[q.dtype], int(vec)]
+            int(window or 0), int(q_offset), DTYPE_CODES[q.dtype], int(vec),
+            *extra]
     return (ctypes.c_int * len(vals))(*vals)
 
 
@@ -233,13 +241,16 @@ def flash_fwd_kernel(q, k, v, *, causal: bool = True,
     lse = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
+    plan = flash_fwd_plan(q, k, v, out, scale)
+    tc = plan["route"] == "tc"
     err = build.load("flash_attention_fwd").flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), _strides(q, k, v, out),
-        _dims(q, k, v, causal, window, q_offset, (q, k, v)), float(scale),
-        _stream(q))
+        _dims(q, k, v, causal, window, q_offset, (q, k, v), int(tc),
+              *(0, 0) if tc else plan["tiles"]), float(scale), _stream(q))
     raise_on_error(err, "flash_attention_fwd")
     flash_fwd_kernel.launches += 1
+    flash_fwd_kernel.last_plan = plan
     return out, lse
 
 
@@ -303,6 +314,7 @@ def flash_bwd_dkv_kernel(q, k, v, do, lse, delta, *, causal: bool = True,
 
 
 flash_fwd_kernel.launches = 0
+flash_fwd_kernel.last_plan = None
 flash_bwd_dq_kernel.launches = 0
 flash_bwd_dkv_kernel.launches = 0
 

@@ -18,7 +18,8 @@ Each MLA function takes the kernel's inputs and returns its output:
 :func:`mla_decode_split_ref` is the walk of the tensor-core decode
 kernels (K1 and K3 for bf16 q): the positions cut into splits, each
 walked from a fresh state, the splits merged as their combine kernel
-merges them.
+merges them; :func:`mla_prefill_split_ref` is the same walk as bf16 K2
+runs it, one decode row per (request, chunk row).
 
 A quantized pool (int8 / fp8 codes) comes with ``ckv_scales`` /
 ``krope_scales`` (N, bs, 1) f32: the oracle dequantizes the gathered
@@ -282,6 +283,32 @@ def mla_decode_split_ref(q_full, ckv, krope, indices, *, split_pos: int,
                                scale, rescale, state)
         parts.append(state)
     return merge_splits(parts, rescale).to(q_full.dtype)
+
+
+def mla_prefill_split_ref(q_full, ckv_pages, krope_pages, block_tables,
+                          lengths, n_valid, *, split_pos: int,
+                          tile: int = 64,
+                          softmax_scale: Optional[float] = None,
+                          rescale: str = "exp_add", ckv_scales=None,
+                          krope_scales=None):
+    """The split walk of bf16 K2 (paged chunked prefill), in f32: chunk
+    row c of request b is the paged decode row of
+    :func:`mla_decode_split_ref` over positions <= lengths[b] + c through
+    b's block-table row, or a zero row when c >= n_valid[b].  Arguments
+    as :func:`mla_prefill_paged_ref`, plus ``split_pos`` and ``tile`` as
+    for the decode walk.  Returns (B, C, H, Dl) in q_full's dtype."""
+    B, C, H, D = q_full.shape
+    scale = softmax_scale if softmax_scale is not None else D ** -0.5
+    c = torch.arange(C, dtype=torch.int32, device=q_full.device)
+    index = torch.where(c[None, :] < n_valid[:, None].to(torch.int32),
+                        lengths[:, None].to(torch.int32) + c[None, :], -1)
+    o = mla_decode_split_ref(
+        q_full.reshape(B * C, H, D), ckv_pages, krope_pages,
+        index.reshape(B * C), split_pos=split_pos, tile=tile,
+        softmax_scale=scale, rescale=rescale,
+        block_tables=block_tables.repeat_interleave(C, dim=0),
+        ckv_scales=ckv_scales, krope_scales=krope_scales)
+    return o.reshape(B, C, H, -1)
 
 
 def mla_decode_paged_ref(q_full, ckv_pages, krope_pages, block_tables,

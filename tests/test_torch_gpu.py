@@ -2,10 +2,14 @@
 paged MLA attention kernels (K1 decode, K2 chunked prefill; bf16 / f32
 and int8 / fp8 pools), the contiguous-cache decode kernel K3 and flash
 attention (K4 forward, K5 dQ, K6 dK/dV), and one bf16 training step of
-the smoke model with the flash kernels against the dense path.  bf16 K1
-and K3 run the tensor-core split walk (csrc/mla_decode_tc.cuh); its
+the smoke model with the flash kernels against the dense path.  bf16 K1,
+K2 and K3 run the tensor-core split walk (csrc/mla_decode_tc.cuh); its
 cases put indices around split boundaries and are also held against the
-walk's CPU model ``ref.mla_decode_split_ref`` with the wrapper's plan.
+walk's CPU models ``ref.mla_decode_split_ref`` and
+``ref.mla_prefill_split_ref`` with the wrapper's plan.  bf16 K4 runs the
+tensor-core walk of csrc/flash_attention_fwd_tc.cuh; its cases put query
+tiles, the causal diagonal, windows and offsets across tile edges and
+check the route each launch recorded (``last_plan``).
 
 Every test here is marked ``gpu`` and skips without a CUDA device (the
 kernels have no CPU mode); on a machine with one:
@@ -359,6 +363,65 @@ def test_quantized_kernels_reject_bad_scales():
     assert mla_decode_paged_kernel.launches == before + 1
 
 
+# bf16 K2 on the tensor-core walk (csrc/mla_prefill_paged.cu, a CTA for
+# 64 heads of one (request, chunk row)).  (B, C, H, Dl, Dr, bs, nb, N,
+# lengths, n_valid): chunk rows whose limit lengths[b] + c falls on the
+# 64-position tile edges 63 and 127 (and one past), n_valid < C, an idle
+# request, a one-row chunk; then a table as wide as the pool (199 blocks:
+# 11 splits of 320 positions on a 132-SM card, most of them empty for
+# these rows).
+PREFILL_TC_CASES = [
+    (4, 8, 128, 512, 64, 16, 12, 60, [56, 124, 0, 3], [8, 5, 0, 1]),
+    (3, 4, 64, 512, 64, 16, 199, 200, [300, 0, 1000], [4, 2, 3]),
+]
+
+
+@pytest.mark.parametrize("pool", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", PREFILL_TC_CASES)
+def test_prefill_tc_route_boundaries_on_card(case, dtype, pool):
+    """K2 at tile edges, with idle rows and a pool-wide table, both
+    rescales: bf16 q runs the tensor-core walk (``last_plan`` n_split >
+    0) and is held row by row and elementwise against the plain walk and
+    the split walk's CPU model with the launched plan; f32 q stays on
+    ``attend_rows`` (n_split 0).  Rows past n_valid are exactly 0."""
+    dev = _cuda()
+    B, C, H, Dl, Dr, bs, nb, N, lengths, n_valid = case
+    if pool == "bf16":
+        g = torch.Generator(device=dev)
+        g.manual_seed(N)
+        ckv, krope = (torch.randn(s, generator=g, device=dev).to(dtype)
+                      for s in ((N, bs, Dl), (N, bs, Dr)))
+        qkw = {}
+    else:
+        ckv, krope, cs, rs = _quantized_pool(dev, N, bs, Dl, Dr, pool, N)
+        qkw = dict(ckv_scales=cs, krope_scales=rs)
+    rng = np.random.default_rng(nb)
+    bt = np.stack([rng.permutation(np.arange(1, N))[:nb] for _ in range(B)])
+    q, bt, ln, nv = _on(dev, dtype, rng.standard_normal((B, C, H, Dl + Dr)),
+                        bt.astype(np.int32), np.asarray(lengths, np.int32),
+                        np.asarray(n_valid, np.int32))
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for rescale in tref.RESCALES:
+        got = mla_prefill_paged_kernel(q, ckv, krope, bt, ln, nv,
+                                       rescale=rescale, **qkw)
+        torch.cuda.synchronize()
+        plan = mla_prefill_paged_kernel.last_plan
+        assert (plan["n_split"] > 0) == (dtype == torch.bfloat16), plan
+        wants = [tref.mla_prefill_paged_ref(q, ckv, krope, bt, ln, nv,
+                                            rescale=rescale, **qkw)]
+        if plan["n_split"]:
+            assert plan["grid"] == (-(-H // 64), plan["n_split"], B * C)
+            wants.append(tref.mla_prefill_split_ref(
+                q, ckv, krope, bt, ln, nv, split_pos=plan["split_pos"],
+                rescale=rescale, **qkw))
+        for want in wants:
+            _row_close(got, want, tol)
+            _close(got, want, tol)
+        for b in range(B):
+            assert (got[b, n_valid[b]:] == 0).all()
+
+
 # (B, H, Hkv, Lq, Lk, Dqk, Dv, window, q_offset), as the CPU parity grid
 FLASH_CASES = [
     (1, 4, 4, 64, 64, 32, 32, None, 0),      # MHA
@@ -426,6 +489,60 @@ def test_flash_kernels_on_card(case, dtype, layout):
     dk_p, dv_p = tfa.flash_bwd_dkv_plain(q, k, v, do, lse_p, delta, **kw)
     _row_close(dk, dk_p, tol)
     _row_close(dv, dv_p, tol)
+
+
+# K4's tensor-core walk (csrc/flash_attention_fwd_tc.cuh: 128 query rows,
+# 64 keys a tile): Lq off the 128-row query tile (200, 130, 257); the
+# causal diagonal cutting key tiles mid-way (a query offset of 36 or
+# 120); a window (alone and with an offset); GQA and MQA at the path's
+# head dims; rows that attend no key at all (window 8 behind an offset
+# of 100 over 32 keys: out 0, lse -2^30).
+FLASH_TC_CASES = [
+    (1, 4, 4, 200, 200, 192, 128, None, 0),
+    (1, 2, 2, 100, 136, 64, 64, None, 36),
+    (1, 2, 2, 130, 250, 128, 128, None, 120),
+    (1, 4, 2, 257, 257, 192, 128, 100, 0),
+    (1, 4, 4, 200, 330, 64, 48, 70, 130),
+    (2, 8, 2, 190, 190, 192, 128, None, 0),
+    (1, 8, 1, 129, 129, 256, 256, None, 0),
+    (1, 2, 2, 64, 32, 32, 32, 8, 100),
+]
+
+
+@pytest.mark.parametrize("layout", ["bhld", "blhd"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", FLASH_TC_CASES)
+def test_flash_fwd_tc_route_boundaries_on_card(case, dtype, layout):
+    """K4 at the tensor-core walk's boundaries: bf16 runs the walk
+    (``last_plan`` route 'tc', 128 x 64 tiles), f32 the WMMA kernel; out
+    held row by row against the plain version, lse within 1e-4 (rows that
+    attend no key: exactly -2^30)."""
+    dev = _cuda()
+    B, H, Hkv, Lq, Lk, D, Dv, window, q_offset = case
+    g = torch.Generator(device=dev)
+    g.manual_seed(Lq + Lk)
+
+    def rn(b, h, n, d):
+        if layout == "bhld":
+            return torch.randn((b, h, n, d), generator=g, device=dev).to(dtype)
+        return torch.randn((b, n, h, d), generator=g, device=dev).to(
+            dtype).transpose(1, 2)
+
+    q, k, v = rn(B, H, Lq, D), rn(B, Hkv, Lk, D), rn(B, Hkv, Lk, Dv)
+    kw = dict(causal=True, window=window, q_offset=q_offset, scale=D ** -0.5)
+    out, lse = tfa.flash_fwd_kernel(q, k, v, **kw)
+    torch.cuda.synchronize()
+    plan = tfa.flash_fwd_kernel.last_plan
+    if dtype == torch.bfloat16:
+        assert plan == dict(route="tc", tiles=(128, 64),
+                            grid=(-(-Lq // 128), B * H)), plan
+    else:
+        assert plan["route"] == "wmma", plan
+    out_p, lse_p = tfa.flash_fwd_plain(q, k, v, **kw)
+    _row_close(out, out_p, FLASH_ROW_TOL[dtype])
+    _close(lse, lse_p, 1e-4)
+    if window is not None and Lk <= q_offset - window:   # no key seen
+        assert (out == 0).all() and (lse == tfa.NEG_INF).all()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
