@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Planted faults in the two tensor-core routes, on one CUDA card:
+"""Planted faults in the tensor-core routes, on one CUDA card:
 
     python3 chip_faults.py
 
@@ -8,8 +8,9 @@ For each fault, copies ``src/``, ``tests/`` and the two chip scripts into
 the copy's kernel source, and runs there, each in a subprocess:
 
   * ``chip_faults.py --read``: what the bf16 checks of ``chip_smoke.py``
-    read on that tree, row by row (``row_rel``) — K4 at its tensor-core
-    walk's edges (``FLASH_TC_EDGES``, both layouts) and at the training
+    read on that tree, row by row (``row_rel``) — K4, K5 and K6 at their
+    tensor-core walks' edges (``FLASH_TC_EDGES``, both layouts; the
+    backward given the plain forward's lse and delta) and at the training
     path's shapes; K2 at its tile-edge rows (``EDGE_LENGTHS``, bf16 /
     int8 / fp8 pools, fitted and pool-wide tables, both rescales) and at
     phase 2's load, with the elementwise verdict;
@@ -19,6 +20,9 @@ Then the same readings of this tree, the sound one.  The faults:
 
   * ``k4_diagonal``: each CTA of K4's walk drops its last key tile, the
     one the causal diagonal cuts;
+  * ``k5_diagonal``: the same in K5's walk (dQ);
+  * ``k6_head_loop``: K6's walk skips the last of the G query heads of
+    its key head, so only the GQA / MQA cases can show it;
   * ``k2_tile_edge``: a K2 row whose limit (lengths[b] + c) ends a
     64-position tile loses that last position.
 
@@ -40,6 +44,15 @@ FAULTS = {
         "  const int n_tiles = k_hi > k_lo ? (k_hi - 1) / kKeys - t0 + 1 : 0;",
         "  const int n_tiles = max(1, (k_hi > k_lo ? (k_hi - 1) / kKeys - t0"
         " + 1 : 0) - (mk.causal ? 1 : 0));"),
+    "k5_diagonal": (
+        "flash_attention_bwd_tc.cuh",
+        "  const int n_kt = k_hi > k_lo ? (k_hi - 1) / kKeys - t0 + 1 : 0;",
+        "  const int n_kt = max(1, (k_hi > k_lo ? (k_hi - 1) / kKeys - t0 + 1"
+        " : 0) - (mk.causal ? 1 : 0));"),
+    "k6_head_loop": (
+        "flash_attention_bwd_tc.cuh",
+        "  const int n_total = a.G * nqt;",
+        "  const int n_total = (a.G > 1 ? a.G - 1 : 1) * nqt;"),
     "k2_tile_edge": (
         "mla_prefill_paged.cu",
         "  const int n_pos = c < n_valid[b] ? min(lengths[b] + c + 1, nb * bs)"
@@ -51,8 +64,8 @@ FAULTS = {
 
 
 def read() -> int:
-    """The readings of this tree's K4 and K2 checks; returns the number
-    that exceed their bounds."""
+    """The readings of this tree's K4, K5, K6 and K2 checks; returns the
+    number that exceed their bounds."""
     sys.path[:0] = [os.getcwd(), os.path.join(os.getcwd(), "src")]
     import torch
 
@@ -71,30 +84,42 @@ def read() -> int:
               f"{rel:.3g} (bound {bound}){extra}", flush=True)
 
     tol = cs.FLASH_ROW_TOL["bfloat16"]
-    worst = lse_worst = 0.0
+    names = {"flash_attention_fwd": "K4", "flash_attention_bwd_dq": "K5",
+             "flash_attention_bwd_dkv": "K6"}
+    worst, lse_worst, finite = {}, 0.0, True
     for i, case in enumerate(cs.FLASH_TC_EDGES):
         for blhd in (False, True):
-            q, k, v, _ = cs.flash_case_inputs(torch, case, torch.bfloat16,
-                                              50 + i, blhd)
-            kw = dict(causal=True, window=case[7], q_offset=case[8],
-                      scale=case[5] ** -0.5)
-            out, lse = fa.flash_fwd_kernel(q, k, v, **kw)
-            out_p, lse_p = fa.flash_fwd_plain(q, k, v, **kw)
-            worst = max(worst, cs.row_rel(torch, out, out_p))
-            lse_worst = max(lse_worst, (lse - lse_p).abs().max().item())
-    report(f"K4 at its walk's edges ({len(cs.FLASH_TC_EDGES)} cases x 2 "
-           f"layouts)", worst, tol, f", lse {lse_worst:.3g} (bound "
-           f"{cs.LSE_ATOL})")
-    bad += not lse_worst <= cs.LSE_ATOL
+            errs, lse_err, fin = cs.flash_tc_edge_errors(torch, fa, case,
+                                                         50 + i, blhd)
+            worst = {k_: max(worst.get(k_, 0.0), e) for k_, e in errs.items()}
+            lse_worst, finite = max(lse_worst, lse_err), finite and fin
+    for name, err in worst.items():
+        report(f"{names[name]} at its walk's edges ({len(cs.FLASH_TC_EDGES)} "
+               f"cases x 2 layouts)", err, tol,
+               f", lse {lse_worst:.3g} (bound {cs.LSE_ATOL})"
+               if name == "flash_attention_fwd" else
+               f", gradients finite: {finite}")
+    bad += not (lse_worst <= cs.LSE_ATOL and finite)
     path = (cs.TB, cs.TH, cs.TH, cs.TL, cs.TL, cs.TDQK, cs.TDV, None, 0)
-    q, k, v, _ = cs.flash_case_inputs(torch, path, torch.bfloat16, 99,
-                                      blhd=True)
+    q, k, v, do = cs.flash_case_inputs(torch, path, torch.bfloat16, 99,
+                                       blhd=True)
     kw = dict(causal=True, window=None, q_offset=0, scale=cs.TDQK ** -0.5)
     out, lse = fa.flash_fwd_kernel(q, k, v, **kw)
     out_p, lse_p = fa.flash_fwd_plain(q, k, v, **kw)
     report("K4 at the training path's shapes", cs.row_rel(torch, out, out_p),
            tol, f", lse {(lse - lse_p).abs().max().item():.3g}")
-    del q, k, v, out, lse, out_p, lse_p
+    delta = (do.float() * out_p.float()).sum(-1).contiguous()
+    del out, lse, out_p
+    got = fa.flash_bwd_dq_kernel(q, k, v, do, lse_p, delta, **kw)
+    want = fa.flash_bwd_dq_plain(q, k, v, do, lse_p, delta, **kw)
+    report("K5 at the training path's shapes", cs.row_rel(torch, got, want),
+           tol)
+    del got, want
+    got = fa.flash_bwd_dkv_kernel(q, k, v, do, lse_p, delta, **kw)
+    want = fa.flash_bwd_dkv_plain(q, k, v, do, lse_p, delta, **kw)
+    report("K6 at the training path's shapes (dK, dV)",
+           max(cs.row_rel(torch, a, b) for a, b in zip(got, want)), tol)
+    del q, k, v, do, lse_p, delta, got, want
     torch.cuda.empty_cache()
 
     kern = mla_prefill.mla_prefill_paged_kernel

@@ -7,7 +7,7 @@ one CUDA card:
     python3 chip_profile.py fp8           # paged serving, fp8 pool
     python3 chip_profile.py contiguous    # contiguous serving
     python3 chip_profile.py train         # training
-    python3 chip_profile.py flash         # K4's time, by ablation
+    python3 chip_profile.py flash         # K4-K6's time, by ablation
 
 Builds the same model (DeepSeek-V2 widths, 4 layers, random bf16 weights,
 the config's MoE capacity) and the same 8 requests, then serves them twice
@@ -36,17 +36,19 @@ time by kernel.
 
 Every mode ends with the port's kernels summed by name
 (``KERNEL_GROUPS``): MLA decode (K1 / K3) and MLA prefill (K2), each with
-its combine kernel, and the flash forward (K4) by route.
+its combine kernel, and the flash forward (K4), dQ (K5) and dK,dV (K6)
+by route.
 
-``flash`` (``python3 chip_profile.py flash``) asks where K4's own time
-goes at the training path's shapes (bf16 q/k (2,128,4096,192), v
-(...,128), causal, (B, L, H, D) views): it builds patched copies of its
-tensor-core walk (``FLASH_ABLATIONS``: one part removed, or one design
-choice undone, each) into ``build/ablate/`` (listed in ``.gitignore``),
-one ``nvcc`` each, all at once, and times each beside the sound walk, in
-turns, twice, with CUDA events (device time, the L2 flushed, a device
-sleep first, as ``chip_smoke.time_ms``).  The copies compute wrong
-results on purpose; only their times are read.
+``flash`` (``python3 chip_profile.py flash``) asks where the own time of
+K4, K5 and K6 goes at the training path's shapes (bf16 q/k
+(2,128,4096,192), v (...,128), causal, (B, L, H, D) views): it builds
+patched copies of their tensor-core walks (``FLASH_ABLATIONS``: one part
+removed, or one design choice undone, each) into ``build/ablate/``
+(listed in ``.gitignore``), one ``nvcc`` each, all at once, and times
+each beside its sound walk, in turns, twice, with CUDA events (device
+time, the L2 flushed, a device sleep first, as ``chip_smoke.time_ms``).
+The copies compute wrong results on purpose; only their times are
+read.
 """
 from __future__ import annotations
 
@@ -72,11 +74,21 @@ KERNEL_GROUPS = (
     ("flash forward, tensor-core walk",
      re.compile(r"fa::tc::fwd_tc_kernel\b")),
     ("flash forward, WMMA", re.compile(r"fa::fwd_kernel\b")),
+    # K5 / K6 (csrc/flash_attention_bwd_{dq,dkv}.cu,
+    # csrc/flash_attention_bwd_tc.cuh): the tensor-core walks (bf16) and
+    # the WMMA kernels
+    ("flash backward dQ, tensor-core walk",
+     re.compile(r"fa::tcb::dq_tc_kernel\b")),
+    ("flash backward dQ, WMMA", re.compile(r"fa::dq_kernel\b")),
+    ("flash backward dK,dV, tensor-core walk",
+     re.compile(r"fa::tcb::dkv_tc_kernel\b")),
+    ("flash backward dK,dV, WMMA", re.compile(r"fa::dkv_kernel\b")),
 )
 
 
-# (name, [(text of csrc/flash_attention_fwd_tc.cuh, its replacement)])
-FLASH_ABLATIONS = [
+# K4's walk: (name, [(text of csrc/flash_attention_fwd_tc.cuh, its
+# replacement)])
+FWD_ABLATIONS = [
     ("sound", []),
     ("no exp2f", [("exp2f(fmaf(s[mt][n][e], scale2, -ms[e >> 1]))",
                    "(fmaf(s[mt][n][e], scale2, -ms[e >> 1]))")]),
@@ -109,7 +121,70 @@ FLASH_ABLATIONS = [
     ("16 rows a warp (8 warps)",
      [("if (a.Dqk <= 192) return launch_fwd<2, 12, 16>(a, B, stream);",
        "if (a.Dqk <= 192) return launch_fwd<1, 12, 16>(a, B, stream);")]),
+    ("a row address once a copy", [("copy_tile<", "copy_tile_rows<")]),
 ]
+
+# K5's and K6's walks: (name, [(text of csrc/flash_attention_bwd_tc.cuh,
+# its replacement)]); both walks live in that header, so an edit may touch
+# the other walk too, which is not timed.  An edit of three strings names
+# the file it edits first.
+DQ_ABLATIONS = [
+    ("sound", []),
+    ("no exp2f", [("exp2f(fmaf(s[n][2 * i + e], c, -lse2[i]))",
+                   "(fmaf(s[n][2 * i + e], c, -lse2[i]))"),
+                  ("exp2f(fmaf(s[n][e], c, -lse2[e >> 1]))",
+                   "(fmaf(s[n][e], c, -lse2[e >> 1]))")]),
+    ("no masking", [("    if (edge) {\n#pragma unroll\n      for (int i = 0;",
+                     "    if (false) {\n#pragma unroll\n      for (int i = 0;")]),
+    ("no S product", [("        mma(s[2 * np], af, bfr[0], bfr[1]);\n"
+                       "        mma(s[2 * np + 1], af, bfr[2], bfr[3]);",
+                       "")]),
+    ("no dP product", [("        mma(dp[2 * np], af, bfr[0], bfr[1]);\n"
+                        "        mma(dp[2 * np + 1], af, bfr[2], bfr[3]);",
+                        "")]),
+    ("no dQ product", [("          mma(dq[2 * np], pa, bfr[0], bfr[1]);\n"
+                        "          mma(dq[2 * np + 1], pa, bfr[2], bfr[3]);",
+                        "")]),
+    ("no K / V copies", [("  auto copy_kv = [&](int t) {\n",
+                          "  auto copy_kv = [&](int t) {\n    return;\n")]),
+    ("score loops unrolled by two",
+     [("#pragma unroll\n    for (int kk", "#pragma unroll 2\n    for (int kk")]),
+    ("a row address per 64 columns", [("copy_tile_rows<", "copy_tile<")]),
+]
+DKV_ABLATIONS = [
+    ("sound", []),
+    ("no exp2f", [("ok ? exp2f(fmaf(s[n][e], c, -lse_s[j] * kLog2e)) : 0.0f",
+                   "ok ? (fmaf(s[n][e], c, -lse_s[j] * kLog2e)) : 0.0f")]),
+    ("no masking", [("      const bool edge =\n", "      const bool edge = false &&\n")]),
+    ("no phase-1 products",
+     [("          mma(s[2 * np], af, bfr[0], bfr[1]);\n"
+       "          mma(s[2 * np + 1], af, bfr[2], bfr[3]);", ""),
+      ("          mma(dp[2 * np], af, bfr[0], bfr[1]);\n"
+       "          mma(dp[2 * np + 1], af, bfr[2], bfr[3]);", "")]),
+    ("no phase-2 products",
+     [("            mma(dv[mt][2 * np], pa[mt], bfr[0], bfr[1]);\n"
+       "            mma(dv[mt][2 * np + 1], pa[mt], bfr[2], bfr[3]);", ""),
+      ("            mma(dk[mt][2 * np], da[mt], bfr[0], bfr[1]);\n"
+       "            mma(dk[mt][2 * np + 1], da[mt], bfr[2], bfr[3]);", "")]),
+    ("no Q / dO copies", [("  auto copy_q = [&](int t) {\n",
+                           "  auto copy_q = [&](int t) {\n    return;\n")]),
+    ("no barrier between the phases",
+     [("    __syncthreads();        // the P^T and dS^T tiles are whole\n",
+       "")]),
+    ("phase-1 loops unrolled by two",
+     [("#pragma unroll\n      for (int kk", "#pragma unroll 2\n      for (int kk")]),
+    ("a row address per 64 columns", [("copy_tile_rows<", "copy_tile<")]),
+]
+# library: (header edited, its variants)
+FLASH_ABLATIONS = {
+    "flash_attention_fwd": ("flash_attention_fwd_tc.cuh", FWD_ABLATIONS),
+    "flash_attention_bwd_dq": ("flash_attention_bwd_tc.cuh", DQ_ABLATIONS),
+    "flash_attention_bwd_dkv": ("flash_attention_bwd_tc.cuh", DKV_ABLATIONS),
+}
+# the instantiation each library runs at the training path's shapes
+PATH_KERNELS = {"flash_attention_fwd": "fwd_tc_kernelILi2ELi12ELi16E",
+                "flash_attention_bwd_dq": "dq_tc_kernelILi8ELi12ELi8E",
+                "flash_attention_bwd_dkv": "dkv_tc_kernelILi12ELi8E"}
 
 
 def flash_ablation() -> int:
@@ -125,73 +200,94 @@ def flash_ablation() -> int:
 
     print(f"[card] {cs.card_line()}", flush=True)
     csrc = os.path.join(HERE, "src", "repro_torch", "kernels", "csrc")
-    header = "flash_attention_fwd_tc.cuh"
     procs = []
     try:
-        for i, (name, edits) in enumerate(FLASH_ABLATIONS):
-            root = os.path.join(HERE, "build", "ablate", str(i))
-            shutil.rmtree(root, ignore_errors=True)
-            shutil.copytree(csrc, root)
-            with open(os.path.join(root, header)) as fh:
-                text = fh.read()
-            for old, new in edits:
-                if old not in text:
-                    raise AssertionError(f"{name}: {old[:40]!r} not in "
-                                         f"{header}")
-                text = text.replace(old, new)
-            with open(os.path.join(root, header), "w") as fh:
-                fh.write(text)
-            lib = os.path.join(root, "lib.so")
-            procs.append((name, lib, subprocess.Popen(
-                [build.nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o", lib,
-                 os.path.join(root, "flash_attention_fwd.cu")],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-        fns = {}
-        for name, lib, proc in procs:
+        for lib_name, (header, variants) in FLASH_ABLATIONS.items():
+            for i, (name, edits) in enumerate(variants):
+                root = os.path.join(HERE, "build", "ablate", lib_name, str(i))
+                shutil.rmtree(root, ignore_errors=True)
+                shutil.copytree(csrc, root)
+                for edit in edits:
+                    src, old, new = ((header,) + edit)[-3:]
+                    with open(os.path.join(root, src)) as fh:
+                        text = fh.read()
+                    if old not in text:
+                        raise AssertionError(f"{lib_name} {name}: "
+                                             f"{old[:40]!r} not in {src}")
+                    with open(os.path.join(root, src), "w") as fh:
+                        fh.write(text.replace(old, new))
+                lib = os.path.join(root, "lib.so")
+                procs.append((lib_name, name, lib, subprocess.Popen(
+                    [build.nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+                     lib, os.path.join(root, f"{lib_name}.cu")],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)))
+        fns = {lib_name: {} for lib_name in FLASH_ABLATIONS}
+        for lib_name, name, lib, proc in procs:
             log, _ = proc.communicate()
             if proc.returncode != 0:
-                raise RuntimeError(f"{name}: nvcc failed\n{log[-3000:]}")
-            # ptxas reports the path's instantiation <2, 12, 16> (or <1, ..>)
-            regs = [ln.split("ptxas info    : ")[-1] for ln in log.splitlines()
-                    if "Used" in ln and "registers" in ln]
-            fn = ctypes.CDLL(lib).flash_attention_fwd
-            fn.argtypes = build.SIGNATURES["flash_attention_fwd"]
+                raise RuntimeError(f"{lib_name} {name}: nvcc failed\n"
+                                   f"{log[-3000:]}")
+            # ptxas reports every instantiation: keep the path's
+            lines = log.splitlines()
+            at = [i for i, ln in enumerate(lines)
+                  if "Compiling entry function" in ln
+                  and PATH_KERNELS[lib_name] in ln]
+            report = " ".join(ln.split("ptxas info    : ")[-1].strip()
+                              for i in at[:1] for ln in lines[i + 2:i + 4])
+            fn = getattr(ctypes.CDLL(lib), lib_name)
+            fn.argtypes = build.SIGNATURES[lib_name]
             fn.restype = ctypes.c_int
-            fns[name] = fn
-            print(f"[build] {name}: {len(regs)} kernels, registers "
-                  f"{sorted(set(r.split(',')[0] for r in regs))}", flush=True)
+            fns[lib_name][name] = fn
+            print(f"[build] {lib_name} {name}: {report}", flush=True)
     finally:
-        for _, _, proc in procs:
+        for *_, proc in procs:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
     path = (cs.TB, cs.TH, cs.TH, cs.TL, cs.TL, cs.TDQK, cs.TDV, None, 0)
-    q, k, v, _ = cs.flash_case_inputs(torch, path, torch.bfloat16, 5,
-                                      blhd=True)
-    out = fa._empty_like_layout(q, (cs.TB, cs.TH, cs.TL, cs.TDV))
-    lse = torch.empty((cs.TB, cs.TH, cs.TL), dtype=torch.float32,
-                      device="cuda")
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    q, k, v, do = cs.flash_case_inputs(torch, path, torch.bfloat16, 5,
+                                       blhd=True)
     scale = cs.TDQK ** -0.5
+    out, lse = fa.flash_fwd_kernel(q, k, v, causal=True, scale=scale)
+    delta = (do.float() * out.float()).sum(-1).contiguous()
+    dq, dk, dv = (fa._empty_like_layout(t, t.shape) for t in (q, k, v))
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    dims = lambda *plan: fa._dims(q, k, v, True, None, 0, (q, k, v, do), 1,
+                                  *plan)
+    args = {   # each library's C arguments on the route 'tc'
+        "flash_attention_fwd": (
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), fa._strides(q, k, v, out),
+            fa._dims(q, k, v, True, None, 0, (q, k, v), 1, 0, 0)),
+        "flash_attention_bwd_dq": (
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            fa._strides(q, k, v, do, dq), dims(128, 64)),
+        "flash_attention_bwd_dkv": (
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            fa._strides(q, k, v, do, dk, dv), dims(64, 64)),
+    }
 
-    def run(fn):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 lse.data_ptr(), fa._strides(q, k, v, out),
-                 fa._dims(q, k, v, True, None, 0, (q, k, v), 1, 0, 0), scale,
-                 fa._stream(q))
+    def run(lib_name, fn):
+        err = fn(*args[lib_name], scale, fa._stream(q))
         if err:
-            raise RuntimeError(f"launch failed: cudaError_t {err}")
+            raise RuntimeError(f"{lib_name}: launch failed: cudaError_t "
+                               f"{err}")
 
-    times = {name: [] for name in fns}
-    for _ in range(2):
-        for name, fn in fns.items():
-            times[name].append(cs.time_ms(torch, lambda: run(fn), flush,
-                                          reps=5))
-    base = min(times["sound"])
-    for name, ts in times.items():
-        print(f"[ablate] {name}: {', '.join(f'{t:.3f}' for t in ts)} ms "
-              f"(best {min(ts) - base:+.3f} ms against the sound walk)",
-              flush=True)
+    for lib_name, variants in fns.items():
+        times = {name: [] for name in variants}
+        for _ in range(2):
+            for name, fn in variants.items():
+                times[name].append(cs.time_ms(
+                    torch, lambda: run(lib_name, fn), flush, reps=5))
+        base = min(times["sound"])
+        for name, ts in times.items():
+            print(f"[ablate] {lib_name} {name}: "
+                  f"{', '.join(f'{t:.3f}' for t in ts)} ms (best "
+                  f"{min(ts) - base:+.3f} ms against the sound walk)",
+                  flush=True)
     return 0
 
 

@@ -26,8 +26,9 @@ Phases, each printing its own lines; any failure exits non-zero:
      fp8 pools) against its plain walk and ``ref.mla_prefill_split_ref``;
      bf16 K4 on its tensor-core walk (a query tile edge, the causal
      diagonal cutting a key tile, a window, a query offset, GQA / MQA,
-     rows that attend no key); every bf16 K1 / K2 / K3 / K4 launch must
-     have taken its tensor-core route (``last_plan``); the
+     rows that attend no key) and bf16 K5 / K6 on theirs at the same
+     cases (finite gradients); every bf16 K1 - K6 launch must have taken
+     its tensor-core route (``last_plan``); the
      flash-attention kernels K4 (forward), K5 (dQ) and K6 (dK/dV) in f32
      and bf16 at small
      shapes (GQA, MQA, windows, a query offset, ragged lengths, Dqk != Dv
@@ -35,10 +36,10 @@ Phases, each printing its own lines; any failure exits non-zero:
      Dqk=192, Dv=128, causal, (B, L, H, D) tensors passed as transposed
      views), each output held row by row; each kernel's time beside its plain
      version's, the PyTorch library call's (SDPA) and its bound, the
-     fraction of the bound reached and, for K1 - K4, the plan (route,
-     split count or tiles, grid) their wrappers recorded at launch, their
-     times and SDPA's also without the device sleep (the wrapper's host
-     work included), and bf16 K1 on a table as wide as the pool;
+     fraction of the bound reached and the plan (route, split count or
+     tiles, grid) each wrapper recorded at launch, their times and SDPA's
+     also without the device sleep (the wrapper's host work included),
+     and bf16 K1 on a table as wide as the pool;
   3. paged serving at full width — DeepSeek-V2 (d_model 5120, 128 heads,
      160 experts top-6 at the config's capacity factor, vocab 102400)
      cut to 4 layers, random bf16 weights on the card; a short warm-up
@@ -66,8 +67,8 @@ Phases, each printing its own lines; any failure exits non-zero:
      moments, batch 2 x 4096 tokens, the config's MoE capacity, through
      ``make_train_step`` with ``impl='kernel'``: one warm-up step, then
      timed steps (tokens/s, ms/step, each step's loss, peak memory) with
-     K4/K5/K6 launch counts checked against layers x steps and K4 on its
-     tensor-core walk; then the
+     K4/K5/K6 launch counts checked against layers x steps and each on
+     its tensor-core walk; then the
      MLA call site's attention (the flash Function) in bf16 at the path's
      shapes against the dense oracle under autograd, out and the q/k/v
      gradients each as a whole;
@@ -79,7 +80,7 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 The line before the last is the kernel table as JSON (``launches`` sums
 the main paths that ran a kernel, ``launches_by_path`` splits them;
-``plan`` is the plan K1 - K4's wrappers recorded at the timed launch); the
+``plan`` is the plan each wrapper recorded at the timed launch); the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or outside a checkout of the repository, it exits non-zero and prints no
 result.
@@ -346,8 +347,8 @@ def hold_paged(torch, cases, label):
 def launched_plan(kern) -> dict:
     """The plan ``kern`` recorded at its last launch; with bf16 operands
     it must be the tensor-core route's: a split plan (K1, K2, K3;
-    ``n_split`` 0 is ``attend_rows``) or route 'tc' (K4; 'wmma' is the
-    WMMA kernel)."""
+    ``n_split`` 0 is ``attend_rows``) or route 'tc' (K4, K5, K6; 'wmma'
+    is the WMMA kernel)."""
     plan = dict(kern.last_plan, grid=list(kern.last_plan["grid"]))
     if plan.get("route", "tc") != "tc" or plan.get("n_split", 1) <= 0:
         raise AssertionError(f"{kern.__name__} ran bf16 off its tensor-core "
@@ -802,8 +803,10 @@ def check_flash(torch):
     for dtype_name in ("float32", "bfloat16"):
         errs[dtype_name] = flash_compare(torch, fa, path, dtype_name, 99,
                                          blhd=True)
-        if dtype_name == "bfloat16":      # the forward's tensor-core walk
-            launched_plan(fa.flash_fwd_kernel)
+        if dtype_name == "bfloat16":      # the tensor-core walks
+            for kern in (fa.flash_fwd_kernel, fa.flash_bwd_dq_kernel,
+                         fa.flash_bwd_dkv_kernel):
+                launched_plan(kern)
         log(f"[flash] path shapes q/k ({TB},{TH},{TL},{TDQK}), v "
             f"(...,{TDV}), causal, {dtype_name}: max |kernel - plain|, "
             f"largest per-row relative error: "
@@ -830,14 +833,17 @@ def check_flash(torch):
         "flash_attention_bwd_dkv": (2 * qk_b + 2 * v_b + 2 * rows_b + qk_b
                                     + v_b, 2 * (2 * TDQK + 2 * TDV) * pairs),
     }
-    calls = {
+    calls = {   # name: (wrapper, its call, the plain version's call)
         "flash_attention_fwd": (
+            fa.flash_fwd_kernel,
             lambda: fa.flash_fwd_kernel(q, k, v, **kw),
             lambda: fa.flash_fwd_plain(q, k, v, **kw)),
         "flash_attention_bwd_dq": (
+            fa.flash_bwd_dq_kernel,
             lambda: fa.flash_bwd_dq_kernel(q, k, v, do, lse, delta, **kw),
             lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, **kw)),
         "flash_attention_bwd_dkv": (
+            fa.flash_bwd_dkv_kernel,
             lambda: fa.flash_bwd_dkv_kernel(q, k, v, do, lse, delta, **kw),
             lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, **kw)),
     }
@@ -845,44 +851,44 @@ def check_flash(torch):
     lib = {"flash_attention_fwd": time_ms(torch, sdpa_fwd, flush, reps=5)}
     lib["flash_attention_bwd_dq"] = lib["flash_attention_bwd_dkv"] = \
         time_ms(torch, sdpa_bwd, flush, reps=5)
+    lib_host = {"flash_attention_fwd": time_ms(torch, sdpa_fwd, flush,
+                                               reps=5, sleep=False)}
+    lib_host["flash_attention_bwd_dq"] = \
+        lib_host["flash_attention_bwd_dkv"] = time_ms(torch, sdpa_bwd, flush,
+                                                      reps=5, sleep=False)
     log(f"[flash] SDPA at the path's shapes runs on {backend}; its "
         f"backward computes dQ, dK and dV in one call, so K5's and K6's "
         f"library time is that one call")
     rows = {}
-    for name, (kern, plain) in calls.items():
+    for name, (wrapper, kern, plain) in calls.items():
         n_bytes, n_ops = work[name]
         t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
         t_ops = n_ops / PEAK_OPS["bfloat16"] * 1e3
-        rows[name] = dict(
+        rows[name] = r = dict(
             max_abs_err=errs["bfloat16"][name][0],
-            ms=time_ms(torch, kern, flush, reps=5),
-            plain_ms=time_ms(torch, plain, flush, reps=3),
-            bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=lib[name])
-        r = rows[name]
-        fwd = name == "flash_attention_fwd"
-        if fwd:
-            r.update(plan=launched_plan(fa.flash_fwd_kernel),
-                     ms_with_host=time_ms(torch, kern, flush, reps=5,
-                                          sleep=False),
-                     library_ms_with_host=time_ms(torch, sdpa_fwd, flush,
-                                                  reps=5, sleep=False))
+            ms=time_ms(torch, kern, flush, reps=5))
+        r.update(plan=launched_plan(wrapper),
+                 ms_with_host=time_ms(torch, kern, flush, reps=5,
+                                      sleep=False),
+                 plain_ms=time_ms(torch, plain, flush, reps=3),
+                 bound_ms=max(t_bytes, t_ops),
+                 bound_by="bytes" if t_bytes >= t_ops else "operations",
+                 library_ms=lib[name], library_ms_with_host=lib_host[name])
         log(f"[flash] {name} bf16 time {r['ms']:.3f} ms, plain "
             f"{r['plain_ms']:.3f} ms, SDPA {r['library_ms']:.3f} ms, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}: {n_bytes / 1e9:.3f} "
             f"GB, {n_ops / 1e12:.3f} TFLOP; {r['bound_ms'] / r['ms']:.4f} "
-            f"of it reached)"
-            + (f", {plan_text(r['plan'])}; {host_text(r)}" if fwd else ""))
+            f"of it reached), {plan_text(r['plan'])}; {host_text(r)}")
     del q, k, v, do, out, lse, delta, flush
     torch.cuda.empty_cache()
     return rows
 
 
-# K4's tensor-core walk at its boundaries, bf16, (B, H, Hkv, Lq, Lk, Dqk,
-# Dv, window, q_offset): Lq off the 128-row query tile; the causal
-# diagonal cutting 64-key tiles mid-way (offsets 36, 120); a window alone
-# and with an offset; GQA at the path's head dims and MQA; rows that
+# The tensor-core walks of K4, K5 and K6 at their boundaries, bf16, (B,
+# H, Hkv, Lq, Lk, Dqk, Dv, window, q_offset): Lq off the 128-row query
+# tile and the 64-query tile; the causal diagonal cutting 64-key tiles
+# mid-way (offsets 36, 120); a window alone and with an offset; GQA at
+# the path's head dims and MQA (K6's loop over query heads); rows that
 # attend no key (window 8 behind an offset of 100 over 32 keys).
 FLASH_TC_EDGES = [(1, 4, 4, 200, 200, 192, 128, None, 0),
                   (1, 2, 2, 100, 136, 64, 64, None, 36),
@@ -894,37 +900,61 @@ FLASH_TC_EDGES = [(1, 4, 4, 200, 200, 192, 128, None, 0),
                   (1, 2, 2, 64, 32, 32, 32, 8, 100)]
 
 
+def flash_tc_edge_errors(torch, fa, case, seed, blhd):
+    """K4, K5 and K6 in bf16 on one ``FLASH_TC_EDGES`` case against their
+    plain versions (the backward given the plain forward's lse and
+    delta): the largest per-row relative error of each kernel's outputs,
+    K4's lse error, and whether every gradient is finite."""
+    q, k, v, do = flash_case_inputs(torch, case, torch.bfloat16, seed, blhd)
+    _, _, _, _, _, D, _, window, q_offset = case
+    kw = dict(causal=True, window=window, q_offset=q_offset,
+              scale=D ** -0.5)
+    out, lse = fa.flash_fwd_kernel(q, k, v, **kw)
+    out_p, lse_p = fa.flash_fwd_plain(q, k, v, **kw)
+    delta = (do.float() * out_p.float()).sum(-1).contiguous()
+    dq = fa.flash_bwd_dq_kernel(q, k, v, do, lse_p, delta, **kw)
+    dk, dv = fa.flash_bwd_dkv_kernel(q, k, v, do, lse_p, delta, **kw)
+    torch.cuda.synchronize()
+    dq_p = fa.flash_bwd_dq_plain(q, k, v, do, lse_p, delta, **kw)
+    dk_p, dv_p = fa.flash_bwd_dkv_plain(q, k, v, do, lse_p, delta, **kw)
+    errs = {"flash_attention_fwd": row_rel(torch, out, out_p),
+            "flash_attention_bwd_dq": row_rel(torch, dq, dq_p),
+            "flash_attention_bwd_dkv": max(row_rel(torch, dk, dk_p),
+                                           row_rel(torch, dv, dv_p))}
+    finite = all(bool(torch.isfinite(x).all()) for x in (dq, dk, dv))
+    return errs, (lse - lse_p).abs().max().item(), finite
+
+
 def check_flash_tc_edges(torch):
-    """bf16 K4 at the tensor-core walk's boundaries (``FLASH_TC_EDGES``),
-    both layouts: each launch on route 'tc', out held row by row
-    (``FLASH_ROW_TOL``) and lse within ``LSE_ATOL`` against the plain
-    version."""
+    """bf16 K4, K5 and K6 at their tensor-core walks' boundaries
+    (``FLASH_TC_EDGES``), both layouts: each launch on route 'tc', every
+    output held row by row (``FLASH_ROW_TOL``), lse within ``LSE_ATOL``
+    and every gradient finite, against the plain versions."""
     from repro_torch.kernels import flash_attention as fa
 
-    worst = lse_worst = 0.0
+    tol = FLASH_ROW_TOL["bfloat16"]
+    worst, lse_worst = {}, 0.0
     for i, case in enumerate(FLASH_TC_EDGES):
         for blhd in (False, True):
-            q, k, v, _ = flash_case_inputs(torch, case, torch.bfloat16,
-                                           50 + i, blhd)
-            _, _, _, _, _, D, _, window, q_offset = case
-            kw = dict(causal=True, window=window, q_offset=q_offset,
-                      scale=D ** -0.5)
-            out, lse = fa.flash_fwd_kernel(q, k, v, **kw)
-            torch.cuda.synchronize()
-            launched_plan(fa.flash_fwd_kernel)
-            out_p, lse_p = fa.flash_fwd_plain(q, k, v, **kw)
-            err = row_rel(torch, out, out_p)
-            lse_err = (lse - lse_p).abs().max().item()
-            if not (err <= FLASH_ROW_TOL["bfloat16"] and lse_err <= LSE_ATOL):
+            errs, lse_err, finite = flash_tc_edge_errors(torch, fa, case,
+                                                         50 + i, blhd)
+            for kern in (fa.flash_fwd_kernel, fa.flash_bwd_dq_kernel,
+                         fa.flash_bwd_dkv_kernel):
+                launched_plan(kern)
+            if not (max(errs.values()) <= tol and lse_err <= LSE_ATOL
+                    and finite):
                 raise AssertionError(
-                    f"flash_attention_fwd bf16 {case} blhd={blhd}: a row's "
-                    f"|kernel - plain| / |plain| {err:.3g}, lse {lse_err:.3g}")
-            worst, lse_worst = max(worst, err), max(lse_worst, lse_err)
-    log(f"[flash] tensor-core walk at its edges, {len(FLASH_TC_EDGES)} "
+                    f"flash attention bf16 {case} blhd={blhd}: largest "
+                    f"per-row |kernel - plain| / |plain| {errs}, lse "
+                    f"{lse_err:.3g}, gradients finite: {finite}")
+            worst = {k_: max(worst.get(k_, 0.0), e) for k_, e in errs.items()}
+            lse_worst = max(lse_worst, lse_err)
+    log(f"[flash] tensor-core walks at their edges, {len(FLASH_TC_EDGES)} "
         f"cases x 2 layouts, bf16, every launch on route 'tc': largest "
-        f"per-row |kernel - plain| / |plain| {worst:.3g} (bound "
-        f"{FLASH_ROW_TOL['bfloat16']}), lse {lse_worst:.3g} (within "
-        f"{LSE_ATOL})")
+        f"per-row |kernel - plain| / |plain| "
+        + ", ".join(f"{k_} {e:.3g}" for k_, e in worst.items())
+        + f" (bound {tol}), lse {lse_worst:.3g} (within {LSE_ATOL}), "
+        f"gradients finite")
 
 
 # K2's tensor-core walk at its boundaries, the path's widths (8 requests,
@@ -1484,7 +1514,9 @@ def train_full_width(torch):
     want = {k_: TRAIN_LAYERS * timed for k_ in launches}
     if launches != want:
         raise AssertionError(f"kernel launches {launches} != {want}")
-    launched_plan(fa.flash_fwd_kernel)    # bf16: the tensor-core walk
+    for kern in (fa.flash_fwd_kernel, fa.flash_bwd_dq_kernel,
+                 fa.flash_bwd_dkv_kernel):    # bf16: the tensor-core walks
+        launched_plan(kern)
     del params, opt, step, m
     gc.collect()
     torch.cuda.empty_cache()
@@ -1713,10 +1745,10 @@ def main() -> int:
                                     "src/repro/kernels/flash_attention.py:76"),
             "flash_attention_bwd_dq": (
                 csrc + "flash_attention_bwd_dq.cu",
-                "src/repro/kernels/flash_attention.py:212"),
+                "src/repro/kernels/flash_attention.py:233"),
             "flash_attention_bwd_dkv": (
                 csrc + "flash_attention_bwd_dkv.cu",
-                "src/repro/kernels/flash_attention.py:212")}
+                "src/repro/kernels/flash_attention.py:253")}
     kernels = []
     for name, (src, replaces) in meta.items():
         paths = {p: n[name] for p, n in by_path.items() if name in n}

@@ -200,9 +200,10 @@ def prefill_plan(q_full, Dl: int, Dr: int, nb: int, bs: int,
     return rows_plan(B, C * H)
 
 
-# flash attention forward (K4): the tensor-core walk of
-# csrc/flash_attention_fwd_tc.cuh and the WMMA kernel's tile choice
-# (csrc/flash_common.cuh choose_tiles, csrc/flash_attention_fwd.cu fwd_smem)
+# flash attention (K4, K5, K6): the forward's tensor-core walk
+# (csrc/flash_attention_fwd_tc.cuh) and the WMMA kernels' tile choice
+# (csrc/flash_common.cuh choose_tiles, fwd_smem / dq_smem / dkv_smem of
+# csrc/flash_attention_{fwd,bwd_dq,bwd_dkv}.cu)
 FLASH_TC_ROWS = 128    # kRowsQ: query rows a CTA
 FLASH_TC_KEYS = 64     # kKeys: keys a staged tile
 FLASH_TC_MAX_D = 256   # kMaxD
@@ -212,6 +213,16 @@ SMEM_TWO_PER_SM = 113 * 1024
 SMEM_MAX = 232448
 
 
+def _flash_tc_takes(q, v, scale: float, tensors) -> bool:
+    Dqk, Dv = q.shape[-1], v.shape[-1]
+    return (q.dtype == torch.bfloat16 and scale > 0
+            and Dqk % 16 == 0 and Dv % 16 == 0
+            and Dqk <= FLASH_TC_MAX_D and Dv <= FLASH_TC_MAX_D
+            and all(t.data_ptr() % 16 == 0
+                    and all(s % 8 == 0 for s in t.stride()[:3])
+                    for t in tensors))
+
+
 def flash_fwd_tc_takes(q, k, v, out, scale: float) -> bool:
     """Whether a K4 call runs the tensor-core walk: bf16, Dqk and Dv
     multiples of 16 up to FLASH_TC_MAX_D, every operand 16-byte aligned
@@ -219,13 +230,15 @@ def flash_fwd_tc_takes(q, k, v, out, scale: float) -> bool:
     copies move 16 bytes), and a positive softmax scale (the walk takes
     the row max of the unscaled scores).  Anything else the checks admit
     (f32 above all) runs the WMMA kernel."""
-    Dqk, Dv = q.shape[-1], v.shape[-1]
-    return (q.dtype == torch.bfloat16 and scale > 0
-            and Dqk % 16 == 0 and Dv % 16 == 0
-            and Dqk <= FLASH_TC_MAX_D and Dv <= FLASH_TC_MAX_D
-            and all(t.data_ptr() % 16 == 0
-                    and all(s % 8 == 0 for s in t.stride()[:3])
-                    for t in (q, k, v, out)))
+    return _flash_tc_takes(q, v, scale, (q, k, v, out))
+
+
+def flash_bwd_tc_takes(q, k, v, do, outs, scale: float) -> bool:
+    """Whether a K5 / K6 call runs its tensor-core walk
+    (csrc/flash_attention_bwd_tc.cuh): what ``flash_fwd_tc_takes`` asks,
+    of q, k, v, dO and the gradients ``outs``; a positive scale keeps
+    exp2(s scale log2(e) - lse log2(e)) one FFMA."""
+    return _flash_tc_takes(q, v, scale, (q, k, v, do) + tuple(outs))
 
 
 def _round16(x: int) -> int:
@@ -236,24 +249,52 @@ def _bytes(n: int, size: int) -> int:
     return -(-n * size // 128) * 128
 
 
+def _tile(es: int, rows: int, cols: int) -> int:
+    """Bytes of a (rows x cols) tile of ``es``-byte elements in a WMMA
+    kernel's shared memory: rows padded by 16 bytes, arrays rounded to
+    128 bytes (csrc/flash_common.cuh ``ld_of``, ``bytes_of``)."""
+    return _bytes(rows * (_round16(cols) + 16 // es), es)
+
+
+def _f32_tile(rows: int, cols: int) -> int:
+    """The same for an f32 tile (``ldf_of``: rows padded by 4 floats)."""
+    return _bytes(rows * (_round16(cols) + 4), 4)
+
+
 def flash_fwd_smem(es: int, bq: int, bk: int, Dqk: int, Dv: int) -> int:
     """Shared memory of a WMMA forward CTA (``fwd_smem`` of
     csrc/flash_attention_fwd.cu) for elements of ``es`` bytes."""
-    ld = lambda cols: _round16(cols) + 16 // es
-    ldf = lambda cols: _round16(cols) + 4
-    return (_bytes(bq * ld(Dqk), es) + _bytes(bk * ld(Dqk), es)
-            + _bytes(bk * ld(Dv), es) + _bytes(bq * ldf(bk), 4)
-            + _bytes(bq * ld(bk), es) + _bytes(bq * ldf(Dv), 4)
+    return (_tile(es, bq, Dqk) + _tile(es, bk, Dqk) + _tile(es, bk, Dv)
+            + _f32_tile(bq, bk) + _tile(es, bq, bk) + _f32_tile(bq, Dv)
             + 3 * _bytes(bq, 4))
 
 
-def flash_wmma_tiles(es: int, Dqk: int, Dv: int) -> Tuple[int, int]:
-    """(bq, bk) of the WMMA forward: the first candidate whose shared
-    memory fits two CTAs on an SM, else the first that fits one
-    (``choose_tiles``; the kernel refuses any other pick)."""
+def flash_dq_smem(es: int, bq: int, bk: int, Dqk: int, Dv: int) -> int:
+    """Shared memory of a WMMA K5 CTA (``dq_smem`` of
+    csrc/flash_attention_bwd_dq.cu)."""
+    return (_tile(es, bq, Dqk) + _tile(es, bq, Dv) + _tile(es, bk, Dqk)
+            + _tile(es, bk, Dv) + 2 * _f32_tile(bq, bk) + _tile(es, bq, bk)
+            + _f32_tile(bq, Dqk) + 2 * _bytes(bq, 4))
+
+
+def flash_dkv_smem(es: int, bq: int, bk: int, Dqk: int, Dv: int) -> int:
+    """Shared memory of a WMMA K6 CTA (``dkv_smem`` of
+    csrc/flash_attention_bwd_dkv.cu)."""
+    return (_tile(es, bk, Dqk) + _tile(es, bk, Dv) + _f32_tile(bk, Dqk)
+            + _f32_tile(bk, Dv) + _tile(es, bq, Dqk) + _tile(es, bq, Dv)
+            + 2 * _f32_tile(bq, bk) + 2 * _tile(es, bq, bk)
+            + 2 * _bytes(bq, 4))
+
+
+def flash_wmma_tiles(es: int, Dqk: int, Dv: int,
+                     smem=flash_fwd_smem) -> Tuple[int, int]:
+    """(bq, bk) of a WMMA flash kernel whose shared memory ``smem`` gives
+    (the forward's by default; ``flash_dq_smem``, ``flash_dkv_smem``):
+    the first candidate that fits two CTAs on an SM, else the first that
+    fits one (``choose_tiles``; the kernels refuse any other pick)."""
     for limit in (SMEM_TWO_PER_SM, SMEM_MAX):
         for bq, bk in FLASH_TILES:
-            if flash_fwd_smem(es, bq, bk, Dqk, Dv) <= limit:
+            if smem(es, bq, bk, Dqk, Dv) <= limit:
                 return bq, bk
     raise ValueError(f"no WMMA tile fits head dims {Dqk}, {Dv}")
 
@@ -269,6 +310,124 @@ def flash_fwd_plan(q, k, v, out, scale: float) -> dict:
         route = "wmma"
         tiles = flash_wmma_tiles(q.element_size(), Dqk, v.shape[-1])
     return dict(route=route, tiles=tiles, grid=(-(-Lq // tiles[0]), B * H))
+
+
+# flash attention backward (K5, K6): the tensor-core walks of
+# csrc/flash_attention_bwd_tc.cuh
+FLASH_BWD_KEYS = 64      # kKeys: K5's staged key tile, K6's keys a CTA
+FLASH_BWD_QUERIES = 64   # kQueries: K6's staged query tile
+
+
+def flash_dq_tc_rows(Dqk: int, Dv: int) -> int:
+    """Query rows of a K5 CTA on the walk (``dq_rows``): 128, or 64 where
+    the staged tiles of 128 rows would not fit shared memory."""
+    return 128 if Dqk <= 192 and Dv <= 128 else 64
+
+
+def flash_bwd_plan(kind: str, q, k, v, do, outs, scale: float) -> dict:
+    """The launch plan of a K5 (``kind`` 'dq') or K6 ('dkv') call:
+    ``route`` 'tc' (the tensor-core walk, ``flash_bwd_tc_takes``) or
+    'wmma', the tiles (query rows, keys) and the grid: K5 (ceil(Lq /
+    rows), B x H), K6 (ceil(Lk / keys), B x Hkv)."""
+    B, H, Lq, Dqk = q.shape
+    Hkv, Lk, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    if flash_bwd_tc_takes(q, k, v, do, outs, scale):
+        route = "tc"
+        tiles = ((flash_dq_tc_rows(Dqk, Dv), FLASH_BWD_KEYS) if kind == "dq"
+                 else (FLASH_BWD_QUERIES, FLASH_BWD_KEYS))
+    else:
+        route = "wmma"
+        tiles = flash_wmma_tiles(q.element_size(), Dqk, Dv,
+                                 flash_dq_smem if kind == "dq"
+                                 else flash_dkv_smem)
+    grid = ((-(-Lq // tiles[0]), B * H) if kind == "dq"
+            else (-(-Lk // tiles[1]), B * Hkv))
+    return dict(route=route, tiles=tiles, grid=grid)
+
+
+def _key_range(q0, q1, Lk, causal, window, q_offset):
+    """csrc/flash_common.cuh ``Mask::key_range``."""
+    lo, hi = 0, Lk
+    if causal:
+        hi = min(hi, q_offset + q1)
+    if window is not None:
+        lo = max(lo, q_offset + q0 - window + 1)
+    return lo, max(hi, lo)
+
+
+def _query_range(k0, k1, Lq, causal, window, q_offset):
+    """csrc/flash_common.cuh ``Mask::query_range``."""
+    lo, hi = 0, Lq
+    if causal:
+        lo = max(lo, k0 - q_offset)
+    if window is not None:
+        hi = min(hi, k1 - 1 + window - q_offset)
+    return lo, max(hi, lo)
+
+
+def flash_dq_walk(Lq: int, Lk: int, *, causal: bool, window: Optional[int],
+                  q_offset: int, rows: int):
+    """K5's walk as ``dq_tc_kernel`` takes it, for the CPU tests: yields
+    (r0, k0, cls) for every 16-row warp block r0 of every CTA (``rows``
+    query rows) and every 64-key tile k0 the CTA visits; ``cls`` is
+    'skip' (the warp leaves the tile alone), 'interior' (no pair is
+    masked) or 'edge' (pairs are masked one by one).  Tiles a CTA does
+    not visit are not yielded."""
+    kk = FLASH_BWD_KEYS
+    for q0 in range(0, Lq, rows):
+        k_lo, k_hi = _key_range(q0, min(q0 + rows, Lq), Lk, causal, window,
+                                q_offset)
+        t0 = k_lo // kk
+        n_kt = (k_hi - 1) // kk - t0 + 1 if k_hi > k_lo else 0
+        for r0 in range(q0, q0 + rows, 16):
+            w_lo, w_hi = (_key_range(r0, min(r0 + 16, Lq), Lk, causal,
+                                     window, q_offset) if r0 < Lq
+                          else (0, 0))
+            for t in range(n_kt):
+                k0 = (t0 + t) * kk
+                if not (w_hi > w_lo and k0 < w_hi and k0 + kk > w_lo):
+                    cls = "skip"
+                elif (k0 + kk > Lk
+                      or (causal and k0 + kk - 1 > q_offset + r0)
+                      or (window is not None
+                          and k0 <= q_offset + r0 + 15 - window)):
+                    cls = "edge"
+                else:
+                    cls = "interior"
+                yield r0, k0, cls
+
+
+def flash_dkv_walk(Lq: int, Lk: int, *, causal: bool,
+                   window: Optional[int], q_offset: int):
+    """K6's walk as ``dkv_tc_kernel`` takes it (for one query head; every
+    head walks the same tiles), for the CPU tests: yields (k0, q0, kb0,
+    qb0, cls) for every 64-key CTA k0, every 64-query tile q0 it visits
+    and every (16 keys kb0 x 32 queries qb0) phase-1 block of it; ``cls``
+    as in ``flash_dq_walk``."""
+    kk, kq = FLASH_BWD_KEYS, FLASH_BWD_QUERIES
+    for k0 in range(0, Lk, kk):
+        q_lo, q_hi = _query_range(k0, min(k0 + kk, Lk), Lq, causal, window,
+                                  q_offset)
+        qt0 = q_lo // kq
+        nqt = (q_hi - 1) // kq - qt0 + 1 if q_hi > q_lo else 0
+        for t in range(nqt):
+            q0 = (qt0 + t) * kq
+            for kb0 in range(k0, k0 + kk, 16):
+                b_lo, b_hi = (_query_range(kb0, min(kb0 + 16, Lk), Lq,
+                                           causal, window, q_offset)
+                              if kb0 < Lk else (0, 0))
+                for qb0 in (q0, q0 + 32):
+                    if not (kb0 < Lk and qb0 < Lq and qb0 < b_hi
+                            and qb0 + 32 > b_lo):
+                        cls = "skip"
+                    elif (kb0 + 16 > Lk or qb0 + 32 > Lq
+                          or (causal and kb0 + 15 > q_offset + qb0)
+                          or (window is not None
+                              and kb0 <= q_offset + qb0 + 31 - window)):
+                        cls = "edge"
+                    else:
+                        cls = "interior"
+                    yield k0, q0, kb0, qb0, cls
 
 
 def tc_workspace(q_full, B: int, H: int, Dl: int, n_split: int):

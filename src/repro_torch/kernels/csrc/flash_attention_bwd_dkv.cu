@@ -16,16 +16,27 @@
 //
 // What the design does about it.  One CTA owns a tile of keys of one
 // (batch, key head) and loops over the G query heads and all query tiles
-// inside it, skipping tiles the mask removes wholly, so dK and dV
-// accumulate in f32 in shared memory and are written once: no atomics,
-// no second pass.  (The Pallas grid did the same with its sequential
-// (g, q-block) axes.)  The four products run on the tensor cores (bf16
-// WMMA, f32 accumulation; P and dS are rounded to bf16 for the
-// accumulating products).  Strided (B, heads, L, D) operands, as the
-// forward.
+// inside it, skipping tiles the mask removes wholly, so dK and dV are
+// written once: no atomics, no second pass.  (The Pallas grid did the
+// same with its sequential (g, q-block) axes.)  Two routes, picked by
+// the wrapper's plan (repro_torch/kernels/_launch.py, flash_bwd_plan)
+// and passed in dims[13]:
+//   * the tensor-core walk dkv_tc_kernel of flash_attention_bwd_tc.cuh
+//     (bf16, head dims multiples of 16 up to 256, 16-byte aligned
+//     operands): 64 keys a CTA, 64-query tiles double-buffered with
+//     cp.async, mma.sync with the scores in registers, P^T and dS^T once
+//     through shared memory in bf16, dK and dV in registers.  The
+//     training path runs it;
+//   * the WMMA kernel below for everything else (f32 above all): the
+//     four products on WMMA (bf16) or f32 FMAs, with S, dP, P, dS and the
+//     dK / dV accumulators in shared memory.  Its tiles come from the
+//     plan (dims[14], [15]) and must be the ones choose_tiles picks.
+// P and dS are rounded to bf16 only for the accumulating products on
+// both bf16 routes.  Strided (B, heads, L, D) operands, as the forward.
 //
 // Built by repro_torch/kernels/build.py into a shared library with a plain
 // C interface, called through ctypes by repro_torch/kernels/flash_attention.py.
+#include "flash_attention_bwd_tc.cuh"
 #include "flash_common.cuh"
 
 namespace fa {
@@ -148,11 +159,15 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(const DkvArgs a) {
   }
 }
 
+// Launch the WMMA kernel with the planned tiles (a.bq, a.bk), which must
+// be choose_tiles' pick.
 template <typename T>
 int launch(DkvArgs a, int B, cudaStream_t stream) {
   size_t smem;
-  if (!choose_tiles([&](int bq, int bk) {
-        return dkv_smem<T>(bq, bk, a.Dqk, a.Dv); }, &a.bq, &a.bk, &smem))
+  int bq, bk;
+  if (!choose_tiles([&](int bq_, int bk_) {
+        return dkv_smem<T>(bq_, bk_, a.Dqk, a.Dv); }, &bq, &bk, &smem) ||
+      bq != a.bq || bk != a.bk)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       dkv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -165,7 +180,9 @@ int launch(DkvArgs a, int B, cudaStream_t stream) {
 }  // namespace fa
 
 // strides: 18 element strides, (B, heads, L) of q, k, v, dout, dk, dv.
-// dims: as flash_attention_fwd.  lse and delta: (B, H, Lq) f32, contiguous.
+// dims: as flash_attention_bwd_dq (route in dims[13], the plan's tiles,
+//       query rows and keys, in dims[14], [15]).  lse and delta:
+//       (B, H, Lq) f32, contiguous.
 // Returns the cudaError_t of the launch (0 = success).
 extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        const void* v, const void* dout,
@@ -200,6 +217,37 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
   a.vec = dims[12] != 0;
   a.mask = fa::Mask{dims[3], dims[4], dims[7], dims[8], dims[9], dims[10]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  a.bq = dims[14];
+  a.bk = dims[15];
+  if (dims[13] == 1) {
+    if (dims[11] != 1 || !a.vec || !(scale > 0.0f) ||
+        a.bq != fa::tcb::kQueries || a.bk != fa::tcb::kKeys)
+      return (int)cudaErrorInvalidValue;
+    fa::tcb::Args t{};
+    t.q = static_cast<const __nv_bfloat16*>(q);
+    t.k = static_cast<const __nv_bfloat16*>(k);
+    t.v = static_cast<const __nv_bfloat16*>(v);
+    t.dout = static_cast<const __nv_bfloat16*>(dout);
+    t.lse = a.lse;
+    t.delta = a.delta;
+    t.dk = static_cast<__nv_bfloat16*>(dk);
+    t.dv = static_cast<__nv_bfloat16*>(dv);
+    for (int i = 0; i < 3; ++i) {
+      t.qs[i] = a.qs[i];
+      t.ks[i] = a.ks[i];
+      t.vs[i] = a.vs[i];
+      t.dos[i] = a.dos[i];
+      t.dks[i] = a.dks[i];
+      t.dvs[i] = a.dvs[i];
+    }
+    t.H = dims[1];
+    t.G = a.G;
+    t.Dqk = a.Dqk;
+    t.Dv = a.Dv;
+    t.scale = scale;
+    t.mask = a.mask;
+    return (int)fa::tcb::launch_dkv(t, B, s);
+  }
   if (dims[11] == 0) return fa::launch<float>(a, B, s);
   if (dims[11] == 1) return fa::launch<__nv_bfloat16>(a, B, s);
   return (int)cudaErrorInvalidValue;

@@ -18,13 +18,23 @@
 // What the design does about it.  One CTA owns a tile of query rows of
 // one (batch, head) and loops over the key tiles inside it (the Pallas
 // grid's sequential key axis becomes this loop), skipping tiles the mask
-// removes wholly; dQ accumulates in f32 in shared memory, so the CTA
-// writes it once and needs no atomics.  The three products run on the
-// tensor cores (bf16 WMMA, f32 accumulation; dS is rounded to bf16 for
-// the last one).  Strided (B, heads, L, D) operands, as the forward.
+// removes wholly, so the CTA writes dQ once and needs no atomics.  Two
+// routes, picked by the wrapper's plan (repro_torch/kernels/_launch.py,
+// flash_bwd_plan) and passed in dims[13]:
+//   * the tensor-core walk dq_tc_kernel of flash_attention_bwd_tc.cuh
+//     (bf16, head dims multiples of 16 up to 256, 16-byte aligned
+//     operands): 128 query rows a CTA (64 for wide head dims), mma.sync
+//     with S, dP, dS and dQ in registers, K and V double-buffered with
+//     cp.async.  The training path runs it;
+//   * the WMMA kernel below for everything else (f32 above all): the
+//     three products on WMMA (bf16) or f32 FMAs, with S, dP, dS and the
+//     dQ accumulator in shared memory.  Its tiles come from the plan
+//     (dims[14], [15]) and must be the ones choose_tiles picks.
+// Strided (B, heads, L, D) operands, as the forward.
 //
 // Built by repro_torch/kernels/build.py into a shared library with a plain
 // C interface, called through ctypes by repro_torch/kernels/flash_attention.py.
+#include "flash_attention_bwd_tc.cuh"
 #include "flash_common.cuh"
 
 namespace fa {
@@ -123,11 +133,15 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const DqArgs a) {
   }
 }
 
+// Launch the WMMA kernel with the planned tiles (a.bq, a.bk), which must
+// be choose_tiles' pick.
 template <typename T>
 int launch(DqArgs a, int B, cudaStream_t stream) {
   size_t smem;
-  if (!choose_tiles([&](int bq, int bk) {
-        return dq_smem<T>(bq, bk, a.Dqk, a.Dv); }, &a.bq, &a.bk, &smem))
+  int bq, bk;
+  if (!choose_tiles([&](int bq_, int bk_) {
+        return dq_smem<T>(bq_, bk_, a.Dqk, a.Dv); }, &bq, &bk, &smem) ||
+      bq != a.bq || bk != a.bk)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       dq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -140,7 +154,10 @@ int launch(DqArgs a, int B, cudaStream_t stream) {
 }  // namespace fa
 
 // strides: 15 element strides, (B, heads, L) of q, k, v, dout, dq.
-// dims: as flash_attention_fwd.  lse and delta: (B, H, Lq) f32, contiguous.
+// dims: as flash_attention_fwd: B, H, Hkv, Lq, Lk, Dqk, Dv, causal,
+//       has_window, window, q_offset, dtype, vec, route (1 = the
+//       tensor-core walk, 0 = WMMA) and the plan's tiles (query rows,
+//       keys).  lse and delta: (B, H, Lq) f32, contiguous.
 // Returns the cudaError_t of the launch (0 = success).
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       const void* v, const void* dout,
@@ -172,6 +189,34 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
   a.vec = dims[12] != 0;
   a.mask = fa::Mask{dims[3], dims[4], dims[7], dims[8], dims[9], dims[10]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  a.bq = dims[14];
+  a.bk = dims[15];
+  if (dims[13] == 1) {
+    if (dims[11] != 1 || !a.vec || !(scale > 0.0f) || a.bk != fa::tcb::kKeys)
+      return (int)cudaErrorInvalidValue;
+    fa::tcb::Args t{};
+    t.q = static_cast<const __nv_bfloat16*>(q);
+    t.k = static_cast<const __nv_bfloat16*>(k);
+    t.v = static_cast<const __nv_bfloat16*>(v);
+    t.dout = static_cast<const __nv_bfloat16*>(dout);
+    t.lse = a.lse;
+    t.delta = a.delta;
+    t.dq = static_cast<__nv_bfloat16*>(dq);
+    for (int i = 0; i < 3; ++i) {
+      t.qs[i] = a.qs[i];
+      t.ks[i] = a.ks[i];
+      t.vs[i] = a.vs[i];
+      t.dos[i] = a.dos[i];
+      t.dqs[i] = a.dqs[i];
+    }
+    t.H = a.H;
+    t.G = a.G;
+    t.Dqk = a.Dqk;
+    t.Dv = a.Dv;
+    t.scale = scale;
+    t.mask = a.mask;
+    return (int)fa::tcb::launch_dq(t, B, a.bq, s);
+  }
   if (dims[11] == 0) return fa::launch<float>(a, B, s);
   if (dims[11] == 1) return fa::launch<__nv_bfloat16>(a, B, s);
   return (int)cudaErrorInvalidValue;

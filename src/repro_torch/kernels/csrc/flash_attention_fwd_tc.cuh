@@ -58,7 +58,7 @@
 namespace fa {
 namespace tc {
 
-using namespace ::hopper;   // swz, cp16, ldsm4, ldsm4_t, mma, opt_in_smem
+using namespace ::hopper;   // swz, copy_tile, ldsm4(_t), mma, pack_bf16, ...
 using bf16 = __nv_bfloat16;
 
 constexpr int kRowsQ = 128;              // query rows a CTA
@@ -99,31 +99,6 @@ struct Args {
   float scale;
   Mask mask;
 };
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&p);
-}
-
-// Copy a (kTileRows x D) bf16 tile at src (row stride `stride` elements)
-// into the swizzled buffer dst of row stride Ds with the CTA's kThreads
-// threads; rows past n_valid are zero-filled.  Chunks go in groups of 8
-// (64 columns), so a thread's row and chunk are shifts, not divisions.
-template <int kTileRows, int kThreads>
-__device__ __forceinline__ void copy_tile(bf16* dst, int Ds,
-                                          const bf16* src, long long stride,
-                                          int n_valid, int D) {
-  for (int c0 = 0; c0 < D; c0 += 64) {
-#pragma unroll
-    for (int i = threadIdx.x; i < kTileRows * 8; i += kThreads) {
-      const int j = i >> 3, col = c0 + ((i & 7) << 3);
-      if (col < D) {
-        const bool ok = j < n_valid;
-        cp16(dst + swz(j, col, Ds), ok ? src + j * stride + col : src, ok);
-      }
-    }
-  }
-}
 
 // kMT: 16-row blocks a warp owns (the CTA's 128 rows take 8 / kMT warps);
 // kQK: 16-deep steps of the score product (Dqk <= 16 kQK); kVT: 8-column

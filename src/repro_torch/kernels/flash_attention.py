@@ -14,12 +14,14 @@ Three CUDA kernels carry it (``csrc/flash_attention_fwd.cu``,
 ``flash_attention_bwd_dq.cu``, ``flash_attention_bwd_dkv.cu``), each
 behind a wrapper here that checks its operands, launches it on the
 current stream, raises on a nonzero ``cudaError_t`` and counts the launch
-(``flash_fwd_kernel.launches`` and so on).  The forward has two routes
-(``_launch.flash_fwd_plan``): bf16 with head dims that are multiples of
-16 up to 256 and aligned operands (the training and prefill paths) runs
-the tensor-core walk ``csrc/flash_attention_fwd_tc.cuh``, everything else
-the WMMA kernel; ``flash_fwd_kernel.last_plan`` is the plan of the last
-launch (route, tiles, grid).  Beside each is its plain
+(``flash_fwd_kernel.launches`` and so on).  Each kernel has two routes
+(``_launch.flash_fwd_plan``, ``flash_bwd_plan``): bf16 with head dims
+that are multiples of 16 up to 256 and aligned operands (the training
+and prefill paths) runs a tensor-core walk, ``csrc/flash_attention_fwd_tc.cuh``
+for the forward, ``csrc/flash_attention_bwd_tc.cuh`` for dQ and dK/dV;
+everything else the WMMA kernel; ``<wrapper>.last_plan`` is the plan of
+the last launch (route, tiles, grid).  ``flash_bwd_walk_ref`` models the
+backward walks on the CPU.  Beside each kernel is its plain
 blockwise PyTorch version (``*_plain``: the Pallas kernel's arithmetic,
 one key block at a time, in f32).  A wrapper runs the plain version only
 for CPU tensors; for CUDA tensors it launches the kernel or raises.
@@ -40,9 +42,12 @@ from typing import Optional, Tuple
 import torch
 
 from . import build
-from ._launch import DTYPE_CODES, flash_fwd_plan, raise_on_error
+from ._launch import (DTYPE_CODES, flash_bwd_plan, flash_dkv_walk,
+                      flash_dq_tc_rows, flash_dq_walk, flash_fwd_plan,
+                      raise_on_error)
 
 NEG_INF = -2.0 ** 30
+LOG2E = 1.4426950408889634
 MAX_D = 576          # the Pallas module's stated head-dim limit
 BLOCK_K = 128        # key block of the plain versions
 
@@ -148,6 +153,56 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, delta, *, causal: bool = True,
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
+def flash_bwd_walk_ref(q, k, v, do, lse, delta, *, causal: bool = True,
+                       window: Optional[int] = None, q_offset: int = 0,
+                       scale: float):
+    """The CPU model of K5's and K6's tensor-core walks
+    (csrc/flash_attention_bwd_tc.cuh), for the tests: (dQ, dK, dV) summed
+    over exactly the blocks the walks visit (``_launch.flash_dq_walk``,
+    ``flash_dkv_walk``), pairs masked only in 'edge' blocks, p = exp2(s c
+    - lse log2(e)) and dS in f32, rounded to q's dtype only as operands of
+    the accumulating products, which accumulate in f32."""
+    B, H, Lq, Dqk = q.shape
+    Hkv, Lk, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    G = H // Hkv
+    rnd = lambda x: x.to(q.dtype).float()
+    qg, dog = _grouped(q, Hkv), _grouped(do, Hkv)
+    kf, vf = k.float()[:, :, None], v.float()[:, :, None]
+    lse_g = lse.reshape(B, Hkv, G, Lq, 1) * LOG2E
+    dl_g = delta.reshape(B, Hkv, G, Lq, 1)
+    opts = dict(causal=causal, window=window, q_offset=q_offset)
+
+    def block(r0, r1, k0, k1, edge):
+        """p and dS of query rows [r0, r1) x keys [k0, k1)."""
+        s = qg[..., r0:r1, :] @ kf[..., k0:k1, :].transpose(-1, -2)
+        p = torch.exp2(s * (scale * LOG2E) - lse_g[..., r0:r1, :])
+        if edge:
+            mask = _mask(Lq, k0, k1 - k0, device=q.device, **opts)[r0:r1]
+            p = torch.where(mask, p, 0.0)
+        dp = dog[..., r0:r1, :] @ vf[..., k0:k1, :].transpose(-1, -2)
+        return p, p * (dp - dl_g[..., r0:r1, :]) * scale
+
+    dq = torch.zeros_like(qg)
+    for r0, k0, cls in flash_dq_walk(Lq, Lk, rows=flash_dq_tc_rows(Dqk, Dv),
+                                     **opts):
+        if cls != "skip" and r0 < Lq:
+            r1, k1 = min(r0 + 16, Lq), min(k0 + 64, Lk)
+            _, ds = block(r0, r1, k0, k1, cls == "edge")
+            dq[..., r0:r1, :] += rnd(ds) @ kf[..., k0:k1, :]
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    for _, _, kb0, qb0, cls in flash_dkv_walk(Lq, Lk, **opts):
+        if cls != "skip":
+            kb1, qb1 = min(kb0 + 16, Lk), min(qb0 + 32, Lq)
+            p, ds = block(qb0, qb1, kb0, kb1, cls == "edge")
+            dv[:, :, kb0:kb1] += (rnd(p).transpose(-1, -2)
+                                  @ dog[..., qb0:qb1, :]).sum(2)
+            dk[:, :, kb0:kb1] += (rnd(ds).transpose(-1, -2)
+                                  @ qg[..., qb0:qb1, :]).sum(2)
+    return (dq.to(q.dtype).reshape(B, H, Lq, Dqk), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
 # --------------------------------------------------------- CUDA wrappers ---
 
 
@@ -209,8 +264,8 @@ def _strides(*ts):
 
 
 def _dims(q, k, v, causal, window, q_offset, loads, *extra):
-    """The kernels' int arguments; the forward appends its plan's route
-    and WMMA tiles (``extra``)."""
+    """The kernels' int arguments; ``extra``: the plan's route (1 for
+    'tc') and tiles."""
     B, H, Lq, Dqk = q.shape
     Hkv, Lk, Dv = k.shape[1], k.shape[2], v.shape[-1]
     es = q.element_size()
@@ -271,14 +326,17 @@ def flash_bwd_dq_kernel(q, k, v, do, lse, delta, *, causal: bool = True,
     dq = _empty_like_layout(q, q.shape)
     if dq.numel() == 0:
         return dq
+    plan = flash_bwd_plan("dq", q, k, v, do, (dq,), scale)
     err = build.load("flash_attention_bwd_dq").flash_attention_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         _strides(q, k, v, do, dq),
-        _dims(q, k, v, causal, window, q_offset, (q, k, v, do)),
+        _dims(q, k, v, causal, window, q_offset, (q, k, v, do),
+              int(plan["route"] == "tc"), *plan["tiles"]),
         float(scale), _stream(q))
     raise_on_error(err, "flash_attention_bwd_dq")
     flash_bwd_dq_kernel.launches += 1
+    flash_bwd_dq_kernel.last_plan = plan
     return dq
 
 
@@ -302,21 +360,26 @@ def flash_bwd_dkv_kernel(q, k, v, do, lse, delta, *, causal: bool = True,
         return dk, dv
     if q.numel() == 0:               # no query attends: zero gradients
         return dk.zero_(), dv.zero_()
+    plan = flash_bwd_plan("dkv", q, k, v, do, (dk, dv), scale)
     err = build.load("flash_attention_bwd_dkv").flash_attention_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         _strides(q, k, v, do, dk, dv),
-        _dims(q, k, v, causal, window, q_offset, (q, k, v, do)),
+        _dims(q, k, v, causal, window, q_offset, (q, k, v, do),
+              int(plan["route"] == "tc"), *plan["tiles"]),
         float(scale), _stream(q))
     raise_on_error(err, "flash_attention_bwd_dkv")
     flash_bwd_dkv_kernel.launches += 1
+    flash_bwd_dkv_kernel.last_plan = plan
     return dk, dv
 
 
 flash_fwd_kernel.launches = 0
 flash_fwd_kernel.last_plan = None
 flash_bwd_dq_kernel.launches = 0
+flash_bwd_dq_kernel.last_plan = None
 flash_bwd_dkv_kernel.launches = 0
+flash_bwd_dkv_kernel.last_plan = None
 
 
 # ------------------------------------------------------- autograd Function -

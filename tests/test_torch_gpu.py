@@ -7,9 +7,11 @@ K2 and K3 run the tensor-core split walk (csrc/mla_decode_tc.cuh); its
 cases put indices around split boundaries and are also held against the
 walk's CPU models ``ref.mla_decode_split_ref`` and
 ``ref.mla_prefill_split_ref`` with the wrapper's plan.  bf16 K4 runs the
-tensor-core walk of csrc/flash_attention_fwd_tc.cuh; its cases put query
-tiles, the causal diagonal, windows and offsets across tile edges and
-check the route each launch recorded (``last_plan``).
+tensor-core walk of csrc/flash_attention_fwd_tc.cuh and bf16 K5 / K6 the
+walks of csrc/flash_attention_bwd_tc.cuh; their cases put query tiles,
+the causal diagonal, windows and offsets across tile edges, drive K6's
+loop over GQA / MQA query heads and check the route each launch recorded
+(``last_plan``).
 
 Every test here is marked ``gpu`` and skips without a CUDA device (the
 kernels have no CPU mode); on a machine with one:
@@ -543,6 +545,58 @@ def test_flash_fwd_tc_route_boundaries_on_card(case, dtype, layout):
     _close(lse, lse_p, 1e-4)
     if window is not None and Lk <= q_offset - window:   # no key seen
         assert (out == 0).all() and (lse == tfa.NEG_INF).all()
+
+
+@pytest.mark.parametrize("layout", ["bhld", "blhd"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", FLASH_TC_CASES)
+def test_flash_bwd_tc_route_boundaries_on_card(case, dtype, layout):
+    """K5 and K6 at their tensor-core walks' boundaries
+    (csrc/flash_attention_bwd_tc.cuh: 64-key tiles, 128 query rows a K5
+    CTA, 64 keys a K6 CTA walking 64-query tiles over the G query heads):
+    bf16 runs the walks (``last_plan`` route 'tc'), f32 the WMMA kernels;
+    dQ, dK and dV held row by row against the plain versions.  GQA (8 : 2)
+    and MQA (8 : 1) drive K6's head loop; rows that attend no key give
+    finite, exactly zero gradients."""
+    dev = _cuda()
+    B, H, Hkv, Lq, Lk, D, Dv, window, q_offset = case
+    g = torch.Generator(device=dev)
+    g.manual_seed(Lq + 2 * Lk)
+
+    def rn(b, h, n, d):
+        if layout == "bhld":
+            return torch.randn((b, h, n, d), generator=g, device=dev).to(dtype)
+        return torch.randn((b, n, h, d), generator=g, device=dev).to(
+            dtype).transpose(1, 2)
+
+    q, k, v, do = rn(B, H, Lq, D), rn(B, Hkv, Lk, D), rn(B, Hkv, Lk, Dv), \
+        rn(B, H, Lq, Dv)
+    kw = dict(causal=True, window=window, q_offset=q_offset, scale=D ** -0.5)
+    out_p, lse_p = tfa.flash_fwd_plain(q, k, v, **kw)
+    delta = (do.float() * out_p.float()).sum(-1).contiguous()
+    dq = tfa.flash_bwd_dq_kernel(q, k, v, do, lse_p, delta, **kw)
+    dk, dv = tfa.flash_bwd_dkv_kernel(q, k, v, do, lse_p, delta, **kw)
+    torch.cuda.synchronize()
+    plans = (tfa.flash_bwd_dq_kernel.last_plan,
+             tfa.flash_bwd_dkv_kernel.last_plan)
+    if dtype == torch.bfloat16:
+        rows = 128 if D <= 192 and Dv <= 128 else 64
+        assert plans == (
+            dict(route="tc", tiles=(rows, 64), grid=(-(-Lq // rows), B * H)),
+            dict(route="tc", tiles=(64, 64), grid=(-(-Lk // 64), B * Hkv))), \
+            plans
+    else:
+        assert [p["route"] for p in plans] == ["wmma", "wmma"], plans
+    tol = FLASH_ROW_TOL[dtype]
+    _row_close(dq, tfa.flash_bwd_dq_plain(q, k, v, do, lse_p, delta, **kw),
+               tol)
+    dk_p, dv_p = tfa.flash_bwd_dkv_plain(q, k, v, do, lse_p, delta, **kw)
+    _row_close(dk, dk_p, tol)
+    _row_close(dv, dv_p, tol)
+    for grad in (dq, dk, dv):
+        assert torch.isfinite(grad).all()
+        if window is not None and Lk <= q_offset - window:   # no key seen
+            assert (grad == 0).all()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
