@@ -76,7 +76,22 @@ Phases, each printing its own lines; any failure exits non-zero:
      reference path at 2 x 512 tokens (f32 with 2 layers at drop-free MoE
      capacity; bf16 with the dense first layer alone); then ``TrainLoop``
      with checkpoints, a failure and a resume at smoke size.
-     No full-width checkpoint is written (it would be 58 GB).
+     No full-width checkpoint is written (it would be 58 GB);
+  7. seeded sampling and telemetry at full width (run after phase 4, on
+     phase 3's model): (a) threefry2x32's Random123 known answers on the
+     card, a grid of fold(fold(PRNGKey(s), rid), pos) keys and their
+     bits bit for bit on the card and the CPU, the sampler (8 rows x
+     102,400 logits, temperature 0.7, top-k 0 and 50, 16 draws) on the
+     card against the CPU, a token allowed to differ only on a counted
+     near-tie row; (b) phase 3's requests, one forked n = 2, sampled at
+     temperature 0.7, top-k 50, seed 0, with ``Telemetry.on``: every
+     request finishes, the forks diverge, the trace validates, drift
+     covers every dispatched scheme, K1 / K2 launches = layers x ticks /
+     chunks, each on its tensor-core walk; (c) the same serve with
+     telemetry off, in turns with (b) (on, off, off, on): every
+     EngineStats counter equal, tokens/s of both and their ratio; (d)
+     the drift report, measured / predicted time per (kind x scheme x
+     batch bucket), priced on the ``h100`` point.
 
 The line before the last is the kernel table as JSON (``launches`` sums
 the main paths that ran a kernel, ``launches_by_path`` splits them;
@@ -1080,9 +1095,9 @@ def requests_full(cfg, np, Request, SamplingParams, gen: int):
 
 
 def full_width(torch, np):
-    """Phases 3 and 4, on one full-width model: paged serving on a bf16
-    and on an fp8 pool, then contiguous serving.  Returns the kernel
-    launch counts of each path."""
+    """Phases 3, 4 and 7, on one full-width model: paged serving on a
+    bf16 and on an fp8 pool, contiguous serving, then sampled serving
+    with telemetry.  Returns the kernel launch counts of each path."""
     from repro_torch import configs, models
     from repro_torch.nn import module as nnm
 
@@ -1110,6 +1125,7 @@ def full_width(torch, np):
         f"{sum(tps['fp8']) / sum(tps['bf16']):.3f}")
     by_path["serve_contiguous"] = serve_contiguous_full(torch, np, cfg,
                                                         params)
+    by_path.update(sampled_telemetry(torch, np, cfg, params))
     del params
     torch.cuda.empty_cache()
     return by_path
@@ -1356,6 +1372,264 @@ def _clone(pool):
 def _row_rel(torch, a, b):
     a, b = a.float(), b.float()
     return ((a - b).norm(dim=-1) / b.norm(dim=-1)).tolist()
+
+
+# ------------------------------------- phase 7: sampling and telemetry --
+
+# Random123's kat_vectors for threefry2x32_20: (key, counter, output)
+THREEFRY_KAT = [((0x00000000, 0x00000000), (0x00000000, 0x00000000),
+                 (0x6b200159, 0x99ba4efe)),
+                ((0xffffffff, 0xffffffff), (0xffffffff, 0xffffffff),
+                 (0x1cb996fc, 0xbb002be7)),
+                ((0x13198a2e, 0x03707344), (0x243f6a88, 0x85a308d3),
+                 (0xc4923a9c, 0x483df7a0))]
+SAMPLE_KW = dict(temperature=0.7, top_k=50, sample_seed=0)
+# the sampler on the card against the CPU: a token may differ only on a
+# row whose two best CPU scores lie within TIE_ULPS ulps of the larger
+# (the Gumbel noise's two logarithms may round differently on the two
+# devices, ~1 ulp, and the add rounds once more), and at most
+# TIE_DRAWS_MAX of the 8 x 16 draws of a setting may differ
+TIE_ULPS = 4
+TIE_DRAWS_MAX = 1
+
+
+def check_prng_on_card(torch):
+    """Phase 7(a): the Random123 known answers on the card; a grid of
+    fold(fold(PRNGKey(s), rid), pos) keys and their bits / uniforms bit
+    for bit on the card and the CPU; the sampler at full vocabulary on
+    the card against the CPU, with the counted tie allowance."""
+    from repro_torch.runtime import prng
+    from repro_torch.runtime.steps import sample_scores, sample_tokens
+
+    for key, ctr, want in THREEFRY_KAT:
+        words = [torch.tensor([v], dtype=torch.int64, device="cuda")
+                 for v in key + ctr]
+        got = tuple(int(w[0]) for w in prng.threefry2x32(*words))
+        if got != want:
+            raise AssertionError(f"threefry2x32 on the card: {got} != "
+                                 f"{want}")
+    rids = torch.arange(64).repeat_interleave(16)
+    poss = torch.arange(16).repeat(64) * 97 + 5
+    n_bits = 0
+    for seed in (0, 7, 2**32 - 1):
+        keys = {d: prng.fold_in(prng.fold_in(prng.PRNGKey(seed, d),
+                                             rids.to(d)), poss.to(d))
+                for d in ("cpu", "cuda")}
+        same = torch.equal(keys["cuda"].cpu(), keys["cpu"])
+        for shape in ((7,), (3, 1000)):
+            a = prng.uniform(keys["cuda"], shape).cpu()
+            b = prng.uniform(keys["cpu"], shape)
+            same &= torch.equal(a.view(torch.int32), b.view(torch.int32))
+            same &= torch.equal(prng.random_bits(keys["cuda"], shape).cpu(),
+                                prng.random_bits(keys["cpu"], shape))
+            n_bits += 2 * a.numel()
+        if not same:
+            raise AssertionError(f"prng keys / bits differ between the card "
+                                 f"and the CPU (seed {seed})")
+    log(f"[sample] threefry2x32 known answers on the card; keys, bits and "
+        f"uniforms of {len(rids)} (rid, pos) keys x 3 seeds ({n_bits} "
+        f"words) bit for bit on the card and the CPU")
+    g = torch.Generator().manual_seed(0)
+    logits = torch.randn((8, 102400), generator=g) * 4
+    for top_k in (0, 50):
+        kw = dict(SAMPLE_KW, top_k=top_k)
+        bad_rows = near = 0
+        for draw in range(16):
+            rids = torch.arange(8, dtype=torch.int64) * 3
+            poss = torch.full((8,), 100 + draw, dtype=torch.int64)
+            scores = sample_scores(logits, rids, poss, **kw)
+            want = torch.argmax(scores, dim=-1)
+            got = sample_tokens(logits.cuda(), rids.cuda(), poss.cuda(),
+                                **kw).cpu()
+            top = torch.topk(scores, 2, dim=-1).values
+            ulp = torch.finfo(torch.float32).eps \
+                * top[:, 0].abs().clamp_min(1.0)
+            tie = (top[:, 0] - top[:, 1]) <= TIE_ULPS * ulp
+            bad = got != want
+            if (bad & ~tie).any():
+                raise AssertionError(f"top_k {top_k} draw {draw}: the card "
+                                     f"sampled another token off a tie")
+            bad_rows += int(bad.sum())
+            near += int(tie.sum())
+        log(f"[sample] sampler, 8 rows x 102400 logits x 16 draws, "
+            f"temperature {kw['temperature']}, top_k {top_k}: {bad_rows} of "
+            f"128 tokens differ between the card and the CPU ({near} draws "
+            f"within {TIE_ULPS} ulps of a tie; allowed {TIE_DRAWS_MAX})")
+        if bad_rows > TIE_DRAWS_MAX:
+            raise AssertionError("too many sampled tokens differ")
+
+
+def requests_sampled(cfg, np, Request, SamplingParams, gen: int):
+    """Phase 3's 8 requests with the 256-token one forked n = 2; rids
+    are spaced by 2 (a fork child claims rid + 1)."""
+    base = requests_full(cfg, np, Request, SamplingParams, gen)
+    return [Request(rid=2 * i, prompt=r.prompt, arrival=r.arrival,
+                    sampling=SamplingParams(max_tokens=gen,
+                                            n=2 if i == 2 else 1))
+            for i, r in enumerate(base)]
+
+
+def every_launch_plan(torch, record):
+    """Wrap the paged kernels' wrappers where the model calls them
+    (``kernels.ops``) so that ``record[name]`` gets the plan of every
+    launch; returns a function that restores them."""
+    from repro_torch.kernels import ops
+
+    saved = {}
+    for name in ("mla_decode_paged_kernel", "mla_prefill_paged_kernel"):
+        real = saved[name] = getattr(ops, name)
+
+        def rec(*a, _real=real, _name=name, **k):
+            out = _real(*a, **k)
+            record.setdefault(_name, []).append(_real.last_plan)
+            return out
+        setattr(ops, name, rec)
+
+    def restore():
+        for name, real in saved.items():
+            setattr(ops, name, real)
+    return restore
+
+
+def serve_sampled(torch, np, cfg, params, telemetry):
+    """One sampled serve of ``requests_sampled`` (temperature 0.7, top-k
+    50, seed 0) on a bf16 pool through the kernels, with ``telemetry``
+    (or none).  Returns the engine, its summary and the launch counts,
+    checked against layers x ticks / chunks with every launch on the
+    tensor-core walk."""
+    from repro_torch.kernels import mla_decode, mla_prefill
+    from repro_torch.launch.serve import build_engine, serve_paged
+    from repro_torch.runtime import Request, SamplingParams
+
+    gen = 32
+    reqs = requests_sampled(cfg, np, Request, SamplingParams, gen)
+    engine = build_engine(
+        cfg, params, batch=len(reqs) + 1, n=2,
+        max_len=max(r.plen for r in reqs) + gen, gen=gen, block_size=BS,
+        impl="kernel", scheme="auto", platform="h100", prefill_chunk=C,
+        cache_dtype="bf16", compute_dtype=torch.bfloat16, device="cuda",
+        telemetry=telemetry, **SAMPLE_KW)
+    plans = {}
+    restore = every_launch_plan(torch, plans)
+    mla_decode.mla_decode_paged_kernel.launches = 0
+    mla_prefill.mla_prefill_paged_kernel.launches = 0
+    try:
+        summary = serve_paged(engine, reqs, log=lambda *_: None,
+                              log_every=0)
+    finally:
+        restore()
+    launches = {"mla_decode_paged": mla_decode.mla_decode_paged_kernel.launches,
+                "mla_prefill_paged":
+                    mla_prefill.mla_prefill_paged_kernel.launches}
+    ticks = sum(summary["schemes_used"].values())
+    want = {"mla_decode_paged": cfg.n_layers * ticks,
+            "mla_prefill_paged": cfg.n_layers * summary["prefill_chunks"]}
+    if launches != want:
+        raise AssertionError(f"kernel launches {launches} != {want}")
+    for name, seen in plans.items():
+        off = [p for p in seen if p["n_split"] <= 0]
+        if len(seen) != launches[name.replace("_kernel", "")] or off:
+            raise AssertionError(f"{name}: {len(off)} of {len(seen)} "
+                                 f"launches left the tensor-core walk")
+    done = engine.sched.finished
+    if len(done) != len(reqs) + 1 or any(len(r.output) != gen
+                                         for r in done):
+        raise AssertionError("not every sampled request finished")
+    return engine, summary, launches
+
+
+STATS_KEYS = ("steps", "decode_tokens", "prefill_tokens", "prompt_tokens",
+              "prefill_chunks", "admissions", "mid_gen_admissions",
+              "preemptions", "scheme_switches", "schemes_used",
+              "prefix_hit_tokens", "fork_groups", "fork_children")
+
+
+def sampled_telemetry(torch, np, cfg, params):
+    """Phase 7 (b)-(d): the sampled serve with telemetry on and off in
+    turns (on, off, off, on): every request finishes, the fork diverges,
+    the trace validates, drift covers every dispatched scheme, the
+    EngineStats counters agree across the four, tokens/s of both and
+    their ratio, the drift report.  Returns the launch counts."""
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.obs import RooflineDrift, Telemetry, validate_trace
+    from repro_torch.runtime import Request, SamplingParams
+
+    check_prng_on_card(torch)
+    t0 = time.perf_counter()
+    warm = build_engine(cfg, params, batch=9, n=2, max_len=1024 + 32,
+                        gen=32, block_size=BS, impl="kernel", scheme="auto",
+                        platform="h100", prefill_chunk=C,
+                        compute_dtype=torch.bfloat16, device="cuda",
+                        **SAMPLE_KW)
+    warm.run(warm_up_requests(cfg, np, Request, SamplingParams))
+    log(f"[sample] warm-up serve: {warm.stats.steps} steps in "
+        f"{time.perf_counter() - t0:.2f}s")
+    del warm
+    by_path, tps, stats = {}, {"on": [], "off": []}, []
+    drift = RooflineDrift()
+    for i, mode in enumerate(("on", "off", "off", "on")):
+        tel = Telemetry.on(trace=True, metrics=True, drift=True) \
+            if mode == "on" else None
+        engine, summary, launches = serve_sampled(torch, np, cfg, params,
+                                                  tel)
+        by_path[f"serve_sampled_telemetry_{mode}_{i + 1}"] = launches
+        tps[mode].append(summary["tokens_per_s"])
+        stats.append({k: summary[k] for k in STATS_KEYS})
+        outs = {r.rid: list(r.output) for r in engine.sched.finished}
+        if outs[4] == outs[5]:
+            raise AssertionError("the n = 2 fork did not diverge")
+        if tel is not None:
+            tel.finalize(engine)
+            trace = tel.tracer.to_dict()
+            problems = validate_trace(trace)
+            if problems:
+                raise AssertionError(f"trace: {problems[:3]}")
+            uncovered = tel.drift.check_coverage(summary["schemes_used"],
+                                                 kinds=("decode",))
+            if uncovered:
+                raise AssertionError(f"drift: {uncovered}")
+            text = json.dumps(trace) + json.dumps(tel.metrics.to_dict())
+            phases = sorted({e["name"] for e in trace["traceEvents"]
+                             if e["ph"] == "X" and e["pid"] == 1})
+            log(f"[sample] telemetry on: {len(trace['traceEvents'])} trace "
+                f"events ({len(text) / 1e6:.2f} MB as JSON), step phases "
+                f"{phases}, trace valid, drift rows "
+                f"{len(tel.drift.rows)} covering {tel.drift.schemes_covered()}")
+            if drift.mla is None:
+                drift.bind(mla=tel.drift.mla, platform=tel.drift.platform,
+                           paged_block=tel.drift.paged_block,
+                           cache_dtype=tel.drift.cache_dtype)
+            drift.rows += tel.drift.rows
+        log(f"[sample] telemetry {mode}: {len(outs)} requests finished, "
+            f"{summary['decode_tokens']} decode tokens in {summary['steps']} "
+            f"steps, {summary['tokens_per_s']:.1f} tokens/s, launches "
+            f"{launches}, every launch on the tensor-core walk, forks "
+            f"diverge")
+        del engine
+        torch.cuda.empty_cache()
+    if any(s != stats[0] for s in stats):
+        raise AssertionError(f"EngineStats differ with telemetry on and "
+                             f"off: {stats}")
+    on, off = sum(tps["on"]) / 2, sum(tps["off"]) / 2
+    log(f"[sample] in turns on, off, off, on: {tps['on'][0]:.1f}, "
+        f"{tps['off'][0]:.1f}, {tps['off'][1]:.1f}, {tps['on'][1]:.1f} "
+        f"tokens/s; on / off = {on / off:.3f}; EngineStats identical "
+        f"({stats[0]})")
+    rep = drift.report()
+    log(f"[drift] measured / predicted, {rep['platform']} point, block "
+        f"{rep['paged_block']}, {rep['cache_dtype']} pool, {rep['rows']} "
+        f"rows of the two traced serves (the whole {cfg.n_layers}-layer "
+        f"model step against one MLA layer's attention):")
+    for key, b in rep["buckets"].items():
+        log(f"[drift]   {key}: n {b['n']}, p50 {b['time_ratio_p50']:.1f}, "
+            f"p95 / p50 {b['spread']:.3f}; mean predicted "
+            f"{b['pred_time_s'] / b['n'] * 1e3:.4g} ms, measured "
+            f"{b['meas_time_s'] / b['n'] * 1e3:.4g} ms, predicted bytes "
+            f"{b['pred_bytes_per_step'] / 1e6:.4g} MB a row")
+    s = rep["summary"]
+    log(f"[drift]   all: p50 {s['time_ratio_p50']:.1f}, p95 / p50 "
+        f"{s['spread']:.3f}")
+    return by_path
 
 
 # ------------------------------------------------- phase 5: token parity --

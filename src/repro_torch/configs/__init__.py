@@ -12,6 +12,7 @@ from ..models.common import ModelConfig
 
 _MODULES: Dict[str, str] = {
     "deepseek-v2-236b": "deepseek_v2_236b",
+    "deepseek-v3-671b": "deepseek_v3_671b",     # the paper's Table 1
 }
 
 ARCHS = list(_MODULES)

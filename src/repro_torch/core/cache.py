@@ -81,6 +81,11 @@ def dequantize_latent(q, scale):
     return q.float() * scale
 
 
+def bytes_per_token_dense(n_kv: int, head_dim: int, dtype_bytes: int = 2) -> int:
+    """K and V cache bytes per cached token of one dense (MHA / GQA) layer."""
+    return 2 * n_kv * head_dim * dtype_bytes
+
+
 def bytes_per_token_latent(kv_lora: int, rope_dim: int, dtype_bytes: int = 2,
                            cache_dtype: Optional[str] = None) -> float:
     """Latent-cache bytes per cached token.  Quantized storage pays 1 byte

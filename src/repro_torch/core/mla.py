@@ -63,6 +63,16 @@ class MLAConfig:
         return self.kv_lora_rank, self.qk_rope_dim
 
 
+def param_count(cfg: MLAConfig, rope: bool = True) -> int:
+    """Closed-form #params of one MLA layer (paper Table 1 when rope=False)."""
+    H, dn, dr, dv = cfg.n_heads, cfg.qk_nope_dim, (cfg.qk_rope_dim if rope else 0), cfg.v_head_dim
+    return (cfg.d_model * cfg.q_lora_rank
+            + cfg.q_lora_rank * H * (dn + dr)
+            + cfg.d_model * (cfg.kv_lora_rank + dr)
+            + cfg.kv_lora_rank * H * (dn + dv)
+            + H * dv * cfg.d_model)
+
+
 def mla_defs(cfg: MLAConfig) -> Dict[str, Any]:
     H, dn, dr, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     return {

@@ -1,17 +1,16 @@
 """Deterministic synthetic LM data (port of ``repro.data.pipeline``).
 
 The global batch of a step is a pure function of (seed, step): each row
-is drawn from a generator keyed by (seed, step, global row id), so any
-host count produces the same global batch, and the iterator's whole
+draws from the key fold(fold(PRNGKey(seed), step), global row id), so
+any host count produces the same global batch, and the iterator's whole
 state is {step}.  The token mixture is the reference's: 75 % of tokens
-from the first min(32, V // 4) ids, the rest uniform over the vocabulary,
-so cross entropy falls from ln V within tens of steps.
+from the first min(32, V // 4) ids, the rest uniform over the
+vocabulary, so cross entropy falls from ln V within tens of steps.
 
-The reference draws with jax's threefry (``jax.random.fold_in``), which
-the port does not reproduce (ROADMAP.md, queue 1 item 10); it draws from
-numpy's ``default_rng`` keyed the same way instead, so the two packages'
-token streams differ (same distribution, different tokens).  Parity
-tests hand both packages the same numpy batches.
+The draws are the reference's, bit for bit: ``runtime.prng`` reproduces
+the ``jax.random`` calls (``split(key, 3)``, two ``randint`` and a
+``uniform`` gate), so both packages yield the same tokens for the same
+(seed, step, n_hosts, host_id).
 """
 from __future__ import annotations
 
@@ -19,6 +18,7 @@ import dataclasses
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,14 +43,21 @@ class DataState:
     step: int = 0
 
 
-def _row_at(seed: int, step: int, row: int, L: int, V: int) -> np.ndarray:
-    """One global row (L,) int32 — a pure function of (seed, step, row)."""
-    rng = np.random.default_rng([seed, step, row])
+def _rows_at(seed: int, step: int, rows: np.ndarray, L: int,
+             V: int) -> np.ndarray:
+    """Global rows (len(rows), L) int32 — each a pure function of (seed,
+    step, row), drawn as the reference's ``_row_at``."""
+    # imported here: runtime's package imports this one (TrainLoop)
+    from ..runtime import prng
+
+    key = prng.fold_in(prng.PRNGKey(seed), step)
+    key = prng.fold_in(key, torch.as_tensor(rows, dtype=torch.int64))
+    k = prng.split(key, 3)
     narrow_v = max(2, min(32, V // 4))
-    base = rng.integers(0, V, L, dtype=np.int32)
-    narrow = rng.integers(0, narrow_v, L, dtype=np.int32)
-    gate = rng.random(L) < 0.75
-    return np.where(gate, narrow, base)
+    base = prng.randint(k[:, 0], (L,), 0, V)
+    narrow = prng.randint(k[:, 2], (L,), 0, narrow_v)
+    gate = prng.uniform(k[:, 1], (L,)) < 0.75
+    return torch.where(gate, narrow, base).numpy()
 
 
 def _batch_at(cfg: DataConfig, step: int,
@@ -58,9 +65,8 @@ def _batch_at(cfg: DataConfig, step: int,
     """Tokens (local_batch, seq_len + 1) of this host at ``step``; rows
     are keyed by their global id."""
     host = cfg.host_id if host_id is None else host_id
-    rows = range(host * cfg.local_batch, (host + 1) * cfg.local_batch)
-    return np.stack([_row_at(cfg.seed, step, r, cfg.seq_len + 1, cfg.vocab)
-                     for r in rows])
+    rows = np.arange(host * cfg.local_batch, (host + 1) * cfg.local_batch)
+    return _rows_at(cfg.seed, step, rows, cfg.seq_len + 1, cfg.vocab)
 
 
 class SyntheticLM:

@@ -1,5 +1,10 @@
-from . import attention_costs, platforms
-from .attention_costs import Cost
-from .platforms import PLATFORMS
+from . import attention_costs, platforms, roofline
+from .attention_costs import Cost, DSV3_MLA, MHA_L, MHA_S, MHAConfig
+from .platforms import PLATFORMS, EnergyModel
+from .roofline import RooflineTerms, three_term
 
-__all__ = ["attention_costs", "platforms", "Cost", "PLATFORMS"]
+__all__ = [
+    "attention_costs", "platforms", "roofline",
+    "Cost", "DSV3_MLA", "MHA_L", "MHA_S", "MHAConfig",
+    "PLATFORMS", "EnergyModel", "RooflineTerms", "three_term",
+]

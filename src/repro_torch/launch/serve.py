@@ -6,6 +6,9 @@ continuous-batching engine (``--paged``).
         --smoke --impl kernel
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b \
         --smoke --paged --cache-dtype fp8 --impl kernel
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b \
+        --smoke --paged --n 3 --temperature 0.9 --top-k 8 \
+        --trace t.json --metrics m.json --device cpu
 
 Without ``--paged`` the batch prefills together through the contiguous
 MHA-mode prefill (``runtime.steps.make_prefill_step``: the
@@ -50,10 +53,24 @@ Paged only (each raises without ``--paged``):
   --admission-age-bound N
                       bypasses of cache-aware admission before a waiting
                       request is served regardless
+  --temperature T     0 = greedy; > 0 samples with temperature / top-k
+                      under a per-request key folded with the absolute
+                      token position (sample seed = --seed), on the
+                      engine's device
+  --top-k K           top-k cut when sampling (0 = the full vocabulary;
+                      ties with the k-th logit pass)
+  --trace PATH        write the Chrome/Perfetto trace-event JSON (request
+                      lifecycle and step-phase spans) to PATH
+  --metrics PATH      write the metrics-registry JSON (counters, gauges,
+                      TTFT / TPOT / queue-delay / step-time histograms,
+                      the engine summary) to PATH and print the table.
+                      Either flag also arms the roofline drift channel:
+                      every step records the hwmodel time predicted for
+                      the scheme it dispatched beside the measured time
 
-Weights are random (``--seed``) and f32, as in the JAX launcher; sampling
-is greedy.  Seeded sampling, speculative decoding, the async engine, the
-HTTP frontend, meshes and telemetry are on ROADMAP.md.
+Weights are random (``--seed``) and f32, as in the JAX launcher; the
+contiguous path decodes greedily.  Speculative decoding, the async
+engine, the HTTP frontend and meshes are on ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -69,6 +86,7 @@ from ..core import mla as mlalib
 from ..core.schemes import auto_dispatch
 from ..hwmodel.platforms import PLATFORMS
 from ..nn import module as nnm
+from ..obs import Telemetry
 from ..runtime import (PagedMLAEngine, Request, SamplingParams, blocks_for,
                        make_prefill_step, make_serve_step)
 
@@ -79,6 +97,8 @@ def build_engine(cfg, params, *, batch: int, max_len: int, n: int = 1,
                  platform: str = "h100", prefix_cache: bool = True,
                  prefill_chunk: int = 32, admission: str = "cache_aware",
                  admission_age_bound: int = 64, cache_dtype: str = "bf16",
+                 temperature: float = 0.0, top_k: int = 0,
+                 sample_seed: int = 0, telemetry: Optional[Telemetry] = None,
                  compute_dtype=torch.float32,
                  device="cuda") -> PagedMLAEngine:
     """A paged engine sized for ``batch`` request groups of up to
@@ -97,7 +117,8 @@ def build_engine(cfg, params, *, batch: int, max_len: int, n: int = 1,
         prefill_mode="chunked" if prefill_chunk else "per_request",
         prefill_chunk=prefill_chunk or 32, cache_dtype=cache_dtype,
         admission=admission, admission_age_bound=admission_age_bound,
-        device=device)
+        temperature=temperature, top_k=top_k, sample_seed=sample_seed,
+        telemetry=telemetry, device=device)
 
 
 def synthetic_requests(cfg, *, batch: int, prompt_len: int, gen: int,
@@ -136,6 +157,24 @@ def serve_paged(engine: PagedMLAEngine, requests: List[Request], *,
     first = min(engine.sched.finished, key=lambda r: r.rid)
     log(f"[serve] sample: {np.asarray(first.output[:16])}")
     return summary
+
+
+def report_telemetry(tel: Telemetry, engine: PagedMLAEngine, *,
+                     trace_path: str = "", metrics_path: str = "",
+                     log=print) -> None:
+    """Finalize ``tel`` on the drained ``engine``, write the requested
+    artifacts, and log the metrics table and the drift summary."""
+    tel.finalize(engine)
+    written = tel.export(trace_path=trace_path or None,
+                         metrics_path=metrics_path or None)
+    for channel, path in written.items():
+        log(f"[serve] telemetry: {channel} -> {path}")
+    if tel.metrics is not None:
+        log(tel.metrics.render_table())
+    if tel.drift is not None and tel.drift.rows:
+        d = tel.drift.report()["summary"]
+        log(f"[serve] roofline drift: time-ratio p50 "
+            f"{d['time_ratio_p50']:.3g}, spread {d['spread']:.2f}")
 
 
 def serve_contiguous(cfg, params, *, batch: int, prompt_len: int, gen: int,
@@ -229,10 +268,26 @@ def main(argv: Optional[List[str]] = None):
     ap.add_argument("--admission", default="cache_aware",
                     choices=("cache_aware", "fcfs"))
     ap.add_argument("--admission-age-bound", type=int, default=64)
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="0 = greedy; > 0 samples with a per-request key "
+                         "folded with the absolute token position")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="top-k cut when sampling (0 = full vocab)")
+    ap.add_argument("--trace", default="",
+                    help="write Chrome/Perfetto trace-event JSON to this "
+                         "path")
+    ap.add_argument("--metrics", default="",
+                    help="write metrics-registry JSON to this path and "
+                         "print the table")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
+    # the contiguous path decodes greedily and has no telemetry hooks
     paged_only = {"--cache-dtype": args.cache_dtype != "bf16",
-                  "--n": args.n != 1}
+                  "--n": args.n != 1,
+                  "--temperature": args.temperature != 0.0,
+                  "--top-k": args.top_k != 0,
+                  "--trace": bool(args.trace),
+                  "--metrics": bool(args.metrics)}
     if not args.paged and any(paged_only.values()):
         raise SystemExit(f"{[k for k, v in paged_only.items() if v]} "
                          f"require --paged")
@@ -246,6 +301,10 @@ def main(argv: Optional[List[str]] = None):
                          scheme=args.scheme, platform=args.platform,
                          impl=args.impl, seed=args.seed, device=args.device)
         return
+    tel = None
+    if args.trace or args.metrics:
+        tel = Telemetry.on(trace=bool(args.trace),
+                           metrics=bool(args.metrics), drift=True)
     engine = build_engine(
         cfg, params, batch=args.batch, max_len=args.prompt_len + args.gen,
         n=args.n, gen=args.gen, block_size=args.block_size,
@@ -253,10 +312,15 @@ def main(argv: Optional[List[str]] = None):
         platform=args.platform, prefix_cache=not args.no_prefix_cache,
         prefill_chunk=args.prefill_chunk, admission=args.admission,
         admission_age_bound=args.admission_age_bound,
-        cache_dtype=args.cache_dtype, device=args.device)
+        cache_dtype=args.cache_dtype, temperature=args.temperature,
+        top_k=args.top_k, sample_seed=args.seed, telemetry=tel,
+        device=args.device)
     serve_paged(engine, synthetic_requests(
         cfg, batch=args.batch, prompt_len=args.prompt_len, gen=args.gen,
         n=args.n, seed=args.seed))
+    if tel is not None:
+        report_telemetry(tel, engine, trace_path=args.trace,
+                         metrics_path=args.metrics)
 
 
 if __name__ == "__main__":

@@ -10,7 +10,13 @@ block tables, copy-on-write, preemption) to the device steps of
     attending their prefix-cache hits through the block table;
   * one paged decode step per tick over ALL slots (inactive slots ride
     along on the null block; their logits are discarded);
-  * greedy sampling (argmax, ties to the lowest id);
+  * sampling on the engine's device: greedy argmax (ties to the lowest
+    id) by default; ``temperature > 0`` draws with temperature / top-k
+    from the key fold(fold(PRNGKey(sample_seed), rid), position),
+    position the absolute index of the sampled token in the request's
+    sequence — so recompute-preemption replay and n-way forks draw the
+    reference's tokens (``steps.sample_tokens``, ``runtime.prng``); only
+    the (B,) token ids come back to the host;
   * ``schemes.auto_dispatch`` re-run every decode step on the live
     (batch, max cache_len) point — all schemes compute the same function.
 
@@ -24,8 +30,16 @@ registers).  ``prefill_mode='per_request'`` prefills each admitted
 request alone through the contiguous MHA-mode prefill
 (``steps.make_prefill_step``) and scatters its cache into the pool in
 whole blocks; it turns the prefix cache off and refuses a quantized pool,
-as the reference does.  Seeded sampling, speculative decoding, the async
-engine, meshes and telemetry are not ported yet: asking for them raises
+as the reference does.
+
+``telemetry=`` (``obs.Telemetry``) arms the reference's hooks: the
+per-step spans (step / schedule / prefill / prefill_chunk / device_step /
+host_sample), the roofline drift rows (each decode tick timed around
+``device_step``, which ends in a device synchronize, and each admitted
+batch's prefill, priced on ``platform``), the step-time and pool
+histograms, and the prefix cache's and scheduler's instants.  Off (the
+default) each site costs one attribute check.  Speculative decoding,
+the async engine and meshes are not ported yet: asking for them raises
 ``NotImplementedError`` (ROADMAP.md).
 """
 from __future__ import annotations
@@ -43,9 +57,10 @@ from ..core import cache as cachelib
 from ..core import mla as mlalib
 from ..core.schemes import PlatformPoint, auto_dispatch
 from ..models.common import ModelConfig
+from ..obs import OFF_TELEMETRY, Telemetry
 from .loop import drive
 from .scheduler import ContinuousScheduler, Request, blocks_for
-from .steps import make_prefill_step, scatter_prefill_to_paged
+from .steps import make_prefill_step, sample_tokens, scatter_prefill_to_paged
 
 
 def _not_ported(what: str):
@@ -100,12 +115,13 @@ class PagedMLAEngine:
                  enable_prefix_cache: bool = True,
                  prefill_chunk: int = 32,
                  prefill_mode: str = "chunked",
-                 temperature: float = 0.0,
+                 temperature: float = 0.0, top_k: int = 0,
+                 sample_seed: int = 0,
                  mesh=None, spec_k: int = 0,
                  cache_dtype: str = "bf16",
                  admission: str = "cache_aware",
                  admission_age_bound: int = 64,
-                 telemetry=None, device="cuda"):
+                 telemetry: Optional[Telemetry] = None, device="cuda"):
         if cfg.attn_kind != "mla":
             raise NotImplementedError("PagedMLAEngine requires an MLA model")
         if scheme == "auto" and platform is None:
@@ -127,14 +143,10 @@ class PagedMLAEngine:
             # the per-request path recomputes and rewrites WHOLE prompts,
             # which would scatter over read-only shared blocks
             enable_prefix_cache = False
-        if temperature > 0.0:
-            raise _not_ported("seeded sampling (temperature > 0)")
         if spec_k:
             raise _not_ported("speculative decoding (spec_k > 0)")
         if mesh is not None:
             raise _not_ported("mesh serving")
-        if telemetry is not None:
-            raise _not_ported("telemetry")
         self.cfg = cfg
         self.mla = cfg.mla_config()
         self.device = torch.device(device)
@@ -153,6 +165,9 @@ class PagedMLAEngine:
         self.prefill_chunk = int(prefill_chunk)
         if self.prefill_chunk < 1:
             raise ValueError("prefill_chunk must be >= 1")
+        self.temperature = float(temperature)
+        self.top_k = int(top_k)
+        self._sample_seed = int(sample_seed)
         # cancellation flags from other threads, drained every tick
         self._cancel_lock = threading.Lock()
         self._cancels: set = set()
@@ -170,6 +185,7 @@ class PagedMLAEngine:
                                             cache_dtype)
         self.pending = np.zeros((max_batch,), np.int32)   # next token to feed
         self._last_scheme: Optional[str] = None
+        self._last_point = (1, 1)     # (batch, cache_len) of the last pick
         self.stats = EngineStats()
         # bytes one cached token occupies across ALL layers of the pool,
         # at its storage dtype
@@ -177,6 +193,17 @@ class PagedMLAEngine:
             cfg.kv_lora_rank, cfg.qk_rope_dim,
             dtype_bytes=torch.empty((), dtype=compute_dtype).element_size(),
             cache_dtype=cache_dtype)
+        # telemetry: the default is the no-op singleton, whose span()
+        # returns a shared null context manager — each instrumented site
+        # costs one attribute check when off
+        self.tel = telemetry if telemetry is not None else OFF_TELEMETRY
+        if self.tel.drift is not None and not self.tel.drift.active \
+                and platform is not None:
+            self.tel.drift.bind(mla=self.mla, platform=platform,
+                                paged_block=block_size,
+                                cache_dtype=cache_dtype)
+        if self.tel.enabled:
+            self.sched.prefix.tel = self.tel
 
     # ----------------------------------------------------------- device ---
 
@@ -186,6 +213,9 @@ class PagedMLAEngine:
     def _pick_scheme(self) -> str:
         active = self.sched.active_slots
         cache_len = int(self.sched.lengths[active].max()) + 1 if active else 1
+        # the live dispatch point, kept for the drift channel: predictions
+        # are evaluated at the point the dispatch saw
+        self._last_point = (max(len(active), 1), cache_len)
         if self.scheme != "auto":
             self._last_scheme = self.scheme
             return self.scheme
@@ -205,9 +235,24 @@ class PagedMLAEngine:
         return self.scheme if self.scheme in ("seq", "rc", "ru") else "seq"
 
     def _sample_tokens(self, rows, slots) -> Dict[int, int]:
-        """Greedy: one token per listed slot from its logits row."""
-        arg = torch.argmax(rows, dim=-1).cpu().numpy()
-        return {s: int(arg[i]) for i, s in enumerate(slots)}
+        """One token per listed slot from its logits row (``rows``
+        (len(slots), V); each slot still holds its request), sampled on
+        the rows' device by :func:`steps.sample_tokens`: greedy at
+        ``temperature <= 0``, else under the key fold(fold(seed, rid),
+        position) with position = the prompt length plus the tokens the
+        request holds — the absolute index of the sampled token, which
+        recompute preemption replays unchanged (the replayed prompt grows
+        by exactly the generated tokens)."""
+        rids = poss = None
+        if self.temperature > 0.0:
+            reqs = [self.sched.slots[s] for s in slots]
+            rids = self._dev(np.asarray([r.rid for r in reqs], np.int64))
+            poss = self._dev(np.asarray([r.plen + len(r.tokens)
+                                         for r in reqs], np.int64))
+        toks = sample_tokens(rows, rids, poss, temperature=self.temperature,
+                             top_k=self.top_k,
+                             sample_seed=self._sample_seed).cpu().numpy()
+        return {s: int(toks[i]) for i, s in enumerate(slots)}
 
     def _sync_device(self) -> None:
         """Block until this tick's device work has retired, so ``wall``
@@ -224,6 +269,10 @@ class PagedMLAEngine:
         last-valid logits and register their blocks in the radix cache."""
         C = self.prefill_chunk
         B = self.sched.max_batch
+        tr = self.tel.tracer
+        drift = self.tel.drift if (self.tel.drift is not None
+                                   and self.tel.drift.active) else None
+        t_pf = time.perf_counter() if drift else 0.0
         pending = dict(admitted)
         fill = {slot: req.n_cached for slot, req in admitted}
         while pending:
@@ -241,11 +290,13 @@ class PagedMLAEngine:
                 if fill[slot] >= req.plen:
                     finishing.append((slot, req))
                     del pending[slot]
-            logits, self.pool = models.prefill_chunk_paged(
-                self.params, self.cfg, self._dev(tokens).long(), self.pool,
-                self._dev(self.sched.block_table), self._dev(lens),
-                self._dev(nv), compute_dtype=self.compute_dtype,
-                impl=self.impl, scheme=self._chunk_scheme())
+            with tr.span("prefill_chunk"):
+                logits, self.pool = models.prefill_chunk_paged(
+                    self.params, self.cfg, self._dev(tokens).long(),
+                    self.pool, self._dev(self.sched.block_table),
+                    self._dev(lens), self._dev(nv),
+                    compute_dtype=self.compute_dtype, impl=self.impl,
+                    scheme=self._chunk_scheme())
             self.stats.prefill_tokens += int(nv.sum())
             self.stats.prefill_chunks += 1
             for slot, req in finishing:
@@ -255,6 +306,22 @@ class PagedMLAEngine:
                 self._fork_and_seed(slot, logits[slot][None], step_i)
                 if self.sched.record_prefill_sample(slot, tok, step_i) is None:
                     self.pending[slot] = tok
+        if drift:
+            # one drift row per admitted batch, over the whole chunk walk
+            # (the cost model prices a full prompt's chunk sequence); the
+            # measured time includes the finishing rows' first-token
+            # sampling, as in the reference
+            self._sync_device()
+            seq_len = max(req.plen for _, req in admitted)
+            cached = min(req.n_cached for _, req in admitted)
+            if seq_len > cached:
+                # the cost model's names: 'pallas' = the paged prefill
+                # kernel (K2 here), 'gather' = the block-table view
+                impl = "pallas" if self.impl == "kernel" else "gather"
+                drift.record_prefill(self._chunk_scheme(), len(admitted),
+                                     seq_len, C, impl,
+                                     time.perf_counter() - t_pf,
+                                     cached_prefix=cached)
 
     def _run_per_request_prefill(self, admitted, step_i: int) -> None:
         """Contiguous prefill of each admitted request alone (capacity
@@ -294,19 +361,27 @@ class PagedMLAEngine:
     # ------------------------------------------------------------- run ----
 
     def validate_sampling(self, sp) -> None:
-        """Raise unless the per-request ``SamplingParams`` are servable by
-        this greedy engine: no temperature > 0, and top_k / seed either
-        None ('inherit') or the greedy engine's own 0 — the JAX engine's
-        rule for engine-global knobs, with its defaults."""
+        """Raise ValueError unless the per-request ``SamplingParams`` are
+        servable by this engine: the engine-global knobs (temperature,
+        top_k, seed) must equal the engine's own when set; None means
+        'inherit'.  The reference's rule: its async engine bakes them into
+        the compiled step."""
         if sp is None:
             return
-        if sp.temperature is not None and float(sp.temperature) > 0.0:
-            raise _not_ported("seeded sampling (temperature > 0)")
-        for knob in ("top_k", "seed"):
-            value = getattr(sp, knob)
-            if value is not None and int(value) != 0:
-                raise ValueError(f"{knob}={value} != the engine's 0; set it "
-                                 f"engine-wide or leave None")
+        if sp.temperature is not None \
+                and float(sp.temperature) != self.temperature:
+            raise ValueError(
+                f"temperature={sp.temperature} != engine temperature "
+                f"{self.temperature}; set it engine-wide or leave None to "
+                f"inherit")
+        if sp.top_k is not None and int(sp.top_k) != self.top_k:
+            raise ValueError(f"top_k={sp.top_k} != engine top_k "
+                             f"{self.top_k}; set it engine-wide or leave "
+                             f"None")
+        if sp.seed is not None and int(sp.seed) != self._sample_seed:
+            raise ValueError(f"seed={sp.seed} != engine sample_seed "
+                             f"{self._sample_seed}; set it engine-wide or "
+                             f"leave None")
 
     def submit(self, req: Request) -> None:
         self.validate_sampling(req.sampling)
@@ -355,52 +430,82 @@ class PagedMLAEngine:
         step_i = self.stats.steps
         self._process_cancels(step_i)
         was_decoding = self.sched.n_active > 0
-        # grow running requests BEFORE admitting: otherwise a just-admitted
-        # request could take the last blocks, get preempted immediately,
-        # and throw away the prefill it just paid for.
-        self.stats.preemptions += len(self.sched.ensure_step_capacity())
-        self._drain_cow()
-        admitted = self.sched.try_admit(step_i)
-        # partial-hit tail copies queued by try_admit land before prefill
-        self._drain_cow()
-        for _, req in admitted:
-            self.stats.admissions += 1
-            self.stats.prompt_tokens += req.plen
-            if was_decoding:
-                self.stats.mid_gen_admissions += 1
-        if admitted:
-            if self.prefill_mode == "chunked":
-                self._run_chunked_prefill(admitted, step_i)
-            else:
-                self._run_per_request_prefill(admitted, step_i)
-            # fork-group tail copies land before both forks' decode writes
-            self._drain_cow()
+        tr = self.tel.tracer
+        drift = self.tel.drift if (self.tel.drift is not None
+                                   and self.tel.drift.active) else None
 
-        active = self.sched.active_slots
-        if active:
-            scheme = self._pick_scheme()
-            self.stats.schemes_used[scheme] = \
-                self.stats.schemes_used.get(scheme, 0) + 1
-            logits, self.pool = models.decode_step(
-                self.params, self.cfg, self._dev(self.pending).long(),
-                self.pool, self._dev(self.sched.block_table),
-                self._dev(self.sched.lengths),
-                compute_dtype=self.compute_dtype, impl=self.impl,
-                scheme=scheme)
-            picks = self._sample_tokens(logits[self._dev(np.asarray(active))],
-                                        active)
-            self.sched.advance(picks, step_i)
-            for s, t in picks.items():
-                self.pending[s] = t
-            self.stats.decode_tokens += len(active)
+        with tr.span("step"):
+            with tr.span("schedule"):
+                # grow running requests BEFORE admitting: otherwise a
+                # just-admitted request could take the last blocks, get
+                # preempted immediately, and throw away the prefill it
+                # just paid for.
+                self.stats.preemptions += len(
+                    self.sched.ensure_step_capacity())
+                self._drain_cow()
+                admitted = self.sched.try_admit(step_i)
+                # partial-hit tail copies queued by try_admit land before
+                # prefill
+                self._drain_cow()
+            for _, req in admitted:
+                self.stats.admissions += 1
+                self.stats.prompt_tokens += req.plen
+                if was_decoding:
+                    self.stats.mid_gen_admissions += 1
+            if admitted:
+                with tr.span("prefill"):
+                    if self.prefill_mode == "chunked":
+                        self._run_chunked_prefill(admitted, step_i)
+                    else:
+                        self._run_per_request_prefill(admitted, step_i)
+                # fork-group tail copies land before both forks' decode
+                # writes
+                self._drain_cow()
 
-        u = self.sched.utilization()
-        self.stats.util_valid_sum += u["valid_frac"]
-        self.stats.util_pool_sum += u["pool_frac"]
-        self.stats.util_samples += 1
-        self._sync_device()
+            active = self.sched.active_slots
+            if active:
+                scheme = self._pick_scheme()
+                self.stats.schemes_used[scheme] = \
+                    self.stats.schemes_used.get(scheme, 0) + 1
+                t_dev = time.perf_counter() if drift else 0.0
+                with tr.span("device_step"):
+                    logits, self.pool = models.decode_step(
+                        self.params, self.cfg,
+                        self._dev(self.pending).long(), self.pool,
+                        self._dev(self.sched.block_table),
+                        self._dev(self.sched.lengths),
+                        compute_dtype=self.compute_dtype, impl=self.impl,
+                        scheme=scheme)
+                    # the reference blocks here too: the span and the
+                    # drift row time the step, not its launch
+                    self._sync_device()
+                if drift:
+                    b, cl = self._last_point
+                    drift.record_decode(scheme, b, cl,
+                                        time.perf_counter() - t_dev)
+                with tr.span("host_sample"):
+                    picks = self._sample_tokens(
+                        logits[self._dev(np.asarray(active))], active)
+                    self.sched.advance(picks, step_i)
+                for s, t in picks.items():
+                    self.pending[s] = t
+                self.stats.decode_tokens += len(active)
+
+            u = self.sched.utilization()
+            self.stats.util_valid_sum += u["valid_frac"]
+            self.stats.util_pool_sum += u["pool_frac"]
+            self.stats.util_samples += 1
+            self._sync_device()
         self.stats.steps += 1
-        self.stats.wall += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        self.stats.wall += dt
+        if self.tel.metrics is not None:
+            m = self.tel.metrics
+            m.histogram("step_ms").record(dt * 1e3)
+            m.histogram("pool_occupancy").record(u["pool_frac"])
+            m.histogram("pool_allocated_bytes").record(
+                u["allocated_blocks"] * self.block_size
+                * self.cache_token_bytes)
 
     def run(self, requests: List[Request], *, max_steps: int = 100_000,
             log_every: int = 0, log=print) -> Dict[str, float]:

@@ -16,8 +16,9 @@ Training-loop behaviours, as in the reference:
     queue 3).
 
 Step times end in ``torch.cuda.synchronize()`` on a CUDA device (the
-reference's ``block_until_ready``).  ``log`` is a bare callable taking
-one string.
+reference's ``block_until_ready``).  ``TrainLoop``'s ``log`` is a bare
+callable taking one string; ``drive``'s may also be an
+``obs.StructLogger``.
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ import torch
 
 from ..checkpoint import CheckpointStore
 from ..data import SyntheticLM
+from ..obs import as_logger
 from ..optim.adamw import tree_leaves, tree_map
 
 
@@ -41,8 +43,11 @@ def drive(engine, requests, *, max_steps: int = 100_000,
 
     ``req.arrival`` is the step index at which a request joins the waiting
     queue.  The loop runs until every request is submitted and
-    ``engine.idle``; ``log`` gets a one-line status every ``log_every``
-    steps."""
+    ``engine.idle``; a one-line status goes out every ``log_every`` steps
+    through the engine's telemetry logger if it has one, else through
+    ``log`` (a bare callable or an ``obs.StructLogger``)."""
+    slog = engine.tel.logger if engine.tel.logger is not None \
+        else as_logger(log, "engine")
     todo = sorted(requests, key=lambda r: r.arrival)
     i = 0
     while not (i >= len(todo) and engine.idle):
@@ -52,11 +57,12 @@ def drive(engine, requests, *, max_steps: int = 100_000,
         engine.step()
         if log_every and engine.stats.steps % log_every == 0:
             u = engine.sched.utilization()
-            log(f"step={engine.stats.steps} active={engine.sched.n_active} "
-                f"waiting={len(engine.sched.waiting)} "
-                f"done={len(engine.sched.finished)} "
-                f"util={u['valid_frac']:.2f} pool={u['pool_frac']:.2f} "
-                f"scheme={engine._last_scheme}")
+            slog.info("step", step=engine.stats.steps,
+                      active=engine.sched.n_active,
+                      waiting=len(engine.sched.waiting),
+                      done=len(engine.sched.finished),
+                      util=u["valid_frac"], pool=u["pool_frac"],
+                      scheme=engine._last_scheme)
         if engine.stats.steps >= max_steps:
             raise RuntimeError(f"did not drain in {max_steps} steps")
     return engine.summary()

@@ -156,6 +156,10 @@ class PrefixCache:
         self._evictable: Dict[int, _Node] = {}   # refcount-0 cached blocks
         self._clock = 0
         self.stats = PrefixCacheStats()
+        # duck-typed telemetry hook (obs.Telemetry); the engine attaches
+        # it when telemetry is on.  None (the default) costs one
+        # ``is None`` check at the eviction / CoW sites.
+        self.tel = None
 
     # ------------------------------------------------------------ lookup ---
 
@@ -348,6 +352,10 @@ class PrefixCache:
             self._drop_node(victim)
             evicted += 1
             self.stats.evictions += 1
+        if evicted and self.tel is not None:
+            self.tel.tracer.instant("prefix_evict", args={"n": evicted})
+            if self.tel.metrics is not None:
+                self.tel.metrics.counter("prefix_cache.evictions").inc(evicted)
         return evicted
 
     def _drop_node(self, node: _Node) -> None:
@@ -367,6 +375,10 @@ class PrefixCache:
 
     def count_cow(self) -> None:
         self.stats.cow_copies += 1
+        if self.tel is not None:
+            self.tel.tracer.instant("cow_copy")
+            if self.tel.metrics is not None:
+                self.tel.metrics.counter("prefix_cache.cow_copies").inc()
 
     # ------------------------------------------------------------- stats ---
 

@@ -1,8 +1,7 @@
 """Per-request sampling / generation parameters — the request API.
 
 Copied from ``repro.runtime.sampling``: the port keeps its own copy so
-it never imports the JAX package.  The port's engine serves greedy
-requests only; seeded sampling is still to be ported.
+it never imports the JAX package.
 
 ``SamplingParams`` consolidates the knobs that used to be scattered
 across ``Request`` fields (``max_new``, ``stop``), engine-constructor

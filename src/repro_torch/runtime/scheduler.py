@@ -48,10 +48,11 @@ params, device steps, the chunked prefill -> pool scatter, and the device
 side of every CoW copy (``cow_pending``).
 
 Every decode tick writes one cache position per request.  The JAX
-package's speculative write window, its block-granular prefix matching,
-its switch for decode-block registration and its telemetry hooks serve
-features the port does not run yet (ROADMAP.md, queue 1); they come back
-with those features.
+package's speculative write window, its block-granular prefix matching
+and its switch for decode-block registration serve features the port
+does not run yet (ROADMAP.md, queue 1); they come back with those
+features.  With telemetry on, ``fork_group`` puts a ``fork_group``
+instant on the trace (through ``prefix.tel``, as in the reference).
 """
 from __future__ import annotations
 
@@ -489,6 +490,10 @@ class ContinuousScheduler:
             out.append((cslot, child))
         self.fork_groups += 1
         self.forked_children += len(out)
+        tel = self.prefix.tel
+        if tel is not None:
+            tel.tracer.instant("fork_group", args={"rid": parent.rid,
+                                                   "n": 1 + len(out)})
         return out
 
     def commit_prefill(self, slot: int) -> int:

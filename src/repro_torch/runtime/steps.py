@@ -12,6 +12,8 @@ paged pool.
                                                      index) -> (logits,
                                                                 cache)
     scatter_prefill_to_paged(pool, cache, pages) -> pool
+    sample_tokens(logits, rids, poss, ...)     -> (B,) token ids
+    sample_scores(logits, rids, poss, ...)     -> (B, V) perturbed scores
 
 The training step takes gradients with ``torch.autograd.grad`` over the
 plain param tree and applies the in-place AdamW of ``optim.adamw``: it
@@ -33,6 +35,7 @@ from ..models.common import ModelConfig
 from ..nn import layers as nl
 from ..optim import AdamWConfig, adamw_update
 from ..optim.adamw import tree_leaves, tree_map
+from . import prng
 
 METRIC_KEYS = ("loss", "ce", "balance", "z_loss", "dropped_frac")
 
@@ -223,3 +226,46 @@ def scatter_prefill_to_paged(pool_tree, cache_tree, pages):
                 pool[name], pages[:n_pg],
                 contig.reshape(n_pg, bs, contig.shape[1]))
     return pool_tree
+
+
+# ------------------------------------------------------------ sampling ---
+
+
+def sample_scores(logits, rids, poss, *, temperature: float, top_k: int = 0,
+                  sample_seed: int = 0) -> torch.Tensor:
+    """The scores seeded sampling takes the argmax of (``temperature >
+    0``): row b's f32 logits divided by the temperature, cut to the top
+    k (every logit ``>=`` the k-th largest stays, so ties pass and more
+    than k may; the rest become -inf), plus Gumbel noise drawn under the
+    key fold(fold(PRNGKey(sample_seed), rids[b]), poss[b]) — the
+    reference's ``jax.random.categorical``.  logits (B, V); rids, poss
+    (B,) int tensors on the logits' device; returns (B, V) float32.
+
+    The division is a multiply by the float32 reciprocal of the
+    temperature, which is what XLA compiles the reference's
+    ``rows / temperature`` into."""
+    dev = logits.device
+    recip = torch.tensor(1.0, dtype=torch.float32) \
+        / torch.tensor(temperature, dtype=torch.float32)
+    rows = logits.float() * recip.to(dev)
+    if top_k > 0:
+        kth = torch.topk(rows, min(top_k, rows.shape[-1]),
+                         dim=-1).values[:, -1:]
+        rows = torch.where(rows >= kth, rows,
+                           torch.full_like(rows, -float("inf")))
+    keys = prng.fold_in(prng.fold_in(prng.PRNGKey(sample_seed, dev), rids),
+                        poss)
+    return prng.gumbel(keys, rows.shape[-1:]) + rows
+
+
+def sample_tokens(logits, rids, poss, *, temperature: float, top_k: int = 0,
+                  sample_seed: int = 0) -> torch.Tensor:
+    """One token per logits row, on the rows' device (the body of the
+    reference's ``make_paged_sample_step``): greedy argmax at
+    ``temperature <= 0`` (``rids`` / ``poss`` unused); else the argmax of
+    :func:`sample_scores` (ties to the lowest id).  Returns (B,) int64."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1)
+    return torch.argmax(sample_scores(logits, rids, poss,
+                                      temperature=temperature, top_k=top_k,
+                                      sample_seed=sample_seed), dim=-1)

@@ -11,7 +11,11 @@ tensor-core walk of csrc/flash_attention_fwd_tc.cuh and bf16 K5 / K6 the
 walks of csrc/flash_attention_bwd_tc.cuh; their cases put query tiles,
 the causal diagonal, windows and offsets across tile edges, drive K6's
 loop over GQA / MQA query heads and check the route each launch recorded
-(``last_plan``).
+(``last_plan``).  The seeded sampler's PRNG (``runtime.prng``) gives
+the Random123 known answers on the card and the CPU's bits, and the
+sampler the CPU's tokens except where a row's two best perturbed scores
+lie within a few ulps (the Gumbel noise's two logarithms may round
+differently on the two devices).
 
 Every test here is marked ``gpu`` and skips without a CUDA device (the
 kernels have no CPU mode); on a machine with one:
@@ -39,6 +43,8 @@ from repro_torch.kernels import ref as tref
 from repro_torch.kernels.mla_decode import (mla_decode_kernel,
                                             mla_decode_paged_kernel)
 from repro_torch.kernels.mla_prefill import mla_prefill_paged_kernel
+from repro_torch.runtime import prng
+from repro_torch.runtime.steps import sample_scores, sample_tokens
 
 pytestmark = pytest.mark.gpu
 
@@ -746,3 +752,78 @@ def test_smoke_train_step_kernel_matches_ref_on_card():
     assert (tfa.flash_fwd_kernel.launches, tfa.flash_bwd_dq_kernel.launches,
             tfa.flash_bwd_dkv_kernel.launches) == tuple(
                 n + cfg.n_layers for n in before)
+
+
+# ------------------------------------------------------- seeded sampling --
+
+# Random123's kat_vectors for threefry2x32_20: (key, counter, output)
+THREEFRY_KAT = [((0x00000000, 0x00000000), (0x00000000, 0x00000000),
+                 (0x6b200159, 0x99ba4efe)),
+                ((0xffffffff, 0xffffffff), (0xffffffff, 0xffffffff),
+                 (0x1cb996fc, 0xbb002be7)),
+                ((0x13198a2e, 0x03707344), (0x243f6a88, 0x85a308d3),
+                 (0xc4923a9c, 0x483df7a0))]
+# a mismatch of the card's token against the CPU's is allowed only on a
+# row whose two best CPU scores lie within this many ulps of the larger
+# (the Gumbel noise differs by ~1 ulp, the add rounds once more)
+TIE_ULPS = 4
+
+
+def test_threefry_known_answers_on_card():
+    dev = _cuda()
+    for key, ctr, want in THREEFRY_KAT:
+        words = [torch.tensor([v], dtype=torch.int64, device=dev)
+                 for v in key + ctr]
+        got = prng.threefry2x32(*words)
+        assert tuple(int(w[0]) for w in got) == want
+
+
+def test_prng_bits_on_card_equal_the_cpus():
+    """fold(fold(PRNGKey(s), rid), pos) keys over a grid, and their
+    random bits and uniforms, bit for bit on the card and the CPU."""
+    dev = _cuda()
+    rids = torch.arange(64).repeat_interleave(16)
+    poss = torch.arange(16).repeat(64) * 97 + 5
+    for seed in (0, 7, 2**32 - 1):
+        keys = {d: prng.fold_in(prng.fold_in(prng.PRNGKey(seed, d),
+                                             rids.to(d)), poss.to(d))
+                for d in ("cpu", dev)}
+        assert torch.equal(keys[dev].cpu(), keys["cpu"])
+        for shape in ((7,), (3, 1000)):
+            assert torch.equal(prng.random_bits(keys[dev], shape).cpu(),
+                               prng.random_bits(keys["cpu"], shape))
+            assert torch.equal(prng.uniform(keys[dev], shape).cpu(),
+                               prng.uniform(keys["cpu"], shape))
+            assert torch.equal(prng.randint(keys[dev], shape, 0, 102400)
+                               .cpu(), prng.randint(keys["cpu"], shape, 0,
+                                                    102400))
+
+
+def near_tie(scores: torch.Tensor) -> torch.Tensor:
+    """Rows whose two best scores lie within TIE_ULPS ulps of the best."""
+    top = torch.topk(scores, 2, dim=-1).values
+    ulp = torch.finfo(torch.float32).eps * top[:, 0].abs().clamp_min(1.0)
+    return (top[:, 0] - top[:, 1]) <= TIE_ULPS * ulp
+
+
+@pytest.mark.parametrize("top_k", [0, 50])
+def test_sampler_on_card_matches_the_cpu(top_k):
+    """B = 8 rows of V = 102,400 logits, 16 positions each, temperature
+    0.7: the card's tokens are the CPU's except on near-tie rows, and at
+    most 1 of the 128 draws differs."""
+    dev = _cuda()
+    g = torch.Generator().manual_seed(0)
+    logits = torch.randn((8, 102400), generator=g) * 4
+    kw = dict(temperature=0.7, top_k=top_k, sample_seed=0)
+    mismatched = 0
+    for draw in range(16):
+        rids = torch.arange(8, dtype=torch.int64) * 3
+        poss = torch.full((8,), 100 + draw, dtype=torch.int64)
+        cpu_scores = sample_scores(logits, rids, poss, **kw)
+        want = torch.argmax(cpu_scores, dim=-1)
+        got = sample_tokens(logits.to(dev), rids.to(dev), poss.to(dev),
+                            **kw).cpu()
+        bad = got != want
+        assert not (bad & ~near_tie(cpu_scores)).any()
+        mismatched += int(bad.sum())
+    assert mismatched <= 1
