@@ -5,19 +5,26 @@ one CUDA card:
 
     python3 chip_profile.py               # paged serving, bf16 pool
     python3 chip_profile.py fp8           # paged serving, fp8 pool
+    python3 chip_profile.py eager         # ... the engine without graphs
+    python3 chip_profile.py async         # ... the async engine
     python3 chip_profile.py contiguous    # contiguous serving
     python3 chip_profile.py train         # training
     python3 chip_profile.py flash         # K4-K6's time, by ablation
 
 Builds the same model (DeepSeek-V2 widths, 4 layers, random bf16 weights,
 the config's MoE capacity) and the same 8 requests, then serves them twice
-with ``impl='kernel'``: once untraced (the end-to-end numbers), once under
-``torch.profiler`` with a span around each call the engine makes into the
-model (``prefill_chunk``, ``decode_tick``).  Prints device time by span
-and by kernel, the device busy share of the traced run, and the tracing
-cost (traced minus untraced engine seconds).  Spans are added here, around
-the calls, not inside the program.  ``fp8`` serves from an fp8 pool
-instead (per-slot scales, quantize on write, dequantized in K1 / K2).
+with ``impl='kernel'`` on the engine's default (the sync engine, its
+steps replayed from CUDA graphs captured before the serve): once
+untraced (the end-to-end numbers), once under ``torch.profiler`` with a
+span around each step the engine runs (``prefill_chunk``,
+``decode_tick``: a graph's replay, or the eager step).  Prints device
+time by span and by kernel, the device busy share of the traced run,
+and the tracing cost (traced minus untraced engine seconds).  Spans are
+added here, around the engine's step calls, not inside the program.
+``fp8`` serves from an fp8 pool instead (per-slot scales, quantize on
+write, dequantized in K1 / K2); ``eager`` runs the steps without graphs
+(``cuda_graphs=False``); ``async`` on ``AsyncPagedMLAEngine``.  The words
+combine.
 
 ``contiguous`` builds the same model and runs phase 4's load (batch 8
 x 2,048 prompt tokens, 32 generated, ``scheme='auto'``, ``impl='kernel'``)
@@ -56,7 +63,6 @@ import os
 import re
 import sys
 import time
-import types
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 # the port's kernels by name, summed in the report: (label, pattern)
@@ -463,7 +469,11 @@ def main() -> int:
         return contiguous_profile()
     if sys.argv[1:] == ["flash"]:
         return flash_ablation()
-    cache_dtype = "fp8" if sys.argv[1:] == ["fp8"] else "bf16"
+    words = set(sys.argv[1:])
+    if not words <= {"fp8", "eager", "async"}:
+        print(f"chip_profile: unknown mode {sys.argv[1:]}", file=sys.stderr)
+        return 2
+    cache_dtype = "fp8" if "fp8" in words else "bf16"
     import dataclasses
 
     import chip_smoke
@@ -479,46 +489,53 @@ def main() -> int:
                              dtype=torch.bfloat16, device="cuda")
     gen = 32
 
-    def serve():
-        reqs = chip_smoke.requests_full(cfg, np, Request, SamplingParams, gen)
-        engine = build_engine(cfg, params, batch=len(reqs),
-                              max_len=max(r.plen for r in reqs) + gen,
-                              gen=gen, block_size=chip_smoke.BS,
-                              impl="kernel", scheme="auto", platform="h100",
-                              prefill_chunk=chip_smoke.C,
-                              cache_dtype=cache_dtype,
-                              compute_dtype=torch.bfloat16, device="cuda")
+    reqs_fn = lambda: chip_smoke.requests_full(cfg, np, Request,
+                                               SamplingParams, gen)
+
+    def engine():
+        """A fresh engine with its graphs captured (outside any traced
+        window)."""
+        e = build_engine(cfg, params, batch=8, max_len=1024 + gen, gen=gen,
+                         block_size=chip_smoke.BS, impl="kernel",
+                         scheme="auto", platform="h100",
+                         prefill_chunk=chip_smoke.C, cache_dtype=cache_dtype,
+                         compute_dtype=torch.bfloat16, device="cuda",
+                         engine="async" if "async" in words else "sync",
+                         cuda_graphs="eager" not in words)
+        e.warm_up()
+        return e
+
+    def serve(e):
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        summary = engine.run(reqs)
+        summary = e.run(reqs_fn())
+        torch.cuda.synchronize()
         return summary, time.perf_counter() - t0
 
-    serve()                                   # warm-up: build, allocator
-    summary, wall = serve()
-    print(f"[untraced] {cache_dtype} pool, {summary['decode_tokens']} "
-          f"decode tokens, {summary['steps']} steps, "
-          f"{summary['prefill_chunks']} chunks, "
+    serve(engine())                           # warm-up: build, allocator
+    summary, wall = serve(engine())
+    print(f"[untraced] {cache_dtype} pool, {' '.join(sorted(words)) or 'graphs'}"
+          f": {summary['decode_tokens']} decode tokens, {summary['steps']} "
+          f"steps, {summary['prefill_chunks']} chunks, "
           f"{summary['tokens_per_s']:.1f} tokens/s, engine {wall:.3f} s",
           flush=True)
 
-    def spanned(name, fn):
-        def call(*args, **kw):
-            with record_function(name):
-                return fn(*args, **kw)
-        return call
+    cls = engine_mod.PagedMLAEngine
+    plain_run_step = cls._run_step
 
-    plain_models = engine_mod.models
-    engine_mod.models = types.SimpleNamespace(
-        init_paged_cache=plain_models.init_paged_cache,
-        prefill_chunk_paged=spanned("prefill_chunk",
-                                    plain_models.prefill_chunk_paged),
-        decode_step=spanned("decode_tick", plain_models.decode_step))
+    def spanned(self, kind, scheme, arrays):
+        with record_function("prefill_chunk" if kind == "chunk"
+                             else "decode_tick"):
+            return plain_run_step(self, kind, scheme, arrays)
+
+    traced_engine = engine()
+    cls._run_step = spanned
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            _, traced = serve()
-            torch.cuda.synchronize()
+            _, traced = serve(traced_engine)
     finally:
-        engine_mod.models = plain_models
+        cls._run_step = plain_run_step
     print(f"[traced] engine {traced:.3f} s (tracing cost "
           f"{traced - wall:+.3f} s over the untraced run)", flush=True)
 

@@ -44,10 +44,13 @@ Phases, each printing its own lines; any failure exits non-zero:
      160 experts top-6 at the config's capacity factor, vocab 102400)
      cut to 4 layers, random bf16 weights on the card; a short warm-up
      serve at the same shapes, then 8 timed requests (two share a
-     512-token prefix) through the port's engine with ``impl='kernel'``,
-     on a bf16 and an fp8 pool in turns (bf16, fp8, fp8, bf16); launch
-     counts checked against layers x decode ticks and layers x prefill
-     chunks, and K1 / K2 on their tensor-core walks; kernel-path logits
+     512-token prefix) through the port's engine with ``impl='kernel'``
+     on its default, CUDA graphs of its steps (captured before the
+     serve by ``engine.warm_up()``), on a bf16 and an fp8 pool in turns
+     (bf16, fp8, fp8, bf16); launch counts checked against layers x
+     decode ticks and layers x prefill chunks (through the graphs'
+     replays), and K1 / K2 on their tensor-core walks (the plans the
+     graphs captured); kernel-path logits
      held against the reference path on the same pool (at drop-free MoE
      capacity, see ``drop_free``);
   4. contiguous serving at full width — the same model and weights,
@@ -91,7 +94,31 @@ Phases, each printing its own lines; any failure exits non-zero:
      telemetry off, in turns with (b) (on, off, off, on): every
      EngineStats counter equal, tokens/s of both and their ratio; (d)
      the drift report, measured / predicted time per (kind x scheme x
-     batch bucket), priced on the ``h100`` point.
+     batch bucket), priced on the ``h100`` point;
+  8. CUDA graphs, the async engine and the HTTP frontend at full width
+     (run after phase 7, on phase 3's model): (a) phase 3's load on a
+     bf16 pool, greedy, on the sync engine eagerly, the sync engine on
+     graphs and the async engine on graphs, in turns (eager, graphs,
+     async, async, graphs, eager), then graphs and eager on an fp8 pool:
+     tokens and the pool's bytes identical to the first eager run's,
+     every EngineStats counter equal, K1 / K2
+     launches = layers x ticks / chunks through replays; tokens/s, the
+     mean step, the decode tick's ``device_step`` and the prefill chunk's
+     span (medians from a trace), capture time, peak memory and the
+     plans captured, for each run; graphs / eager, async / graphs and
+     fp8 / bf16 with and without graphs; (b) phase 7's sampled load on
+     the sync engine eagerly and the async engine on graphs, then again
+     with telemetry on: the same identity and counters, the trace
+     valid, and the share of each ``device_step`` on the device track
+     that the next tick's ``schedule`` span overlaps; (c)
+     ``launch.server.Frontend`` on the async engine (graphs) on
+     127.0.0.1 and a free port: two blocking requests, one SSE stream
+     and one n = 2 request at once, then a stream cancelled mid-decode;
+     every request finishes (that one "cancelled"), the tokens equal a
+     direct run of the same requests on the sync engine but for near
+     ties counted against ``NEAR_TIE``, /v1/health and
+     /v1/metrics answer, K1 / K2 launches = layers x ticks / chunks, and
+     the server is shut down.
 
 The line before the last is the kernel table as JSON (``launches`` sums
 the main paths that ran a kernel, ``launches_by_path`` splits them;
@@ -104,6 +131,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import gc
 import json
 import math
 import os
@@ -1126,8 +1154,16 @@ def full_width(torch, np):
     by_path["serve_contiguous"] = serve_contiguous_full(torch, np, cfg,
                                                         params)
     by_path.update(sampled_telemetry(torch, np, cfg, params))
+    by_path.update(phase8_turns(torch, np, cfg, params))
+    by_path.update(phase8_sampled(torch, np, cfg, params))
+    by_path.update(phase8_frontend(torch, np, cfg, params))
     del params
+    gc.collect()
     torch.cuda.empty_cache()
+    # every engine and its graphs are gone: what stays allocated leaked
+    log(f"[e2e] after phases 3, 4, 7 and 8: "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB still allocated, "
+        f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved")
     return by_path
 
 
@@ -1152,8 +1188,13 @@ def serve_paged_full(torch, np, cfg, params, cache_dtype: str,
     warm.run(warm_up_requests(cfg, np, Request, SamplingParams))
     log(f"[e2e] {cache_dtype} pool: warm-up serve: {warm.stats.steps} steps "
         f"in {time.perf_counter() - t0:.2f}s")
+    warm.close()
     del warm
     engine = build_engine(cfg, params, **engine_kw)
+    # the engine's default on the card: its steps as CUDA graphs, captured
+    # here (each dispatchable decode scheme and the prefill chunk) so the
+    # serve below counts the replays' launches alone
+    capture_s = engine.warm_up()
     torch.cuda.reset_peak_memory_stats()
     mla_decode.mla_decode_paged_kernel.launches = 0
     mla_prefill.mla_prefill_paged_kernel.launches = 0
@@ -1173,7 +1214,10 @@ def serve_paged_full(torch, np, cfg, params, cache_dtype: str,
         f"pool {engine.cache_token_bytes / cfg.n_layers:.0f} bytes per token "
         f"a layer, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
-        f"{launches}, MoE capacity factor {cfg.capacity_factor}")
+        f"{launches}, MoE capacity factor {cfg.capacity_factor}, CUDA "
+        f"graphs {engine.cuda_graphs} (captured in {capture_s:.3f}s)")
+    if not engine.cuda_graphs:
+        raise AssertionError("the engine's default on the card is graphs")
     if len(done) != len(reqs) or any(len(r.output) != gen for r in done):
         raise AssertionError("not every request finished with its tokens")
     if summary["prefix_hit_tokens"] < 512:
@@ -1182,11 +1226,10 @@ def serve_paged_full(torch, np, cfg, params, cache_dtype: str,
             "mla_prefill_paged": cfg.n_layers * chunks}
     if launches != want:
         raise AssertionError(f"kernel launches {launches} != {want}")
-    for kern in (mla_decode.mla_decode_paged_kernel,
-                 mla_prefill.mla_prefill_paged_kernel):
-        launched_plan(kern)               # bf16: the tensor-core walk
+    check_graph_plans(engine)             # bf16: the tensor-core walk
     if check_logits:
         compare_logits(torch, drop_free(cfg), reqs, engine, cache_dtype)
+    engine.close()
     del engine
     torch.cuda.empty_cache()
     return launches, summary["tokens_per_s"]
@@ -1469,6 +1512,58 @@ def requests_sampled(cfg, np, Request, SamplingParams, gen: int):
             for i, r in enumerate(base)]
 
 
+def check_graph_plans(engine) -> dict:
+    """The plans K1 / K2 recorded when the engine's graphs were captured
+    (every replay launches exactly those): each on its tensor-core walk
+    (bf16).  Returns them by graph."""
+    plans = engine.graph_plans()
+    launched = [p for g in plans.values() for p in g.values()]
+    if not launched or any(p["n_split"] <= 0 for p in launched):
+        raise AssertionError(f"a captured launch left the tensor-core "
+                             f"walk: {plans}")
+    return plans
+
+
+def serve_counted(torch, cfg, engine, reqs):
+    """Serve ``reqs`` on ``engine`` (graphs already captured by
+    ``warm_up``, or eager) with the launch counters zeroed: K1 / K2
+    launches must equal layers x decode ticks and layers x prefill
+    chunks (through replays, with graphs), and every launch must be on
+    the tensor-core walk (the captured plans, with graphs; every eager
+    launch's plan, without).  Returns the summary and the counts."""
+    from repro_torch.kernels import mla_decode, mla_prefill
+    from repro_torch.launch.serve import serve_paged
+
+    plans = {}
+    restore = every_launch_plan(torch, plans)
+    mla_decode.mla_decode_paged_kernel.launches = 0
+    mla_prefill.mla_prefill_paged_kernel.launches = 0
+    try:
+        summary = serve_paged(engine, reqs, log=lambda *_: None,
+                              log_every=0)
+    finally:
+        restore()
+    launches = {"mla_decode_paged": mla_decode.mla_decode_paged_kernel.launches,
+                "mla_prefill_paged":
+                    mla_prefill.mla_prefill_paged_kernel.launches}
+    ticks = sum(summary["schemes_used"].values())
+    want = {"mla_decode_paged": cfg.n_layers * ticks,
+            "mla_prefill_paged": cfg.n_layers * summary["prefill_chunks"]}
+    if launches != want:
+        raise AssertionError(f"kernel launches {launches} != {want}")
+    if engine.cuda_graphs:
+        if plans:
+            raise AssertionError(f"a graph engine launched eagerly: "
+                                 f"{ {k: len(v) for k, v in plans.items()} }")
+        check_graph_plans(engine)
+    for name, seen in plans.items():
+        off = [p for p in seen if p["n_split"] <= 0]
+        if len(seen) != launches[name.replace("_kernel", "")] or off:
+            raise AssertionError(f"{name}: {len(off)} of {len(seen)} "
+                                 f"launches left the tensor-core walk")
+    return summary, launches
+
+
 def every_launch_plan(torch, record):
     """Wrap the paged kernels' wrappers where the model calls them
     (``kernels.ops``) so that ``record[name]`` gets the plan of every
@@ -1491,14 +1586,14 @@ def every_launch_plan(torch, record):
     return restore
 
 
-def serve_sampled(torch, np, cfg, params, telemetry):
+def serve_sampled(torch, np, cfg, params, telemetry, **engine_kw):
     """One sampled serve of ``requests_sampled`` (temperature 0.7, top-k
     50, seed 0) on a bf16 pool through the kernels, with ``telemetry``
-    (or none).  Returns the engine, its summary and the launch counts,
-    checked against layers x ticks / chunks with every launch on the
-    tensor-core walk."""
-    from repro_torch.kernels import mla_decode, mla_prefill
-    from repro_torch.launch.serve import build_engine, serve_paged
+    (or none), on the engine ``engine_kw`` picks (default: the sync
+    engine on graphs, captured first).  Returns the engine, its summary
+    and the launch counts, checked against layers x ticks / chunks with
+    every launch on the tensor-core walk."""
+    from repro_torch.launch.serve import build_engine
     from repro_torch.runtime import Request, SamplingParams
 
     gen = 32
@@ -1508,29 +1603,9 @@ def serve_sampled(torch, np, cfg, params, telemetry):
         max_len=max(r.plen for r in reqs) + gen, gen=gen, block_size=BS,
         impl="kernel", scheme="auto", platform="h100", prefill_chunk=C,
         cache_dtype="bf16", compute_dtype=torch.bfloat16, device="cuda",
-        telemetry=telemetry, **SAMPLE_KW)
-    plans = {}
-    restore = every_launch_plan(torch, plans)
-    mla_decode.mla_decode_paged_kernel.launches = 0
-    mla_prefill.mla_prefill_paged_kernel.launches = 0
-    try:
-        summary = serve_paged(engine, reqs, log=lambda *_: None,
-                              log_every=0)
-    finally:
-        restore()
-    launches = {"mla_decode_paged": mla_decode.mla_decode_paged_kernel.launches,
-                "mla_prefill_paged":
-                    mla_prefill.mla_prefill_paged_kernel.launches}
-    ticks = sum(summary["schemes_used"].values())
-    want = {"mla_decode_paged": cfg.n_layers * ticks,
-            "mla_prefill_paged": cfg.n_layers * summary["prefill_chunks"]}
-    if launches != want:
-        raise AssertionError(f"kernel launches {launches} != {want}")
-    for name, seen in plans.items():
-        off = [p for p in seen if p["n_split"] <= 0]
-        if len(seen) != launches[name.replace("_kernel", "")] or off:
-            raise AssertionError(f"{name}: {len(off)} of {len(seen)} "
-                                 f"launches left the tensor-core walk")
+        telemetry=telemetry, **SAMPLE_KW, **engine_kw)
+    engine.warm_up()
+    summary, launches = serve_counted(torch, cfg, engine, reqs)
     done = engine.sched.finished
     if len(done) != len(reqs) + 1 or any(len(r.output) != gen
                                          for r in done):
@@ -1564,6 +1639,7 @@ def sampled_telemetry(torch, np, cfg, params):
     warm.run(warm_up_requests(cfg, np, Request, SamplingParams))
     log(f"[sample] warm-up serve: {warm.stats.steps} steps in "
         f"{time.perf_counter() - t0:.2f}s")
+    warm.close()
     del warm
     by_path, tps, stats = {}, {"on": [], "off": []}, []
     drift = RooflineDrift()
@@ -1605,6 +1681,7 @@ def sampled_telemetry(torch, np, cfg, params):
             f"steps, {summary['tokens_per_s']:.1f} tokens/s, launches "
             f"{launches}, every launch on the tensor-core walk, forks "
             f"diverge")
+        engine.close()
         del engine
         torch.cuda.empty_cache()
     if any(s != stats[0] for s in stats):
@@ -1630,6 +1707,425 @@ def sampled_telemetry(torch, np, cfg, params):
     log(f"[drift]   all: p50 {s['time_ratio_p50']:.1f}, p95 / p50 "
         f"{s['spread']:.3f}")
     return by_path
+
+
+# --------------- phase 8: CUDA graphs, the async engine, the frontend --
+
+
+# Phase 8(a) and (b) serve one request stream on engines that queue the
+# same device steps in the same order, and each step is a fixed function
+# of its inputs (the MoE combines without atomics, rows that write one
+# pool slot write the same values: models/moe.py, core/cache.py), so
+# there the tokens and the pool's bytes must be identical.  The
+# frontend's batches form as requests arrive, so a row shares its steps
+# with other rows than in the direct run: a token may differ from the
+# direct run's only where the scores that decided it lay within a near
+# tie, two bf16 steps of a logit (2^-4 for |logit| in [4, 8)).  Sampled
+# scores (logits / temperature + Gumbel noise) have steps scaled by
+# 1 / temperature.  After a request's first difference its tokens follow
+# another context, so only the first counts.
+NEAR_TIE = 0.125
+# phase 8(a): the paged engines in turns on phase 3's load, bf16 pool
+PHASE8_TURNS = (("eager", "sync", False), ("graphs", "sync", True),
+                ("async", "async", True), ("async", "async", True),
+                ("graphs", "sync", True), ("eager", "sync", False))
+PHASE8_FP8 = (("graphs", "sync", True), ("eager", "sync", False))
+
+
+def outputs(engine) -> dict:
+    return {r.rid: [int(t) for t in r.output] for r in engine.sched.finished}
+
+
+def pool_bytes(torch, engine) -> list:
+    """The bytes of every leaf of ``engine``'s pool, null block included,
+    on the host."""
+    from repro_torch.core.cache import pool_leaves
+    return [t.contiguous().view(torch.uint8).cpu() for t in
+            pool_leaves(engine.pool)]
+
+
+def check_identical(torch, base: tuple, engine, label: str) -> None:
+    """Raise unless ``engine`` finished with the outputs and the pool bytes
+    of ``base`` = (outputs, pool_bytes) of the reference run."""
+    want, pool0 = base
+    have = outputs(engine)
+    if set(have) != set(want):
+        raise AssertionError(f"{label}: requests {sorted(have)} finished, "
+                             f"not {sorted(want)}")
+    for rid, toks in want.items():
+        if have[rid] != toks:
+            i = next((i for i, (a, b) in enumerate(zip(toks, have[rid]))
+                      if a != b), min(len(toks), len(have[rid])))
+            raise AssertionError(f"{label}: request {rid} differs from the "
+                                 f"reference run at token {i}")
+    pool = pool_bytes(torch, engine)
+    bad = [i for i, (a, b) in enumerate(zip(pool0, pool))
+           if not torch.equal(a, b)]
+    if len(pool) != len(pool0) or bad:
+        raise AssertionError(f"{label}: pool leaves {bad} differ from the "
+                             f"reference run's")
+
+
+def record_margins(torch, engine, store):
+    """Wrap the sync ``engine``'s host sampler so that store[(rid, i)]
+    holds the margin between the two best scores that decided output
+    token i of request rid (logits when greedy, the perturbed scores
+    when sampling)."""
+    from repro_torch.runtime.steps import sample_scores
+
+    real = engine._sample_tokens
+
+    def rec(rows, slots):
+        reqs = [engine.sched.slots[s] for s in slots]
+        scores = rows.float()
+        if engine.temperature > 0:
+            ids = lambda v: torch.tensor(v, dtype=torch.long,
+                                         device=rows.device)
+            scores = sample_scores(
+                rows, ids([r.rid for r in reqs]),
+                ids([r.plen + len(r.tokens) for r in reqs]),
+                temperature=engine.temperature, top_k=engine.top_k,
+                sample_seed=engine._sample_seed)
+        top = torch.topk(scores, 2, dim=-1).values
+        for r, m in zip(reqs, (top[:, 0] - top[:, 1]).tolist()):
+            store[(r.rid, len(r.tokens))] = m
+        return real(rows, slots)
+    engine._sample_tokens = rec
+
+
+def tie_count(base: dict, got: dict, margins, label: str) -> int:
+    """The requests whose tokens differ from ``base``, each at a near
+    tie of the margins ``margins()`` records (computed only when a
+    difference shows); raises on any other difference."""
+    first = {}
+    for rid, want in base.items():
+        have = got.get(rid)
+        if have is None or len(have) != len(want):
+            raise AssertionError(f"{label}: request {rid} ended with "
+                                 f"{None if have is None else len(have)} "
+                                 f"tokens, not {len(want)}")
+        i = next((i for i, (a, b) in enumerate(zip(want, have)) if a != b),
+                 None)
+        if i is not None:
+            first[rid] = i
+    if not first:
+        return 0
+    m = margins()
+    for rid, i in first.items():
+        bound = NEAR_TIE / m["temperature"]
+        if m["store"].get((rid, i), math.inf) >= bound:
+            raise AssertionError(
+                f"{label}: request {rid} token {i} differs off a near tie "
+                f"(margin {m['store'].get((rid, i))}, bound {bound})")
+    return len(first)
+
+
+def span_ms(trace, name, tid=None):
+    """Median duration (ms) of the engine track's ``name`` spans."""
+    from repro_torch.obs.trace import PID_ENGINE
+    d = [e["dur"] / 1e3 for e in trace["traceEvents"]
+         if e["ph"] == "X" and e["pid"] == PID_ENGINE and e["name"] == name
+         and (tid is None or e["tid"] == tid)]
+    return statistics.median(d) if d else float("nan")
+
+
+def phase8_turns(torch, np, cfg, params):
+    """Phase 8(a): sync eager, sync graphs and async graphs in turns on
+    phase 3's load (bf16 pool, greedy), then graphs and eager on an fp8
+    pool.  Tokens and pool bytes identical to the first run's on that
+    pool, EngineStats counters equal, K1 / K2 launches = layers x ticks /
+    chunks through replays.
+    Returns the launch counts by run."""
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.obs import Telemetry
+    from repro_torch.runtime import Request, SamplingParams
+
+    gen = 32
+    reqs_fn = lambda: requests_full(cfg, np, Request, SamplingParams, gen)
+    kw = dict(batch=8, max_len=1024 + gen, gen=gen, block_size=BS,
+              impl="kernel", scheme="auto", platform="h100", prefill_chunk=C,
+              compute_dtype=torch.bfloat16, device="cuda")
+    by_path, tps, base, stats0 = {}, {}, {}, {}
+    in_turns = []
+    turns = [t + ("bf16",) for t in PHASE8_TURNS] \
+        + [t + ("fp8",) for t in PHASE8_FP8]
+    for i, (label, kind, graphs, cd) in enumerate(turns):
+        tel = Telemetry.on(trace=True, metrics=False, drift=False)
+        engine = build_engine(cfg, params, cache_dtype=cd, engine=kind,
+                              cuda_graphs=graphs, telemetry=tel, **kw)
+        capture_s = engine.warm_up()
+        torch.cuda.reset_peak_memory_stats()
+        summary, launches = serve_counted(torch, cfg, engine, reqs_fn())
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        trace = tel.tracer.to_dict()
+        dev_tid = 1 if kind == "async" else 0
+        plans = {g: {k.replace("_kernel", ""): (p["n_split"],
+                                                 tuple(p["grid"]))
+                     for k, p in kp.items()}
+                 for g, kp in engine.graph_plans().items()}
+        by_path[f"graphs_{label}_{cd}_{i + 1}"] = launches
+        tps.setdefault((label, cd), []).append(summary["tokens_per_s"])
+        if cd == "bf16":
+            in_turns.append(f"{summary['tokens_per_s']:.1f}")
+        stats = {k: summary[k] for k in STATS_KEYS}
+        if cd not in base:
+            base[cd] = outputs(engine), pool_bytes(torch, engine)
+            stats0[cd] = stats
+        check_identical(torch, base[cd], engine, f"{label} {cd}")
+        if stats != stats0[cd]:
+            raise AssertionError(f"EngineStats differ: {stats} vs "
+                                 f"{stats0[cd]}")
+        log(f"[graphs] {i + 1} {label} ({kind}, graphs {graphs}), {cd} "
+            f"pool: {summary['tokens_per_s']:.1f} tokens/s, step "
+            f"{engine.stats.wall * 1e3 / engine.stats.steps:.2f} ms mean, "
+            f"decode tick device_step {span_ms(trace, 'device_step', dev_tid):.3f} "
+            f"ms median{' (dispatch to ready)' if kind == 'async' else ''}, "
+            f"prefill_chunk span {span_ms(trace, 'prefill_chunk'):.3f} ms "
+            f"median, capture {capture_s:.3f}s, peak {peak:.2f} GiB, "
+            f"launches {launches}, tokens and pool bytes as the first "
+            f"{cd} run's, "
+            f"plans at capture {plans}")
+        engine.close()
+        del engine
+        torch.cuda.empty_cache()
+    mean = lambda k: sum(tps[k]) / len(tps[k])
+    log(f"[graphs] bf16 tokens/s in turns "
+        f"{', '.join(t[0] for t in PHASE8_TURNS)}: {', '.join(in_turns)}; "
+        f"graphs / eager {mean(('graphs', 'bf16')) / mean(('eager', 'bf16')):.3f}, "
+        f"async / graphs {mean(('async', 'bf16')) / mean(('graphs', 'bf16')):.3f}; "
+        f"fp8 / bf16 eager {mean(('eager', 'fp8')) / mean(('eager', 'bf16')):.3f}, "
+        f"graphs {mean(('graphs', 'fp8')) / mean(('graphs', 'bf16')):.3f}; "
+        f"EngineStats counters identical ({stats0['bf16']})")
+    return by_path
+
+
+def phase8_sampled(torch, np, cfg, params):
+    """Phase 8(b): phase 7's load (sampled, one request forked n = 2) on
+    the sync eager engine and the async engine on graphs, then the async
+    engine with telemetry on: tokens and pool bytes identical,
+    EngineStats counters equal, the trace valid, and the share of each
+    device_step (device track) that the next tick's schedule overlaps."""
+    from repro_torch.obs import Telemetry, validate_trace
+    from repro_torch.obs.trace import PID_ENGINE
+    from repro_torch.runtime.engine import TID_DEVICE
+
+    by_path, base = {}, None
+    for kind, graphs, on in (("sync", False, False), ("async", True, False),
+                             ("async", True, True)):
+        tel = Telemetry.on(trace=True, metrics=True, drift=True) if on \
+            else None
+        engine, summary, launches = serve_sampled(
+            torch, np, cfg, params, tel, engine=kind, cuda_graphs=graphs)
+        by_path[f"sampled_{kind}_{'graphs' if graphs else 'eager'}"
+                f"{'_telemetry' if on else ''}"] = launches
+        stats = {k: summary[k] for k in STATS_KEYS}
+        if base is None:
+            base, stats0 = (outputs(engine), pool_bytes(torch, engine)), stats
+        check_identical(torch, base, engine, f"sampled {kind}")
+        if stats != stats0:
+            raise AssertionError(f"EngineStats differ: {stats} vs {stats0}")
+        line = (f"[async] phase 7's load, {kind} engine, graphs {graphs}"
+                f"{', telemetry on' if on else ''}: "
+                f"{summary['tokens_per_s']:.1f} tokens/s, launches "
+                f"{launches}, tokens and pool bytes as the sync eager "
+                f"run's, EngineStats identical")
+        if on:
+            tel.finalize(engine)
+            trace = tel.tracer.to_dict()
+            problems = validate_trace(trace)
+            if problems:
+                raise AssertionError(f"async trace: {problems[:3]}")
+            evs = [e for e in trace["traceEvents"]
+                   if e["ph"] == "X" and e["pid"] == PID_ENGINE]
+            dev = [e for e in evs if e["tid"] == TID_DEVICE
+                   and e["name"] == "device_step"]
+            sched = [e for e in evs if e["tid"] == 0
+                     and e["name"] == "schedule"]
+            share = [sum(max(0.0, min(d["ts"] + d["dur"], s["ts"] + s["dur"])
+                             - max(d["ts"], s["ts"])) for s in sched)
+                     / d["dur"] for d in dev if d["dur"] > 0]
+            if not share:
+                raise AssertionError("no device_step span on the device "
+                                     "track")
+            line += (f"; trace valid, {len(dev)} device_step spans on the "
+                     f"device track (median {span_ms(trace, 'device_step', TID_DEVICE):.3f} "
+                     f"ms, dispatch to ready), overlapped by the next "
+                     f"tick's schedule: median {statistics.median(share):.3f}, "
+                     f"mean {statistics.mean(share):.3f}, min "
+                     f"{min(share):.3f}, max {max(share):.3f} of the span")
+        log(line)
+        engine.close()
+        del engine
+        torch.cuda.empty_cache()
+    return by_path
+
+
+def http_call(host, port, path, payload=None, timeout=300):
+    """(status, body bytes) of a POST with a JSON body, or a GET."""
+    import urllib.error
+    import urllib.request
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(f"http://{host}:{port}{path}", data,
+                                 {"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def sse_events(lines):
+    """[(event, payload)] of an SSE body's lines."""
+    out, ev = [], None
+    for line in lines:
+        line = line.decode().strip() if isinstance(line, bytes) else line
+        if line.startswith("event: "):
+            ev = line[len("event: "):]
+        elif line.startswith("data: "):
+            out.append((ev, json.loads(line[len("data: "):])))
+    return out
+
+
+def phase8_frontend(torch, np, cfg, params):
+    """Phase 8(c): ``launch.server.Frontend`` on the async engine (graphs)
+    at full width, on 127.0.0.1 and a free port, driven from this
+    process: two blocking requests, one SSE stream and one n = 2
+    request at once, then a stream cancelled mid-decode; every request
+    finishes (the cancelled one "cancelled"), their tokens equal a
+    direct run of the sync engine on the same requests, /v1/health and
+    /v1/metrics answer, and the server is shut down.  Drop-free MoE
+    capacity: the frontend's batches form as requests arrive, and only
+    then is each row's result independent of the others."""
+    import threading
+    import urllib.request
+
+    from repro_torch.kernels import mla_decode, mla_prefill
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.launch.server import Frontend
+    from repro_torch.runtime import Request, SamplingParams
+
+    cfg = drop_free(cfg)
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist()
+               for n in (200, 300, 150, 250, 120)]
+    gen = 24
+    kw = dict(batch=4, n=2, max_len=300 + 200, gen=200, block_size=BS,
+              impl="kernel", scheme="auto", platform="h100", prefill_chunk=C,
+              compute_dtype=torch.bfloat16, device="cuda")
+    engine = build_engine(cfg, params, engine="async", **kw)
+    capture_s = engine.warm_up()
+    k1, k2 = mla_decode.mla_decode_paged_kernel, \
+        mla_prefill.mla_prefill_paged_kernel
+    k1.launches = k2.launches = 0
+    fe = Frontend(engine, host="127.0.0.1", port=0).start()
+    host, port = fe.host, fe.port
+    got = {}
+    try:
+        def blocking(i):
+            got[i] = json.loads(http_call(host, port, "/v1/generate", {
+                "prompt": prompts[i], "max_tokens": gen})[1])
+
+        def streamed(i):
+            got[i] = sse_events(http_call(host, port, "/v1/generate", {
+                "prompt": prompts[i], "max_tokens": gen,
+                "stream": True})[1].splitlines())
+
+        def forked(i):
+            got[i] = json.loads(http_call(host, port, "/v1/generate", {
+                "prompt": prompts[i], "max_tokens": gen, "n": 2})[1])
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=f, args=(i,), daemon=True)
+                   for i, f in enumerate((blocking, blocking, streamed,
+                                          forked))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        if any(t.is_alive() for t in threads) or len(got) != 4:
+            raise AssertionError("a frontend request did not finish")
+        served_s = time.perf_counter() - t0
+        # a stream cancelled after its second token
+        req = urllib.request.Request(
+            f"http://{host}:{port}/v1/generate",
+            json.dumps({"prompt": prompts[4], "max_tokens": 200,
+                        "stream": True}).encode(),
+            {"Content-Type": "application/json"})
+        resp = urllib.request.urlopen(req, timeout=300)
+        seen, rid, ev = 0, None, None
+        for line in resp:
+            line = line.decode().strip()
+            if line.startswith("event: "):
+                ev = line[len("event: "):]
+            elif line.startswith("data: "):
+                d = json.loads(line[len("data: "):])
+                if ev == "start":
+                    rid = d["rid"]
+                elif ev == "token":
+                    seen += 1
+                    if seen == 2:
+                        break
+        http_call(host, port, "/v1/cancel", {"rid": rid})
+        cancelled = sse_events(resp)
+        resp.close()
+        health = json.loads(http_call(host, port, "/v1/health")[1])
+        metrics = json.loads(http_call(host, port, "/v1/metrics")[1])
+    finally:
+        fe.stop()
+    alive = fe.worker.is_alive()
+    summary = engine.summary()
+    launches = {"mla_decode_paged": k1.launches,
+                "mla_prefill_paged": k2.launches}
+    want_launches = {
+        "mla_decode_paged": cfg.n_layers * sum(
+            summary["schemes_used"].values()),
+        "mla_prefill_paged": cfg.n_layers * summary["prefill_chunks"]}
+    engine.close()
+    del engine
+    if alive:
+        raise AssertionError("the frontend's worker did not stop")
+    if not cancelled or cancelled[-1][0] != "done" \
+            or cancelled[-1][1]["finish_reason"] != "cancelled":
+        raise AssertionError(f"the cancel did not finish the stream: "
+                             f"{cancelled[-1:]}")
+    n_cancel = len(cancelled[-1][1]["output"])
+    if not health.get("ok") or "summary" not in metrics:
+        raise AssertionError("/v1/health or /v1/metrics did not answer")
+    if launches != want_launches:
+        raise AssertionError(f"frontend kernel launches {launches} != "
+                             f"{want_launches}")
+    # the same four requests served directly by the sync engine
+    direct = build_engine(cfg, params, cuda_graphs=False, **kw)
+    store = {}
+    record_margins(torch, direct, store)
+    direct.run([Request(rid=10 * i, prompt=np.asarray(p, np.int32),
+                        sampling=SamplingParams(max_tokens=gen,
+                                                n=2 if i == 3 else 1))
+                for i, p in enumerate(prompts[:4])])
+    want = outputs(direct)
+    del direct
+    torch.cuda.empty_cache()
+    have = {0: got[0]["output"], 10: got[1]["output"],
+            20: [d["token"] for e, d in got[2] if e == "token"],
+            30: got[3]["choices"][0]["tokens"],
+            31: got[3]["choices"][1]["tokens"]}
+    if got[2][-1][1]["output"] != have[20] \
+            or any(c["finish_reason"] != "length"
+                   for c in got[3]["choices"]) \
+            or got[0]["finish_reason"] != "length":
+        raise AssertionError("a frontend response is inconsistent")
+    ties = tie_count(want, have, lambda: {"store": store,
+                                          "temperature": 1.0},
+                     "frontend")
+    log(f"[frontend] Frontend on the async engine (graphs, captured in "
+        f"{capture_s:.3f}s) at http://{host}:{port}, drop-free MoE "
+        f"capacity: 2 blocking, 1 SSE and 1 n = 2 request ({gen} tokens "
+        f"each, prompts 150-300) served at once in {served_s:.2f}s, tokens "
+        f"as the sync engine's direct run but {ties} near ties; a stream "
+        f"cancelled after {n_cancel} tokens finished 'cancelled'; "
+        f"/v1/health {health}; /v1/metrics answered; server stopped; "
+        f"launches {launches}")
+    return {"frontend_async": launches}
 
 
 # ------------------------------------------------- phase 5: token parity --
@@ -1712,7 +2208,6 @@ def token_parity(torch, np):
 
 
 def train_full_width(torch):
-    import gc
 
     from repro_torch import configs, models
     from repro_torch.data import DataConfig, SyntheticLM
@@ -1807,7 +2302,6 @@ def train_attention_check(torch):
     held as a whole (ATTN_REL_L2; phase 2 holds the kernels row by row).
     No router is involved, so the comparison is in the path's own
     dtype."""
-    import gc
 
     from repro_torch.kernels import ops, ref
 
@@ -1860,7 +2354,6 @@ def train_grad_check(torch):
     impl='ref' (the dense attention): in f32 with 2 layers at drop-free
     MoE capacity, and in bf16 with the dense first layer alone, each at
     2 x 512 tokens."""
-    import gc
 
     from repro_torch import configs, models
     from repro_torch.nn import module as nnm
@@ -1970,7 +2463,8 @@ def train_loop_resume(torch):
         f"{'exactly' if exact else 'NOT exactly'}, checkpoints {steps}, "
         f"final loss {float(m_resumed['loss']):.4f} vs uninterrupted "
         f"{float(m_whole['loss']):.4f}, max |param diff| {diff:.2e} "
-        f"(index_add_ sums in no fixed order on the card: bound 1e-4)")
+        f"(the backward's scatter-adds sum in no fixed order on the "
+        f"card: bound 1e-4)")
     if not (exact and steps == [2, 4, 6] and diff <= 1e-4):
         raise AssertionError("the training loop did not resume correctly")
 

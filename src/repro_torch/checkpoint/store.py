@@ -11,12 +11,14 @@ package restores in the other:
 which ``steps`` skips.  A list in the tree (the port's per-layer
 ``period`` list) is stored stacked along a new leading axis, which is
 the JAX package's scanned-period layout.  numpy has no bfloat16 (the
-reference relies on ml_dtypes), so bf16 leaves are stored as their
-uint16 bit patterns and their keys listed under ``bf16`` in meta.json.
-The JAX package saves its ml_dtypes bf16 leaves with ``np.savez`` as they
-are, and they load back as 2-byte void (``|V2``) arrays: any such leaf
-is read as bf16 too, so a bf16 checkpoint of the JAX package restores
-here bit for bit.
+reference relies on ml_dtypes): the JAX package's ``np.savez`` of its
+ml_dtypes bf16 leaves stores them as 2-byte voids (``|V2``), and so does
+the port — the leaves' bit patterns viewed as ``V2`` — so a bf16
+checkpoint written by either package restores in the other with the
+same dtype and bytes.  The bf16 keys are also listed under ``bf16`` in
+meta.json; a leaf read back as ``|V2``, or listed there (older
+checkpoints of the port stored bf16 leaves as ``uint16``), is read as
+bf16.
 """
 from __future__ import annotations
 
@@ -30,13 +32,16 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+# how np.savez stores an ml_dtypes bfloat16 leaf of the JAX package
+BF16_STORED = np.dtype("V2")
+
 
 def _to_numpy(t) -> Tuple[np.ndarray, bool]:
     # a copy: the training step updates the live tensors in place while
     # an async save is still writing
     t = torch.as_tensor(t).detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
-        return t.view(torch.int16).numpy().view(np.uint16), True
+        return t.view(torch.int16).numpy().view(BF16_STORED), True
     return t.numpy(), False
 
 

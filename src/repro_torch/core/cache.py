@@ -157,8 +157,28 @@ def paged_latent_cache(num_blocks: int, block_size: int, kv_lora: int,
     }
 
 
+def _last_writer(page, slot, bs: int):
+    """For each writing row (flattened), the last row that writes the same
+    pool slot.  Idle rows and chunk padding all write into the NULL
+    block, and which of several writes to one address lands is left open
+    on a GPU; that slot is then read back by idle rows, whose outputs
+    compete with live rows for MoE capacity.  Giving every writer of an
+    address the same row makes the pool's content one function of the
+    inputs."""
+    addr = (page * bs + slot).reshape(-1)
+    srt, perm = torch.sort(addr, stable=True)
+    last = torch.searchsorted(srt, srt, right=True) - 1
+    win = torch.empty_like(perm)
+    win[perm] = perm[last]
+    return win
+
+
 def _write_slots(pool, page, slot, ckv_new, krope_new):
-    """Store rows at (page, slot), quantizing first for a quantized pool."""
+    """Store rows at (page, slot), quantizing first for a quantized pool;
+    rows that share an address all write the last one's values."""
+    win = _last_writer(page, slot, pool["ckv"].shape[-2])
+    ckv_new = ckv_new.reshape(win.numel(), -1)[win].view_as(ckv_new)
+    krope_new = krope_new.reshape(win.numel(), -1)[win].view_as(krope_new)
     if is_quantized_pool(pool):
         qdtype = pool["ckv"].dtype
         for name, x in (("ckv", ckv_new), ("krope", krope_new)):

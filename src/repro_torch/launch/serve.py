@@ -9,6 +9,8 @@ continuous-batching engine (``--paged``).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b \
         --smoke --paged --n 3 --temperature 0.9 --top-k 8 \
         --trace t.json --metrics m.json --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b \
+        --smoke --paged --engine async --serve --port 8931
 
 Without ``--paged`` the batch prefills together through the contiguous
 MHA-mode prefill (``runtime.steps.make_prefill_step``: the
@@ -22,7 +24,9 @@ per step for the whole batch (``make_serve_step``: kernel K3 under
 ``PagedMLAEngine``: paged latent pool, per-request block tables, chunked
 prefill, mid-generation admission, the radix prefix cache; ``--scheme
 auto`` re-runs the dispatch every decode step on the live (batch, max
-cache_len) point.
+cache_len) point.  On a CUDA device the paged engines run their decode
+and prefill-chunk steps as CUDA graphs (``runtime.graphs``), captured
+before the first request.
 
   --arch / --smoke    model config (``--smoke``: the tiny CI config)
   --batch N           requests (paged: arriving two steps apart)
@@ -44,6 +48,10 @@ Paged only (each raises without ``--paged``):
                       each request alone through the contiguous prefill
                       and scatters it into the pool ('per_request'; the
                       prefix cache is then off)
+  --prefill-impl I    chunk attention of the batched paged prefill:
+                      'gather' attends the gathered block-table view,
+                      'kernel' (or the reference's name 'pallas') runs
+                      kernel K2 in place; 'auto' (default) follows --impl
   --cache-dtype D     pool storage: bf16 (the compute dtype) | int8 |
                       fp8 (e4m3; 1-byte codes with per-slot f32 scales,
                       dequantized in the kernels' registers; needs
@@ -67,10 +75,20 @@ Paged only (each raises without ``--paged``):
                       Either flag also arms the roofline drift channel:
                       every step records the hwmodel time predicted for
                       the scheme it dispatched beside the measured time
+  --engine E          sync (default): each tick steps the device and
+                      waits; async (``AsyncPagedMLAEngine``): the host
+                      schedules tick N+1 while the device runs tick N,
+                      and only the sampled ids come back, a tick later
+                      (the same tokens)
+  --serve             instead of the synthetic batch, serve HTTP/SSE on
+                      --host:--port (``launch.server``): POST
+                      /v1/generate, /v1/cancel; GET /v1/health,
+                      /v1/metrics.  Ctrl-C stops it
+  --host H / --port N frontend bind address (default 127.0.0.1:8000)
 
 Weights are random (``--seed``) and f32, as in the JAX launcher; the
-contiguous path decodes greedily.  Speculative decoding, the async
-engine, the HTTP frontend and meshes are on ROADMAP.md.
+contiguous path decodes greedily.  Speculative decoding and meshes are
+on ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -87,8 +105,11 @@ from ..core.schemes import auto_dispatch
 from ..hwmodel.platforms import PLATFORMS
 from ..nn import module as nnm
 from ..obs import Telemetry
-from ..runtime import (PagedMLAEngine, Request, SamplingParams, blocks_for,
-                       make_prefill_step, make_serve_step)
+from ..runtime import (AsyncPagedMLAEngine, PagedMLAEngine, Request,
+                       SamplingParams, blocks_for, make_prefill_step,
+                       make_serve_step)
+
+ENGINES = {"sync": PagedMLAEngine, "async": AsyncPagedMLAEngine}
 
 
 def build_engine(cfg, params, *, batch: int, max_len: int, n: int = 1,
@@ -99,16 +120,20 @@ def build_engine(cfg, params, *, batch: int, max_len: int, n: int = 1,
                  admission_age_bound: int = 64, cache_dtype: str = "bf16",
                  temperature: float = 0.0, top_k: int = 0,
                  sample_seed: int = 0, telemetry: Optional[Telemetry] = None,
-                 compute_dtype=torch.float32,
-                 device="cuda") -> PagedMLAEngine:
-    """A paged engine sized for ``batch`` request groups of up to
+                 compute_dtype=torch.float32, device="cuda",
+                 engine: str = "sync", prefill_impl: Optional[str] = None,
+                 cuda_graphs: Optional[bool] = None) -> PagedMLAEngine:
+    """A paged engine (``engine`` 'sync': ``PagedMLAEngine``, 'async':
+    ``AsyncPagedMLAEngine``) sized for ``batch`` request groups of up to
     ``max_len`` tokens (prompt + generation), each forked ``n`` ways.
     ``prefill_chunk`` 0 prefills per request (``prefill_mode=
-    'per_request'``)."""
+    'per_request'``).  ``cuda_graphs`` None: graphs on a CUDA device."""
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r}; expected {ENGINES}")
     per_req = blocks_for(max_len + 1, block_size)
     # fork children share the prompt blocks; each needs its own tail run
     per_group = per_req + (n - 1) * blocks_for(gen + 1, block_size)
-    return PagedMLAEngine(
+    return ENGINES[engine](
         cfg, params, num_blocks=num_blocks or (1 + batch * per_group),
         block_size=block_size, max_batch=max(batch, n),
         max_blocks_per_req=per_req, compute_dtype=compute_dtype, impl=impl,
@@ -118,7 +143,8 @@ def build_engine(cfg, params, *, batch: int, max_len: int, n: int = 1,
         prefill_chunk=prefill_chunk or 32, cache_dtype=cache_dtype,
         admission=admission, admission_age_bound=admission_age_bound,
         temperature=temperature, top_k=top_k, sample_seed=sample_seed,
-        telemetry=telemetry, device=device)
+        telemetry=telemetry, device=device, prefill_impl=prefill_impl,
+        cuda_graphs=cuda_graphs)
 
 
 def synthetic_requests(cfg, *, batch: int, prompt_len: int, gen: int,
@@ -279,6 +305,24 @@ def main(argv: Optional[List[str]] = None):
     ap.add_argument("--metrics", default="",
                     help="write metrics-registry JSON to this path and "
                          "print the table")
+    ap.add_argument("--prefill-impl", default="auto",
+                    choices=("auto", "gather", "kernel", "pallas"),
+                    help="chunked-prefill attention: 'gather' attends the "
+                         "block-table view, 'kernel' ('pallas', the "
+                         "reference's name) runs K2 in place; 'auto' "
+                         "follows --impl")
+    ap.add_argument("--engine", default="sync", choices=tuple(ENGINES),
+                    help="paged engine: 'sync' steps the device and waits; "
+                         "'async' schedules tick N+1 while the device runs "
+                         "tick N (the same tokens)")
+    ap.add_argument("--serve", action="store_true",
+                    help="serve the HTTP/SSE frontend (launch.server) on "
+                         "--host:--port instead of the synthetic batch; "
+                         "requires --paged")
+    ap.add_argument("--host", default="127.0.0.1",
+                    help="frontend bind host (with --serve)")
+    ap.add_argument("--port", type=int, default=8000,
+                    help="frontend bind port (with --serve)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
     # the contiguous path decodes greedily and has no telemetry hooks
@@ -287,7 +331,10 @@ def main(argv: Optional[List[str]] = None):
                   "--temperature": args.temperature != 0.0,
                   "--top-k": args.top_k != 0,
                   "--trace": bool(args.trace),
-                  "--metrics": bool(args.metrics)}
+                  "--metrics": bool(args.metrics),
+                  "--engine": args.engine != "sync",
+                  "--serve": args.serve,
+                  "--prefill-impl": args.prefill_impl != "auto"}
     if not args.paged and any(paged_only.values()):
         raise SystemExit(f"{[k for k, v in paged_only.items() if v]} "
                          f"require --paged")
@@ -314,7 +361,17 @@ def main(argv: Optional[List[str]] = None):
         admission_age_bound=args.admission_age_bound,
         cache_dtype=args.cache_dtype, temperature=args.temperature,
         top_k=args.top_k, sample_seed=args.seed, telemetry=tel,
-        device=args.device)
+        device=args.device, engine=args.engine,
+        prefill_impl=args.prefill_impl)
+    # capture before the first request, so no tick times a capture
+    engine.warm_up()
+    if args.serve:
+        from .server import Frontend
+        fe = Frontend(engine, host=args.host, port=args.port)
+        print(f"[serve] HTTP/SSE frontend on http://{fe.host}:{fe.port} "
+              f"(engine={args.engine}; POST /v1/generate, /v1/cancel; "
+              f"GET /v1/health, /v1/metrics; Ctrl-C to stop)", flush=True)
+        return fe.serve_forever()
     serve_paged(engine, synthetic_requests(
         cfg, batch=args.batch, prompt_len=args.prompt_len, gen=args.gen,
         n=args.n, seed=args.seed))

@@ -64,18 +64,24 @@ def _moe_local(x, router_w, gate_up, down, *, cfg: ModelConfig):
 
     # ---- sort-based slot assignment ------------------------------------
     flat_e = sel.reshape(-1)                                      # (T*k,)
-    flat_t = torch.arange(T, device=dev).repeat_interleave(k)
+    flat_t = torch.arange(T * k, device=dev) // k
     flat_g = gate_vals.reshape(-1)
     order = torch.sort(flat_e, stable=True).indices
     se, st, sg = flat_e[order], flat_t[order], flat_g[order]
     seg_start = torch.searchsorted(se, torch.arange(E, device=dev))
     pos = torch.arange(T * k, device=dev) - seg_start[se]
     keep = pos < C
+    # dropped assignments land in a spare column C that is cut off: no
+    # boolean indexing, whose size depends on the data (a host sync, and
+    # no CUDA graph could capture it)
+    col = torch.where(keep, pos, C)
 
-    tok_tbl = torch.full((E, C), T, dtype=torch.long, device=dev)  # T = pad
-    tok_tbl[se[keep], pos[keep]] = st[keep]
-    gate_tbl = torch.zeros((E, C), dtype=torch.float32, device=dev)
-    gate_tbl[se[keep], pos[keep]] = sg[keep]
+    tok_tbl = torch.full((E, C + 1), T, dtype=torch.long, device=dev)
+    tok_tbl[se, col] = st                                         # T = pad
+    tok_tbl = tok_tbl[:, :C]
+    gate_tbl = torch.zeros((E, C + 1), dtype=torch.float32, device=dev)
+    gate_tbl[se, col] = sg
+    gate_tbl = gate_tbl[:, :C]
 
     x_pad = torch.cat([x, x.new_zeros((1, D))], dim=0)
     x_e = x_pad[tok_tbl]                                          # (E, C, D)
@@ -86,11 +92,18 @@ def _moe_local(x, router_w, gate_up, down, *, cfg: ModelConfig):
     y_e = torch.bmm(h, down.to(x.dtype))
     y_e = y_e * gate_tbl[..., None].to(x.dtype)
 
-    out = x.new_zeros((T + 1, D))
-    out.index_add_(0, tok_tbl.reshape(-1), y_e.reshape(-1, D))
+    # combine: each token gathers its k expert rows (a dropped assignment
+    # reads a zero row) and sums them in rank order.  A scatter-add
+    # (index_add_) would sum them with atomics in no fixed order, so one
+    # step's bf16 output would differ run to run, and a routing or
+    # capacity decision downstream could turn that into another token.
+    flat_row = torch.empty_like(order)
+    flat_row[order] = torch.where(keep, se * C + pos, E * C)
+    y_rows = torch.cat([y_e.reshape(E * C, D), y_e.new_zeros((1, D))])
+    out = y_rows[flat_row].reshape(T, k, D).sum(dim=1)
     dropped = 1.0 - keep.float().mean()
     aux = {"balance": balance, "z_loss": z_loss, "dropped_frac": dropped}
-    return out[:T], aux
+    return out, aux
 
 
 def moe_apply(params, cfg: ModelConfig, x) -> Tuple[torch.Tensor, Dict]:

@@ -1,5 +1,6 @@
-"""Continuous-batching MLA serving engine over the paged latent pool (port
-of the synchronous ``repro.runtime.engine.PagedMLAEngine``).
+"""Continuous-batching MLA serving engines over the paged latent pool
+(ports of ``repro.runtime.engine.PagedMLAEngine`` and
+``AsyncPagedMLAEngine``).
 
 Glues the host-side ``ContinuousScheduler`` (admission, radix prefix cache,
 block tables, copy-on-write, preemption) to the device steps of
@@ -22,32 +23,52 @@ block tables, copy-on-write, preemption) to the device steps of
 
 ``impl='kernel'`` runs the paged attention in the CUDA kernels (K1 for
 decode, K2 for prefill chunks; their plain versions on CPU tensors);
-``impl='ref'`` on the gathered block-table view.  The pool is updated in
-place, in the compute dtype (``cache_dtype='bf16'``) or quantized
-(``'int8'`` / ``'fp8'``: 1-byte codes with per-slot f32 scales, written
-by the chunked prefill and the decode step, dequantized in the kernels'
-registers).  ``prefill_mode='per_request'`` prefills each admitted
-request alone through the contiguous MHA-mode prefill
-(``steps.make_prefill_step``) and scatters its cache into the pool in
-whole blocks; it turns the prefix cache off and refuses a quantized pool,
-as the reference does.
+``impl='ref'`` on the gathered block-table view; ``prefill_impl``
+('gather' | 'kernel', or the reference's name 'pallas' for 'kernel')
+overrides the chunk attention alone.  The pool is updated in place, in
+the compute dtype (``cache_dtype='bf16'``) or quantized (``'int8'`` /
+``'fp8'``: 1-byte codes with per-slot f32 scales, written by the chunked
+prefill and the decode step, dequantized in the kernels' registers).
+``prefill_mode='per_request'`` prefills each admitted request alone
+through the contiguous MHA-mode prefill (``steps.make_prefill_step``) and
+scatters its cache into the pool in whole blocks; it turns the prefix
+cache off and refuses a quantized pool, as the reference does.
+
+On a CUDA device the decode step (one per scheme) and the prefill chunk
+run as CUDA graphs (``runtime.graphs.StepGraph``; the reference's
+``jit``), captured at first use or by :meth:`PagedMLAEngine.warm_up`,
+their capture time in ``EngineStats.capture_s``.  ``cuda_graphs=False``
+runs the same steps eagerly; asking for graphs on the CPU raises.  A
+step's inputs are copied from pinned host memory into the fixed device
+buffers the steps read (``_upload``), so no upload waits for the device.
+
+Two engines share this machinery:
+
+  * ``PagedMLAEngine`` — the synchronous tick: schedule -> device step
+    (ending in a synchronize) -> sample, one barrier per tick;
+  * ``AsyncPagedMLAEngine`` — the double-buffered tick: the host runs
+    tick N+1's scheduling while the device still executes tick N; the
+    decode step samples on the device (``steps.make_paged_sample_step``)
+    and only the (B,) ids come back, through a pinned buffer and a CUDA
+    event, one tick late — token-identical to the synchronous engine.
 
 ``telemetry=`` (``obs.Telemetry``) arms the reference's hooks: the
 per-step spans (step / schedule / prefill / prefill_chunk / device_step /
-host_sample), the roofline drift rows (each decode tick timed around
-``device_step``, which ends in a device synchronize, and each admitted
-batch's prefill, priced on ``platform``), the step-time and pool
-histograms, and the prefix cache's and scheduler's instants.  Off (the
-default) each site costs one attribute check.  Speculative decoding,
-the async engine and meshes are not ported yet: asking for them raises
-``NotImplementedError`` (ROADMAP.md).
+host_sample; the async engine's device_step on its own track,
+``TID_DEVICE``), the roofline drift rows (each decode tick timed around
+``device_step``, which ends in a device synchronize — dispatch to ready
+in the async engine — and each admitted batch's prefill, priced on
+``platform``), the step-time and pool histograms, and the prefix cache's
+and scheduler's instants.  Off (the default) each site costs one
+attribute check.  Speculative decoding and meshes are not ported yet:
+asking for them raises ``NotImplementedError`` (ROADMAP.md).
 """
 from __future__ import annotations
 
 import dataclasses
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -56,11 +77,23 @@ from .. import models
 from ..core import cache as cachelib
 from ..core import mla as mlalib
 from ..core.schemes import PlatformPoint, auto_dispatch
+from ..kernels.mla_decode import mla_decode_paged_kernel
+from ..kernels.mla_prefill import mla_prefill_paged_kernel
 from ..models.common import ModelConfig
 from ..obs import OFF_TELEMETRY, Telemetry
+from ..obs.trace import PID_ENGINE
+from .graphs import StepGraph
 from .loop import drive
 from .scheduler import ContinuousScheduler, Request, blocks_for
-from .steps import make_prefill_step, sample_tokens, scatter_prefill_to_paged
+from .steps import (make_paged_sample_step, make_prefill_step, sample_tokens,
+                    scatter_prefill_to_paged)
+
+# PID_ENGINE tid 0 carries the host-phase spans; the async engine's
+# device spans live on their own track, so a device step spanning two
+# host ticks cannot break tid 0's nesting (obs.trace.validate_trace).
+TID_DEVICE = 1
+# the kernel wrappers whose launches a graph replays (runtime.graphs)
+PAGED_KERNELS = (mla_decode_paged_kernel, mla_prefill_paged_kernel)
 
 
 def _not_ported(what: str):
@@ -83,6 +116,7 @@ class EngineStats:
     util_pool_sum: float = 0.0
     util_samples: int = 0
     wall: float = 0.0
+    capture_s: float = 0.0          # CUDA graph warm-up + capture time
     schemes_used: Dict[str, int] = dataclasses.field(default_factory=dict)
 
     def summary(self) -> Dict[str, float]:
@@ -102,10 +136,15 @@ class EngineStats:
             "cache_utilization": self.util_valid_sum / n,
             "pool_occupancy": self.util_pool_sum / n,
             "schemes_used": dict(self.schemes_used),
+            "capture_s": self.capture_s,
         }
 
 
 class PagedMLAEngine:
+    # the step kind a decode tick runs: logits here, sampled ids in the
+    # async engine
+    _decode_kind = "decode"
+
     def __init__(self, cfg: ModelConfig, params, *, num_blocks: int,
                  block_size: int, max_batch: int,
                  max_blocks_per_req: Optional[int] = None,
@@ -115,13 +154,15 @@ class PagedMLAEngine:
                  enable_prefix_cache: bool = True,
                  prefill_chunk: int = 32,
                  prefill_mode: str = "chunked",
+                 prefill_impl: Optional[str] = None,
                  temperature: float = 0.0, top_k: int = 0,
                  sample_seed: int = 0,
                  mesh=None, spec_k: int = 0,
                  cache_dtype: str = "bf16",
                  admission: str = "cache_aware",
                  admission_age_bound: int = 64,
-                 telemetry: Optional[Telemetry] = None, device="cuda"):
+                 telemetry: Optional[Telemetry] = None, device="cuda",
+                 cuda_graphs: Optional[bool] = None):
         if cfg.attn_kind != "mla":
             raise NotImplementedError("PagedMLAEngine requires an MLA model")
         if scheme == "auto" and platform is None:
@@ -133,6 +174,13 @@ class PagedMLAEngine:
                              f"'kernel'")
         if prefill_mode not in ("chunked", "per_request"):
             raise ValueError(f"unknown prefill_mode {prefill_mode!r}")
+        if prefill_impl in ("auto", ""):
+            prefill_impl = None
+        if prefill_impl == "pallas":     # the reference's name for K2
+            prefill_impl = "kernel"
+        if prefill_impl not in (None, "gather", "kernel"):
+            raise ValueError(f"unknown prefill_impl {prefill_impl!r} "
+                             "(None/'auto' | 'gather' | 'kernel')")
         cache_dtype = "bf16" if cache_dtype is None else cache_dtype
         cachelib.cache_dtype_info(cache_dtype)   # validate the name early
         if cache_dtype != "bf16" and prefill_mode != "chunked":
@@ -150,6 +198,12 @@ class PagedMLAEngine:
         self.cfg = cfg
         self.mla = cfg.mla_config()
         self.device = torch.device(device)
+        if cuda_graphs is None:
+            cuda_graphs = self.device.type == "cuda"
+        if cuda_graphs and self.device.type != "cuda":
+            raise ValueError(f"cuda_graphs=True needs a CUDA device, got "
+                             f"{self.device}")
+        self.cuda_graphs = bool(cuda_graphs)
         # 'ru' streams the precomputed absorbed weights; attach them once
         # so every scheme sees the same param tree.  A fixed non-ru scheme
         # never reads them — skip the compute and memory.
@@ -162,6 +216,9 @@ class PagedMLAEngine:
         self.platform = platform
         self.block_size = block_size
         self.prefill_mode = prefill_mode
+        # chunk attention: None follows ``impl``; 'gather' / 'kernel'
+        # override it with the decode path pinned
+        self.prefill_impl = prefill_impl
         self.prefill_chunk = int(prefill_chunk)
         if self.prefill_chunk < 1:
             raise ValueError("prefill_chunk must be >= 1")
@@ -184,6 +241,10 @@ class PagedMLAEngine:
                                             compute_dtype, self.device,
                                             cache_dtype)
         self.pending = np.zeros((max_batch,), np.int32)   # next token to feed
+        # the fixed device buffers the steps read (a graph holds their
+        # addresses), filled from pinned host memory every step
+        self._inputs = self._step_inputs()
+        self._graphs: Dict[Tuple[str, str], StepGraph] = {}
         self._last_scheme: Optional[str] = None
         self._last_point = (1, 1)     # (batch, cache_len) of the last pick
         self.stats = EngineStats()
@@ -207,8 +268,142 @@ class PagedMLAEngine:
 
     # ----------------------------------------------------------- device ---
 
+    def _host(self, a: np.ndarray, dtype=None) -> torch.Tensor:
+        """A host array as a tensor a copy to the device need not wait
+        for: pinned on a CUDA engine (the caching host allocator keeps
+        the pinned block until the copy that reads it has run, so no
+        pinned memory is rewritten under a queued copy).  ``dtype``
+        converts on the host: a conversion inside the copy would stage
+        through pageable memory, and that copy waits."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if dtype is not None:
+            t = t.to(dtype)
+        return t.pin_memory() if self.device.type == "cuda" else t
+
     def _dev(self, a: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(a, device=self.device)
+        """A small host array on the engine's device, by a copy that does
+        not wait."""
+        return self._host(a).to(self.device, non_blocking=True)
+
+    def _upload(self, dst: Dict[str, torch.Tensor],
+                src: Dict[str, np.ndarray]) -> None:
+        """Copy this step's host arrays into its fixed device buffers,
+        without waiting."""
+        for k, a in src.items():
+            dst[k].copy_(self._host(a, dst[k].dtype), non_blocking=True)
+
+    def _step_inputs(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """The device buffers of each step kind's inputs: 'decode'
+        (token, block table, lengths) and 'chunk' (tokens (B, C), block
+        table, lengths, n_valid)."""
+        B, nb, C = self.sched.max_batch, self.sched.max_blocks, \
+            self.prefill_chunk
+
+        def z(*shape, dtype=torch.int32):
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+
+        return {"decode": dict(token=z(B, dtype=torch.long),
+                               block_table=z(B, nb), lengths=z(B)),
+                "chunk": dict(tokens=z(B, C, dtype=torch.long),
+                              block_table=z(B, nb), lengths=z(B),
+                              n_valid=z(B))}
+
+    def _chunk_impl(self) -> str:
+        """Chunk-attention impl: ``prefill_impl`` when set, else
+        ``impl``."""
+        return {"gather": "ref", "kernel": "kernel",
+                None: self.impl}[self.prefill_impl]
+
+    def _step_fn(self, kind: str, scheme: str):
+        """The device step of ``kind`` under ``scheme``, as a function of
+        its input buffers.  It holds the params and the pool, not the
+        engine, so a graph of it dies with the engine."""
+        params, cfg, pool = self.params, self.cfg, self.pool
+        kw = dict(compute_dtype=self.compute_dtype, scheme=scheme)
+        if kind == "chunk":
+            chunk_impl = self._chunk_impl()
+
+            def chunk(tokens, block_table, lengths, n_valid):
+                logits, _ = models.prefill_chunk_paged(
+                    params, cfg, tokens, pool, block_table, lengths,
+                    n_valid, impl=chunk_impl, **kw)
+                return logits
+            return chunk
+        impl = self.impl
+        if kind == "decode":
+            def decode(token, block_table, lengths):
+                logits, _ = models.decode_step(params, cfg, token, pool,
+                                               block_table, lengths,
+                                               impl=impl, **kw)
+                return logits
+            return decode
+        step = make_paged_sample_step(
+            cfg, impl=impl, temperature=self.temperature,
+            top_k=self.top_k, sample_seed=self._sample_seed, **kw)
+
+        def sample(token, block_table, lengths, rids, poss):
+            return step(params, token, pool, block_table, lengths, rids,
+                        poss)
+        return sample
+
+    def _graph(self, kind: str, scheme: str) -> StepGraph:
+        """The captured graph of (kind, scheme), captured now if it is
+        not yet: warmed up and captured on zeroed inputs (null block
+        tables, length 0: every write lands in the null block), its time
+        added to ``EngineStats.capture_s``."""
+        g = self._graphs.get((kind, scheme))
+        if g is not None:
+            return g
+        inputs = self._inputs[kind]
+        for t in inputs.values():
+            t.zero_()
+        params, pool = self.params, self.pool
+        g = StepGraph(self._step_fn(kind, scheme), inputs,
+                      held=lambda: [*cachelib.pool_leaves(pool),
+                                    *cachelib.pool_leaves(params)],
+                      counters=PAGED_KERNELS, name=f"{kind}/{scheme}")
+        g.capture()
+        self.stats.capture_s += g.capture_s
+        self._graphs[(kind, scheme)] = g
+        return g
+
+    def _run_step(self, kind: str, scheme: str,
+                  arrays: Dict[str, np.ndarray]):
+        """Upload ``arrays`` into ``kind``'s input buffers and run the
+        step: its graph's replay on a CUDA engine with graphs, the eager
+        step otherwise.  Returns the step's output (a graph's is valid
+        until its next replay)."""
+        if self.cuda_graphs:
+            g = self._graph(kind, scheme)
+            self._upload(self._inputs[kind], arrays)
+            return g.replay()
+        self._upload(self._inputs[kind], arrays)
+        return self._step_fn(kind, scheme)(**self._inputs[kind])
+
+    def warm_up(self) -> float:
+        """Capture the graphs a serve will replay — the decode step of
+        every scheme the engine may dispatch, and the prefill chunk —
+        before the first request, so no tick pays for a capture.  Returns the seconds it took (also
+        in ``EngineStats.capture_s``); a no-op without graphs."""
+        if not self.cuda_graphs:
+            return 0.0
+        t0 = self.stats.capture_s
+        schemes = ("seq", "rc", "ru") if self.scheme == "auto" \
+            else (self.scheme,)
+        for scheme in schemes:
+            self._graph(self._decode_kind, scheme)
+        if self.prefill_mode == "chunked":
+            self._graph("chunk", self._chunk_scheme())
+        return self.stats.capture_s - t0
+
+    def graph_plans(self) -> Dict[str, Dict[str, dict]]:
+        """The kernel plans each captured graph recorded at capture,
+        by graph name."""
+        return {g.name: dict(g.plans) for g in self._graphs.values()}
+
+    def close(self) -> None:
+        """Drop the captured graphs (their memory pools go with them)."""
+        self._graphs.clear()
 
     def _pick_scheme(self) -> str:
         active = self.sched.active_slots
@@ -291,12 +486,10 @@ class PagedMLAEngine:
                     finishing.append((slot, req))
                     del pending[slot]
             with tr.span("prefill_chunk"):
-                logits, self.pool = models.prefill_chunk_paged(
-                    self.params, self.cfg, self._dev(tokens).long(),
-                    self.pool, self._dev(self.sched.block_table),
-                    self._dev(lens), self._dev(nv),
-                    compute_dtype=self.compute_dtype, impl=self.impl,
-                    scheme=self._chunk_scheme())
+                logits = self._run_step(
+                    "chunk", self._chunk_scheme(),
+                    dict(tokens=tokens, block_table=self.sched.block_table,
+                         lengths=lens, n_valid=nv))
             self.stats.prefill_tokens += int(nv.sum())
             self.stats.prefill_chunks += 1
             for slot, req in finishing:
@@ -317,7 +510,8 @@ class PagedMLAEngine:
             if seq_len > cached:
                 # the cost model's names: 'pallas' = the paged prefill
                 # kernel (K2 here), 'gather' = the block-table view
-                impl = "pallas" if self.impl == "kernel" else "gather"
+                impl = "pallas" if self._chunk_impl() == "kernel" \
+                    else "gather"
                 drift.record_prefill(self._chunk_scheme(), len(admitted),
                                      seq_len, C, impl,
                                      time.perf_counter() - t_pf,
@@ -364,24 +558,26 @@ class PagedMLAEngine:
         """Raise ValueError unless the per-request ``SamplingParams`` are
         servable by this engine: the engine-global knobs (temperature,
         top_k, seed) must equal the engine's own when set; None means
-        'inherit'.  The reference's rule: its async engine bakes them into
-        the compiled step."""
+        'inherit'.  The reference's rule, and its messages word for word
+        (the frontend returns them in its 400 bodies): the async engine's
+        step, compiled there and captured here, holds them."""
         if sp is None:
             return
         if sp.temperature is not None \
                 and float(sp.temperature) != self.temperature:
             raise ValueError(
                 f"temperature={sp.temperature} != engine temperature "
-                f"{self.temperature}; set it engine-wide or leave None to "
-                f"inherit")
+                f"{self.temperature}; per-request overrides are baked "
+                f"into the compiled step — set it engine-wide or leave "
+                f"None to inherit")
         if sp.top_k is not None and int(sp.top_k) != self.top_k:
-            raise ValueError(f"top_k={sp.top_k} != engine top_k "
-                             f"{self.top_k}; set it engine-wide or leave "
-                             f"None")
+            raise ValueError(
+                f"top_k={sp.top_k} != engine top_k {self.top_k}; set it "
+                f"engine-wide or leave None")
         if sp.seed is not None and int(sp.seed) != self._sample_seed:
-            raise ValueError(f"seed={sp.seed} != engine sample_seed "
-                             f"{self._sample_seed}; set it engine-wide or "
-                             f"leave None")
+            raise ValueError(
+                f"seed={sp.seed} != engine sample_seed "
+                f"{self._sample_seed}; set it engine-wide or leave None")
 
     def submit(self, req: Request) -> None:
         self.validate_sampling(req.sampling)
@@ -469,13 +665,11 @@ class PagedMLAEngine:
                     self.stats.schemes_used.get(scheme, 0) + 1
                 t_dev = time.perf_counter() if drift else 0.0
                 with tr.span("device_step"):
-                    logits, self.pool = models.decode_step(
-                        self.params, self.cfg,
-                        self._dev(self.pending).long(), self.pool,
-                        self._dev(self.sched.block_table),
-                        self._dev(self.sched.lengths),
-                        compute_dtype=self.compute_dtype, impl=self.impl,
-                        scheme=scheme)
+                    logits = self._run_step(
+                        "decode", scheme,
+                        dict(token=self.pending,
+                             block_table=self.sched.block_table,
+                             lengths=self.sched.lengths))
                     # the reference blocks here too: the span and the
                     # drift row time the step, not its launch
                     self._sync_device()
@@ -523,4 +717,346 @@ class PagedMLAEngine:
         out["fork_children"] = float(self.sched.forked_children)
         out["cache_dtype"] = self.cache_dtype
         out["cache_token_bytes"] = float(self.cache_token_bytes)
+        out["cuda_graphs"] = self.cuda_graphs
         return out
+
+
+# --------------------------------------------------------- async engine ----
+
+
+@dataclasses.dataclass
+class _Inflight:
+    """One dispatched-but-unaccounted fused decode step."""
+    tokens: torch.Tensor                 # (B,) ids: pinned host (CUDA)
+    ready: Optional[torch.cuda.Event]    # recorded after their copy (CUDA)
+    entries: List[Tuple[int, Request]]   # (dispatch slot, request)
+    deferred: List[Tuple[int, Request]]  # slot released, token value pending
+    t_disp_tr: float                     # tracer ``now()`` clock at dispatch
+    t_disp_perf: float                   # perf_counter at dispatch (drift)
+    scheme: str
+    point: Tuple[int, int]               # (batch, cache_len) dispatch point
+    fetched: Optional[np.ndarray] = None  # host copy, once someone needed it
+
+    def fetch(self) -> np.ndarray:
+        """The step's ids on the host: waits on the step's event and on
+        nothing else."""
+        if self.fetched is None:
+            if self.ready is not None:
+                self.ready.synchronize()
+            self.fetched = self.tokens.numpy().copy()
+        return self.fetched
+
+
+class AsyncPagedMLAEngine(PagedMLAEngine):
+    """Double-buffered engine: host work for tick N+1 overlaps the
+    device's execution of tick N.
+
+    Per tick:
+
+      1. *schedule* — while the device still runs the step dispatched
+         last tick: requests whose in-flight token is structurally their
+         last (``len(tokens) + 1 >= max_new``) release their slot and
+         blocks at once (the token VALUE arrives in step 3); block
+         growth, preemption, CoW drain and admission run as usual.  CoW
+         copies, prefill chunks and the decode dispatch are queued on the
+         one current stream, after the step in flight, so the device's
+         order of operations is the synchronous engine's;
+      2. *prefill* — admitted prompts chunk-prefill (finishing rows sample
+         on the host path, which waits for the device: admission ticks
+         pay this bubble, steady decode ticks do not);
+      3. *host_sample* — wait on the in-flight step's event, read its (B,)
+         ids from the pinned buffer (the only device-to-host transfer of
+         a decode tick), emit the retrospective ``device_step`` span on
+         the device track (``TID_DEVICE``), and account the tokens:
+         append, stop sequences, deferred finishes, ``pending``;
+      4. *dispatch* — upload the tick's inputs from pinned memory,
+         run the fused decode + sample step
+         (``steps.make_paged_sample_step``; its graph on a CUDA engine),
+         queue the copy of its ids to the pinned buffer, record the event,
+         advance ``lengths`` structurally, and return without waiting —
+         unless every dispatched token is its request's last: then
+         nothing can overlap it, and it is accounted in the same tick
+         (the reference waits for one more tick).
+
+    Token identity with the synchronous engine (greedy and seeded) holds
+    because sampling keys fold (rid, absolute position) and each logits
+    row depends only on its own request: the one-tick-late accounting
+    moves WHEN slots free up, never what a request's next token is.  A
+    preempted victim with an unaccounted in-flight token folds it into
+    its replayed prompt first (:meth:`_fixup_preempted`), and a cancelled
+    one keeps it (:meth:`_process_cancels`; the reference drops it): the
+    two early waits, so replay and cancel match the synchronous engine
+    exactly.
+    """
+
+    _decode_kind = "sample"
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        dec = self._inputs["decode"]
+        B = dec["token"].shape[0]
+        self._inputs["sample"] = dict(
+            dec, rids=torch.zeros(B, dtype=torch.long, device=self.device),
+            poss=torch.zeros(B, dtype=torch.long, device=self.device))
+        # one pinned buffer for the ids suffices: a step is accounted
+        # (its ids read) before the next one is dispatched
+        self._ids_host = torch.zeros(B, dtype=torch.long,
+                                     pin_memory=self.device.type == "cuda")
+        self._inflight: Optional[_Inflight] = None
+
+    @property
+    def idle(self) -> bool:
+        return self.sched.all_done and self._inflight is None
+
+    # ------------------------------------------------------------- tick ----
+
+    def step(self) -> None:
+        t0 = time.perf_counter()
+        step_i = self.stats.steps
+        self._process_cancels(step_i)
+        was_decoding = self.sched.n_active > 0 or self._inflight is not None
+        tr = self.tel.tracer
+
+        with tr.span("step"):
+            with tr.span("schedule"):
+                self._release_structural_finishes()
+                preempted = self.sched.ensure_step_capacity()
+                self.stats.preemptions += len(preempted)
+                if preempted:
+                    self._fixup_preempted(preempted, step_i)
+                self._drain_cow()
+                admitted = self.sched.try_admit(step_i)
+                # partial-hit tail copies queued by try_admit land before
+                # prefill
+                self._drain_cow()
+            for _, req in admitted:
+                self.stats.admissions += 1
+                self.stats.prompt_tokens += req.plen
+                if was_decoding:
+                    self.stats.mid_gen_admissions += 1
+            if admitted:
+                with tr.span("prefill"):
+                    if self.prefill_mode == "chunked":
+                        self._run_chunked_prefill(admitted, step_i)
+                    else:
+                        self._run_per_request_prefill(admitted, step_i)
+                # fork-group tail copies land before both forks' decode
+                # writes
+                self._drain_cow()
+
+            self._account(step_i)
+
+            active = self.sched.active_slots
+            if active:
+                self._dispatch(active)
+                if all(len(r.tokens) + 1 >= r.max_new
+                       for _, r in self._inflight.entries):
+                    # every dispatched token is its request's last: no
+                    # later tick depends on this one's slots, so account
+                    # it now and finish them in this tick, as the
+                    # synchronous engine does (its step count then equals
+                    # the synchronous engine's)
+                    self._account(step_i)
+
+            u = self.sched.utilization()
+            self.stats.util_valid_sum += u["valid_frac"]
+            self.stats.util_pool_sum += u["pool_frac"]
+            self.stats.util_samples += 1
+        self.stats.steps += 1
+        dt = time.perf_counter() - t0
+        self.stats.wall += dt
+        if self.tel.metrics is not None:
+            m = self.tel.metrics
+            m.histogram("step_ms").record(dt * 1e3)
+            m.histogram("pool_occupancy").record(u["pool_frac"])
+            m.histogram("pool_allocated_bytes").record(
+                u["allocated_blocks"] * self.block_size
+                * self.cache_token_bytes)
+
+    # --------------------------------------------------- pipeline stages ---
+
+    def _process_cancels(self, step_i: int) -> None:
+        """Cancel the flagged requests, after settling the in-flight token
+        of each that is running: the synchronous engine had already
+        appended that token (or finished the request with it) when the
+        cancel arrived, so the cancelled output matches its own.  A
+        cancel of a running request is the one other place this engine
+        waits for a step early."""
+        with self._cancel_lock:
+            rids, self._cancels = self._cancels, set()
+        inf = self._inflight
+        if rids and inf is not None:
+            keep = []
+            for slot, req in inf.entries:
+                if req.rid not in rids or req.slot != slot \
+                        or req.finish_reason:
+                    keep.append((slot, req))
+                    continue
+                tok = int(inf.fetch()[slot])
+                req.tokens.append(tok)
+                self.stats.decode_tokens += 1
+                self.pending[slot] = tok
+                self.sched._check_stop(req)
+                if req.done:
+                    self.sched._finish(slot, step_i)
+            inf.entries = keep
+        for rid in sorted(rids):
+            self.sched.cancel(rid, step_i)
+
+    def _feed_freed(self, slot: int, tok: int) -> None:
+        """Leave ``tok`` as the next input of ``slot`` if the slot is still
+        free, as the synchronous engine leaves every sampled token there.
+        A free slot rides along in each decode step, and at a MoE capacity
+        that drops tokens its row competes with the live rows for expert
+        slots: its input must be the synchronous engine's, or live tokens
+        could differ.  A slot already re-admitted has its new request's
+        token."""
+        if self.sched.slots[slot] is None:
+            self.pending[slot] = tok
+
+    def _release_structural_finishes(self) -> None:
+        """Free the slots of in-flight requests whose pending token is
+        structurally their last (budget-predicted; stop hits cannot be
+        predicted and are found at account time, one tick later).  Their
+        blocks become admissible now, while the device works."""
+        inf = self._inflight
+        if inf is None:
+            return
+        keep = []
+        for slot, req in inf.entries:
+            if req.slot == slot and not req.finish_reason \
+                    and len(req.tokens) + 1 >= req.max_new:
+                self.sched._release_slot(slot)
+                inf.deferred.append((slot, req))
+            else:
+                keep.append((slot, req))
+        inf.entries = keep
+
+    def _fixup_preempted(self, preempted: List[Request],
+                         step_i: int) -> None:
+        """Recompute preemption under an unaccounted in-flight token: the
+        scheduler already folded ``tokens`` into the victim's prompt; the
+        in-flight token must join that fold for the replay to match the
+        synchronous engine.  The one place this engine waits for a step
+        early (preemption is the overloaded-pool path)."""
+        inf = self._inflight
+        if inf is None:
+            return
+        victims = {id(r) for r in preempted}
+        keep, fix = [], []
+        for slot, req in inf.entries:
+            (fix if id(req) in victims else keep).append((slot, req))
+        inf.entries = keep
+        if not fix:
+            return
+        toks = inf.fetch()
+        for slot, req in fix:
+            tok = int(toks[slot])
+            self._feed_freed(slot, tok)
+            req.prompt = np.concatenate(
+                [req.prompt, np.asarray([tok], np.int32)])
+            req.max_new -= 1
+            self.stats.decode_tokens += 1
+            # the folded token may complete a stop sequence: the sync
+            # engine would have finished the request instead of
+            # preempting it, so finish it here (it is back on the waiting
+            # queue) and it never replays past its stop
+            if self.sched._check_stop(req):
+                self.sched.waiting.remove(req)
+                req.finished_step = step_i
+                req.finish_t = time.perf_counter()
+                self.sched.finished.append(req)
+
+    def _account(self, step_i: int) -> None:
+        """Read and account the in-flight step's token ids (the only
+        device-to-host wait of a steady decode tick)."""
+        inf = self._inflight
+        if inf is None:
+            return
+        self._inflight = None
+        tr = self.tel.tracer
+        drift = self.tel.drift if (self.tel.drift is not None
+                                   and self.tel.drift.active) else None
+        with tr.span("host_sample"):
+            already = inf.fetched is not None
+            toks = inf.fetch()
+            if tr.enabled:
+                tr.set_thread_name(PID_ENGINE, TID_DEVICE, "device stream")
+                tr.complete(
+                    "device_step", PID_ENGINE, TID_DEVICE,
+                    inf.t_disp_tr, tr.now(),
+                    args={"scheme": inf.scheme,
+                          "batch": len(inf.entries) + len(inf.deferred)})
+            if drift and not already:
+                # dispatch to ready: the device time when the device is
+                # the bottleneck, an upper bound otherwise
+                b, cl = inf.point
+                drift.record_decode(inf.scheme, b, cl,
+                                    time.perf_counter() - inf.t_disp_perf)
+            for slot, req in inf.entries:
+                if req.finish_reason == "cancelled" or req.slot != slot:
+                    continue
+                tok = int(toks[slot])
+                req.tokens.append(tok)
+                self.stats.decode_tokens += 1
+                self.pending[slot] = tok
+                self.sched._check_stop(req)
+                if req.done:
+                    self.sched._finish(slot, step_i)
+            for slot, req in inf.deferred:
+                if req.finish_reason == "cancelled":
+                    continue
+                tok = int(toks[slot])
+                self._feed_freed(slot, tok)
+                req.tokens.append(tok)
+                self.stats.decode_tokens += 1
+                self.sched._check_stop(req)
+                if not req.finish_reason:
+                    req.finish_reason = "length"
+                req.finished_step = step_i
+                req.finish_t = time.perf_counter()
+                self.sched.finished.append(req)
+
+    def _dispatch(self, active: List[int]) -> None:
+        """Run the fused decode + sample step for the current actives and
+        return without waiting; ``lengths`` advance structurally (the step
+        writes each fed token's latent at position lengths[s])."""
+        scheme = self._pick_scheme()
+        self.stats.schemes_used[scheme] = \
+            self.stats.schemes_used.get(scheme, 0) + 1
+        B = self.sched.max_batch
+        rids = np.zeros((B,), np.int64)
+        poss = np.zeros((B,), np.int64)
+        entries = []
+        for s in active:
+            req = self.sched.slots[s]
+            rids[s] = req.rid
+            poss[s] = req.plen + len(req.tokens)
+            entries.append((s, req))
+        tr = self.tel.tracer
+        t_tr, t_perf = tr.now(), time.perf_counter()
+        ids = self._run_step("sample", scheme, dict(
+            token=self.pending, block_table=self.sched.block_table,
+            lengths=self.sched.lengths, rids=rids, poss=poss))
+        ready = None
+        if self.device.type == "cuda":
+            self._ids_host.copy_(ids, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(self.device))
+        else:
+            self._ids_host.copy_(ids)
+        self._inflight = _Inflight(
+            tokens=self._ids_host, ready=ready, entries=entries, deferred=[],
+            t_disp_tr=t_tr, t_disp_perf=t_perf, scheme=scheme,
+            point=self._last_point)
+        for s in active:
+            self.sched.lengths[s] += 1
+            if int(self.sched.lengths[s]) % self.block_size == 0:
+                # a generated block just structurally completed; its
+                # latent write is in flight, but any later reader is
+                # queued after it on the same stream
+                self.sched.register_decode_blocks(s)
+
+    def _drain_inflight(self) -> None:
+        """Account any in-flight step now."""
+        self._account(self.stats.steps)

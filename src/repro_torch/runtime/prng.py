@@ -39,6 +39,15 @@ F32_TINY = torch.finfo(torch.float32).tiny
 IntLike = Union[int, torch.Tensor]
 
 
+def _word(v: IntLike, device) -> torch.Tensor:
+    """An int64 tensor on ``device``: a tensor as it is, a Python int
+    made there by a fill (never copied from host memory, so a CUDA graph
+    can capture every draw)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=device, dtype=torch.int64)
+    return torch.full((), int(v), dtype=torch.int64, device=device)
+
+
 def _rotl(x: torch.Tensor, d: int) -> torch.Tensor:
     return ((x << d) | (x >> (32 - d))) & MASK
 
@@ -50,8 +59,7 @@ def threefry2x32(k0: IntLike, k1: IntLike, x0: IntLike, x1: IntLike
     dev = next(v.device for v in (k0, k1, x0, x1)
                if isinstance(v, torch.Tensor))
     k0, k1, x0, x1 = torch.broadcast_tensors(
-        *(torch.as_tensor(v, dtype=torch.int64, device=dev)
-          for v in (k0, k1, x0, x1)))
+        *(_word(v, dev) for v in (k0, k1, x0, x1)))
     ks = (k0, k1, k0 ^ k1 ^ KS_PARITY)
     x0 = (x0 + ks[0]) & MASK
     x1 = (x1 + ks[1]) & MASK
@@ -68,12 +76,11 @@ def threefry2x32(k0: IntLike, k1: IntLike, x0: IntLike, x1: IntLike
 def PRNGKey(seed: int, device=None) -> torch.Tensor:
     """``jax.random.PRNGKey(seed)`` without 64-bit mode: the key words
     are (0, seed mod 2^32)."""
-    return torch.tensor([0, int(seed) & MASK], dtype=torch.int64,
-                        device=device)
+    return torch.stack([_word(0, device), _word(int(seed) & MASK, device)])
 
 
 def _data(data: IntLike, key: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(data, dtype=torch.int64, device=key.device) & MASK
+    return _word(data, key.device) & MASK
 
 
 def fold_in(key: torch.Tensor, data: IntLike) -> torch.Tensor:
@@ -114,14 +121,14 @@ def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
     bits = random_bits(key, shape)
     one = 0x3F800000                       # the bits of 1.0f
     floats = ((bits >> 9) | one).to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    lo = torch.full((), minval, dtype=torch.float32, device=key.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=key.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 
 def _mul32(a: torch.Tensor, b: IntLike) -> torch.Tensor:
     """(a * b) mod 2^32 for a, b in [0, 2^32), without leaving int64."""
-    b = torch.as_tensor(b, dtype=torch.int64, device=a.device)
+    b = _word(b, a.device)
     lo = a * (b & 0xFFFF)
     hi = ((a * (b >> 16)) & 0xFFFF) << 16
     return (lo + hi) & MASK

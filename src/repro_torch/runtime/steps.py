@@ -11,6 +11,9 @@ paged pool.
     make_serve_step(cfg)                       -> fn(params, token, cache,
                                                      index) -> (logits,
                                                                 cache)
+    make_paged_sample_step(cfg, ...)           -> fn(params, token, pool,
+                                                     block_tables, lengths,
+                                                     rids, poss) -> tokens
     scatter_prefill_to_paged(pool, cache, pages) -> pool
     sample_tokens(logits, rids, poss, ...)     -> (B,) token ids
     sample_scores(logits, rids, poss, ...)     -> (B, V) perturbed scores
@@ -26,6 +29,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Tuple
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -189,6 +193,37 @@ def make_serve_step(cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
     return run
 
 
+def make_paged_sample_step(cfg: ModelConfig, *,
+                           compute_dtype=torch.bfloat16, impl: str = "ref",
+                           scheme: str = "seq", temperature: float = 0.0,
+                           top_k: int = 0, sample_seed: int = 0):
+    """The paged decode step with sampling folded in (the async engine's
+    step; the reference's ``make_paged_sample_step``):
+
+        fn(params, token (B,), pool, block_tables (B, nb), lengths (B,),
+           rids (B,), poss (B,)) -> next_token (B,) int64
+
+    the pool updated in place.  Every slot is sampled (inactive rows draw
+    tokens the scheduler discards) by :func:`sample_tokens`: greedy, or
+    temperature / top-k under fold(fold(seed, rids[b]), poss[b]) — rows
+    are independent, so each live row gets the token the host path's
+    gathered rows get.  Only the (B,) ids leave the step; the (B, V)
+    logits stay on the device.  ``rids`` / ``poss`` are int64 tensors on
+    the pool's device (unused when greedy).  No op in it waits for the
+    host or copies from it, so a CUDA graph can capture it
+    (``runtime.graphs``)."""
+
+    def run(params, token, pool, block_tables, lengths, rids, poss):
+        logits, _ = models.decode_step(params, cfg, token, pool,
+                                       block_tables, lengths,
+                                       compute_dtype=compute_dtype,
+                                       impl=impl, scheme=scheme)
+        return sample_tokens(logits, rids, poss, temperature=temperature,
+                             top_k=top_k, sample_seed=sample_seed)
+
+    return run
+
+
 def _layer_pairs(pool_tree, cache_tree):
     """(pool, cache) of each layer of two trees laid out alike."""
     if isinstance(pool_tree, dict) and "ckv" in pool_tree:
@@ -245,9 +280,10 @@ def sample_scores(logits, rids, poss, *, temperature: float, top_k: int = 0,
     temperature, which is what XLA compiles the reference's
     ``rows / temperature`` into."""
     dev = logits.device
-    recip = torch.tensor(1.0, dtype=torch.float32) \
-        / torch.tensor(temperature, dtype=torch.float32)
-    rows = logits.float() * recip.to(dev)
+    # a host float holding the f32 reciprocal exactly: the multiply runs
+    # in f32 on either device, and nothing is copied to the card
+    recip = float(np.float32(1.0) / np.float32(temperature))
+    rows = logits.float() * recip
     if top_k > 0:
         kth = torch.topk(rows, min(top_k, rows.shape[-1]),
                          dim=-1).values[:, -1:]

@@ -827,3 +827,253 @@ def test_sampler_on_card_matches_the_cpu(top_k):
         assert not (bad & ~near_tie(cpu_scores)).any()
         mismatched += int(bad.sum())
     assert mismatched <= 1
+
+
+# ------------------------------------------- CUDA graphs of the engine ----
+#
+# The smoke model in f32 at drop-free MoE capacity (the seed has no greedy
+# near-ties), served eagerly and from CUDA graphs (runtime.graphs) by the
+# synchronous and the async engine.  A replay runs the kernels an eager
+# step launches on the same inputs, so tokens agree exactly.
+
+
+def _smoke_model(dtype=torch.float32, drop_free=True):
+    import dataclasses
+
+    from repro_torch import configs, models
+    from repro_torch.nn import module as nnm
+    dev = _cuda()
+    cfg = configs.smoke("deepseek-v2-236b")
+    if drop_free:
+        cfg = dataclasses.replace(cfg,
+                                  capacity_factor=cfg.n_experts / cfg.top_k)
+    return cfg, nnm.init_params(models.model_defs(cfg), seed=0, dtype=dtype,
+                                device=dev)
+
+
+def _smoke_requests(vocab, n_fork=1):
+    from repro_torch.runtime import Request, SamplingParams
+    rng = np.random.default_rng(3)
+    specs = [(12, 9, 0), (9, 7, 0), (17, 8, 1), (8, 10, 2)]
+    return [Request(rid=3 * i, prompt=rng.integers(0, vocab, p)
+                    .astype(np.int32), arrival=a,
+                    sampling=SamplingParams(max_tokens=g,
+                                            n=n_fork if i == 1 else 1))
+            for i, (p, g, a) in enumerate(specs)]
+
+
+def _smoke_engine(cfg, params, engine="sync", dtype=torch.float32, **kw):
+    from repro_torch.runtime import AsyncPagedMLAEngine, PagedMLAEngine
+    cls = AsyncPagedMLAEngine if engine == "async" else PagedMLAEngine
+    kw.setdefault("num_blocks", 64)
+    return cls(cfg, params, block_size=4, max_batch=4, max_blocks_per_req=12,
+               scheme="seq", impl="kernel", prefill_chunk=8,
+               compute_dtype=dtype, device="cuda", **kw)
+
+
+COUNTERS = ("steps", "decode_tokens", "prefill_tokens", "prompt_tokens",
+            "prefill_chunks", "admissions", "mid_gen_admissions",
+            "preemptions", "scheme_switches", "schemes_used")
+
+
+def _serve(eng, reqs):
+    s = eng.run(reqs)
+    assert len(eng.sched.finished) == len(reqs) + sum(
+        r.sampling.n - 1 for r in reqs)
+    return ({r.rid: (tuple(r.output), r.finish_reason)
+             for r in eng.sched.finished}, {k: s[k] for k in COUNTERS})
+
+
+@pytest.mark.parametrize("sampling", [{}, dict(temperature=0.8, top_k=5,
+                                               sample_seed=7)],
+                         ids=["greedy", "seeded"])
+@pytest.mark.parametrize("cache_dtype", ["bf16", "fp8"])
+def test_graphs_match_eager_on_card(cache_dtype, sampling):
+    """Sync eager, sync graphs and async graphs: the same tokens and the
+    same EngineStats counters, on an unquantized (the compute dtype) and
+    an fp8 pool, with an n = 2 fork and a small pool that preempts."""
+    cfg, params = _smoke_model()
+    for num_blocks in (64, 10):
+        runs = [_serve(_smoke_engine(cfg, params, engine, num_blocks=num_blocks,
+                                     cache_dtype=cache_dtype,
+                                     cuda_graphs=graphs, **sampling),
+                       _smoke_requests(cfg.vocab, n_fork=2))
+                for engine, graphs in (("sync", False), ("sync", True),
+                                       ("async", True), ("async", False))]
+        for toks, stats in runs[1:]:
+            assert toks == runs[0][0]
+            assert stats == runs[0][1]
+
+
+@pytest.mark.parametrize("cache_dtype", ["bf16", "fp8"])
+def test_serving_is_bitwise_repeatable_on_card(cache_dtype):
+    """bf16 at the config's own MoE capacity, so rows compete for expert
+    slots, with idle rows and chunk padding writing the null block: two
+    eager serves, a graph serve and an async serve leave the same tokens
+    and the same pool bytes, null block included."""
+    cfg, params = _smoke_model(torch.bfloat16, drop_free=False)
+    runs = []
+    for engine, graphs in (("sync", False), ("sync", False), ("sync", True),
+                           ("async", True)):
+        eng = _smoke_engine(cfg, params, engine, dtype=torch.bfloat16,
+                            cache_dtype=cache_dtype, cuda_graphs=graphs)
+        toks, _ = _serve(eng, _smoke_requests(cfg.vocab, n_fork=2))
+        runs.append((toks, [t.contiguous().view(torch.uint8).cpu()
+                            for t in tcache.pool_leaves(eng.pool)]))
+    for toks, pool in runs[1:]:
+        assert toks == runs[0][0]
+        assert all(torch.equal(a, b) for a, b in zip(pool, runs[0][1]))
+
+
+def test_graph_replays_count_kernel_launches_on_card():
+    """K1 / K2 launches counted through replays equal layers x decode
+    ticks and layers x prefill chunks; the plans recorded at capture are
+    the eager plans, bf16 on the tensor-core walk."""
+    from repro_torch.kernels.mla_decode import mla_decode_paged_kernel as k1
+    from repro_torch.kernels.mla_prefill import mla_prefill_paged_kernel as k2
+    cfg, params = _smoke_model(torch.bfloat16)
+    for engine in ("sync", "async"):
+        eng = _smoke_engine(cfg, params, engine, dtype=torch.bfloat16)
+        eng.warm_up()
+        assert eng.stats.capture_s > 0
+        k1.launches = k2.launches = 0
+        s = eng.run(_smoke_requests(cfg.vocab))
+        ticks = sum(s["schemes_used"].values())
+        assert k1.launches == cfg.n_layers * ticks > 0
+        assert k2.launches == cfg.n_layers * s["prefill_chunks"] > 0
+        plans = eng.graph_plans()
+        eager = _smoke_engine(cfg, params, engine, dtype=torch.bfloat16,
+                              cuda_graphs=False)
+        eager.run(_smoke_requests(cfg.vocab))
+        dec = plans[f"{eng._decode_kind}/seq"]["mla_decode_paged_kernel"]
+        pre = plans["chunk/seq"]["mla_prefill_paged_kernel"]
+        assert dec == k1.last_plan and pre == k2.last_plan
+        assert dec["n_split"] > 0 and pre["n_split"] > 0
+
+
+def test_graph_addresses_stay_fixed_on_card():
+    """The pool's leaves and the static input buffers keep their storage
+    across replays; a pool leaf replaced behind the graph's back makes
+    the next replay raise."""
+    from repro_torch.core import cache as tcache
+    cfg, params = _smoke_model()
+    eng = _smoke_engine(cfg, params, "async")
+    eng.warm_up()
+    ptrs = [t.data_ptr() for t in tcache.pool_leaves(eng.pool)] + [
+        t.data_ptr() for d in eng._inputs.values() for t in d.values()]
+    eng.run(_smoke_requests(cfg.vocab))
+    assert ptrs == [t.data_ptr() for t in tcache.pool_leaves(eng.pool)] + [
+        t.data_ptr() for d in eng._inputs.values() for t in d.values()]
+    g = eng._graphs[("sample", "seq")]
+    g.check_addresses()
+    layer = next(iter(eng.pool.values())) if isinstance(eng.pool, dict) \
+        else eng.pool[0]
+    while "ckv" not in layer:
+        layer = next(iter(layer.values())) if isinstance(layer, dict) \
+            else layer[0]
+    layer["ckv"] = layer["ckv"].clone()
+    with pytest.raises(RuntimeError, match="moved since capture"):
+        g.replay()
+
+
+def test_broken_capture_raises_on_card():
+    """A step that waits for the host cannot be captured: the capture
+    raises, and the engine raises instead of running the step eagerly."""
+    from repro_torch.runtime import StepGraph
+    dev = _cuda()
+    x = torch.ones(4, device=dev)
+
+    def syncs(x):
+        return x * float(x.sum().item())
+
+    with pytest.raises(RuntimeError):
+        StepGraph(syncs, {"x": x}).capture()
+    cfg, params = _smoke_model()
+    eng = _smoke_engine(cfg, params, "sync")
+    real = eng._step_fn
+
+    def broken(kind, scheme):
+        fn = real(kind, scheme)
+
+        def run(**inputs):
+            out = fn(**inputs)
+            return out[torch.nonzero(out[:, 0] > 0)[:, 0]]
+        return run
+
+    eng._step_fn = broken
+    with pytest.raises(RuntimeError):
+        eng.run(_smoke_requests(cfg.vocab))
+    assert not eng._graphs
+
+
+def test_async_readback_waits_on_its_event_only_on_card(monkeypatch):
+    """Steady decode ticks of the async engine make no synchronizing call:
+    under ``set_sync_debug_mode('error')`` and with the device-wide and
+    stream-wide synchronize disabled, the ticks run, and each reads its
+    ids after waiting on the step's event."""
+    from repro_torch.runtime import Request, SamplingParams
+    cfg, params = _smoke_model()
+    eng = _smoke_engine(cfg, params, "async")
+    eng.warm_up()
+    rng = np.random.default_rng(5)
+    for i in range(3):
+        eng.submit(Request(rid=i, prompt=rng.integers(0, cfg.vocab, 6)
+                           .astype(np.int32),
+                           sampling=SamplingParams(max_tokens=20)))
+    while eng.sched.waiting or eng.stats.steps < 3:
+        eng.step()
+    waits = []
+    real_sync = torch.cuda.Event.synchronize
+
+    def counted(ev):
+        waits.append(ev)
+        return real_sync(ev)
+
+    def refuse(*a, **k):
+        raise AssertionError("a decode tick synchronized the device")
+
+    monkeypatch.setattr(torch.cuda.Event, "synchronize", counted)
+    monkeypatch.setattr(torch.cuda, "synchronize", refuse)
+    monkeypatch.setattr(torch.cuda.Stream, "synchronize", refuse)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(5):
+            inf = eng._inflight
+            eng.step()
+            assert inf is not None and any(w is inf.ready for w in waits)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    monkeypatch.undo()
+    eng.run([])
+    sync = _smoke_engine(cfg, params, "sync", cuda_graphs=False)
+    rng = np.random.default_rng(5)
+    for i in range(3):
+        sync.submit(Request(rid=i, prompt=rng.integers(0, cfg.vocab, 6)
+                            .astype(np.int32),
+                            sampling=SamplingParams(max_tokens=20)))
+    sync.run([])
+    assert {r.rid: r.output for r in eng.sched.finished} == \
+        {r.rid: r.output for r in sync.sched.finished}
+
+
+def test_graph_engines_leave_no_memory_behind_on_card():
+    """An engine's graphs go with it: building, serving and closing more
+    graph engines leaves no more device memory allocated than the first
+    one did (cuBLAS keeps a workspace per stream it ran on, so the
+    warm-ups share one side stream)."""
+    import gc
+    cfg, params = _smoke_model(torch.bfloat16)
+
+    def cycle():
+        eng = _smoke_engine(cfg, params, "async", dtype=torch.bfloat16)
+        eng.warm_up()
+        eng.run(_smoke_requests(cfg.vocab))
+        eng.close()
+        del eng
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_allocated()
+
+    first = cycle()
+    assert [cycle() for _ in range(3)] == [first] * 3

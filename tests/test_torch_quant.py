@@ -149,6 +149,44 @@ def test_pool_writes_are_bit_equal(cache_dtype):
         np.testing.assert_array_equal(a.numpy()[:2], np.asarray(b)[:2])
 
 
+@pytest.mark.parametrize("cache_dtype", ("bf16",) + CACHE_DTYPES)
+@pytest.mark.parametrize("kind", ["decode", "chunk"])
+def test_rows_sharing_a_pool_slot_write_the_last_rows_values(kind,
+                                                             cache_dtype):
+    """Idle rows and chunk padding all write into the null block: a batched
+    write leaves every leaf bit-equal to writing the rows one by one in
+    order (the last row's values where rows share a slot), so the pool's
+    content does not depend on which of several writes lands first."""
+    rng = np.random.default_rng(4)
+    N, bs, Dl, Dr, C = 8, 4, 16, 8, 3
+    bt = torch.tensor([[0, 0], [3, 4], [0, 0], [5, 1], [0, 0]],
+                      dtype=torch.int32)
+    lens = torch.tensor([0, 5, 0, 2, 0], dtype=torch.int32)
+    nv = torch.tensor([0, 3, 0, 2, 0], dtype=torch.int32)
+    B = len(lens)
+    shape = (B,) if kind == "decode" else (B, C)
+    ckv = _t(rng.standard_normal(shape + (Dl,)).astype(np.float32))
+    kr = _t(rng.standard_normal(shape + (Dr,)).astype(np.float32))
+
+    def write(pool, rows):
+        if kind == "decode":
+            tcache.update_latent_paged(pool, bt[rows], lens[rows], ckv[rows],
+                                       kr[rows])
+        else:
+            tcache.update_latent_paged_chunk(pool, bt[rows], lens[rows],
+                                             nv[rows], ckv[rows], kr[rows])
+
+    def pool():
+        return tcache.paged_latent_cache(N, bs, Dl, Dr, torch.float32, "cpu",
+                                         cache_dtype)
+    got, want = pool(), pool()
+    write(got, slice(None))
+    for b in range(B):
+        write(want, slice(b, b + 1))
+    for k in got:
+        np.testing.assert_array_equal(_bits(got[k]), _bits(want[k]), k)
+
+
 def test_pool_bytes_and_names():
     for cd in (None, "bf16", "int8", "fp8"):
         assert tcache.bytes_per_token_latent(512, 64, 2, cd) == \

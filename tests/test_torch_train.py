@@ -442,11 +442,8 @@ def test_synthetic_lm_is_deterministic_and_restorable():
 def test_checkpoints_cross_read_both_ways(tmp_path, dtype):
     """A params + f32 AdamW-state checkpoint written by either package
     restores in the other, leaf for leaf (the port's period list is
-    stored stacked, the JAX layout).  With bf16 params, the JAX package's
-    checkpoint (ml_dtypes leaves, read back by numpy as 2-byte voids)
-    restores in the port bit for bit; the port's bf16 leaves are uint16
-    patterns the JAX package does not read as bf16, so that direction is
-    f32 only."""
+    stored stacked, the JAX layout).  bf16 leaves go both ways bit for
+    bit: both packages store them as 2-byte voids."""
     jp, tp = _params()
     if dtype == "bfloat16":
         jp = jax.tree.map(lambda p: p.astype(jnp.bfloat16), jp)
@@ -460,13 +457,15 @@ def test_checkpoints_cross_read_both_ways(tmp_path, dtype):
     jtree = {"params": jp, "opt": js}
     ttree = {"params": tp, "opt": ts}
 
-    if dtype == "float32":
-        TStore(str(tmp_path / "t")).save(3, ttree, data_state={"step": 3})
-        restored, meta = JStore(str(tmp_path / "t")).restore(
-            3, jax.tree.map(np.asarray, jtree))
-        assert meta["step"] == 3 and meta["data_state"] == {"step": 3}
-        for a, b in zip(jax.tree.leaves(restored), jax.tree.leaves(jtree)):
-            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    TStore(str(tmp_path / "t")).save(3, ttree, data_state={"step": 3})
+    restored, meta = JStore(str(tmp_path / "t")).restore(
+        3, jax.tree.map(np.asarray, jtree))
+    assert meta["step"] == 3 and meta["data_state"] == {"step": 3}
+    for a, b in zip(jax.tree.leaves(restored), jax.tree.leaves(jtree)):
+        b = np.asarray(b)
+        if b.dtype == jnp.bfloat16:               # bit for bit
+            a, b = np.asarray(a).view(np.uint16), b.view(np.uint16)
+        np.testing.assert_array_equal(np.asarray(a), b)
 
     JStore(str(tmp_path / "j")).save(4, jtree, data_state={"step": 4})
     store = TStore(str(tmp_path / "j"))
@@ -483,6 +482,34 @@ def test_checkpoints_cross_read_both_ways(tmp_path, dtype):
 
 
 def test_checkpoint_bf16_leaves_round_trip_as_uint16(tmp_path):
+    """A checkpoint in the port's older form (bf16 leaves stored as uint16
+    bit patterns and listed under ``bf16`` in meta.json) restores bit for
+    bit."""
+    tree = {"w": torch.randn(3, 5).to(torch.bfloat16),
+            "layers": [{"b": torch.randn(4).to(torch.bfloat16)},
+                       {"b": torch.randn(4).to(torch.bfloat16)}],
+            "bias": torch.randn(7).to(torch.bfloat16)}
+
+    def u16(t):
+        return t.view(torch.int16).numpy().view(np.uint16)
+
+    d = tmp_path / "step_00000005"
+    os.makedirs(d)
+    np.savez(d / "arrays.npz", w=u16(tree["w"]), bias=u16(tree["bias"]),
+             layers__b=np.stack([u16(t["b"]) for t in tree["layers"]]))
+    with open(d / "meta.json", "w") as f:
+        json.dump({"step": 5, "data_state": {}, "meta": {},
+                   "bf16": ["/bias", "/layers/b", "/w"], "done": True}, f)
+    got, meta = TStore(str(tmp_path)).restore(5, tree)
+    assert meta["step"] == 5
+    for k in ("w", "bias"):
+        assert got[k].dtype == torch.bfloat16 and torch.equal(got[k],
+                                                              tree[k])
+    for g, t in zip(got["layers"], tree["layers"]):
+        assert torch.equal(g["b"], t["b"])
+
+
+def test_checkpoint_bf16_leaves_round_trip_as_v2(tmp_path):
     tree = {"w": torch.randn(3, 5).to(torch.bfloat16),
             "layers": [{"b": torch.randn(4).to(torch.bfloat16)},
                        {"b": torch.randn(4).to(torch.bfloat16)}],
@@ -493,7 +520,9 @@ def test_checkpoint_bf16_leaves_round_trip_as_uint16(tmp_path):
         meta = json.load(f)
     assert meta["done"] and sorted(meta["bf16"]) == ["/layers/b", "/w"]
     with np.load(tmp_path / "step_00000001" / "arrays.npz") as z:
-        assert z["w"].dtype == np.uint16 and z["layers__b"].shape == (2, 4)
+        # the JAX package's own storage of a bf16 leaf (2-byte voids)
+        assert z["w"].dtype == np.dtype("V2") \
+            and z["layers__b"].shape == (2, 4)
     got, _ = store.restore(1, tree)
     assert torch.equal(got["w"], tree["w"]) and got["w"].dtype == \
         torch.bfloat16
