@@ -24,6 +24,11 @@ Phases, each printing its own lines; any failure exits non-zero:
      (chunk rows whose limit falls on a 64-position tile edge, n_valid <
      C, idle requests, and a table as wide as the pool; bf16, int8 and
      fp8 pools) against its plain walk and ``ref.mla_prefill_split_ref``;
+     bf16 K2 at phase 9's verify width C = k + 1 = 5 (n_valid < C, an
+     idle request; bf16, int8 and fp8 pools) the same way, then its time
+     beside its plain version, SDPA, the bound with each prefix read once
+     and the bound with each chunk row reading its own prefix, and beside
+     K2 at C = 1 and K1 on the same prefixes;
      bf16 K4 on its tensor-core walk (a query tile edge, the causal
      diagonal cutting a key tile, a window, a query offset, GQA / MQA,
      rows that attend no key) and bf16 K5 / K6 on theirs at the same
@@ -118,7 +123,28 @@ Phases, each printing its own lines; any failure exits non-zero:
      direct run of the same requests on the sync engine but for near
      ties counted against ``NEAR_TIE``, /v1/health and
      /v1/metrics answer, K1 / K2 launches = layers x ticks / chunks, and
-     the server is shut down.
+     the server is shut down;
+  9. speculative decoding (run after phase 8, on phase 3's model): (a)
+     the f32 smoke config (phase 5's seed and load), ``impl='kernel'`` on
+     graphs: plain decode, then the identity draft ('self') at k = 2 and
+     4 and the one-layer draft ('shallow:1') at k = 4: tokens identical
+     to plain decode's, the identity draft accepting every draft, K1 / K2
+     launches = draft layers x draft steps / layers x (chunks + verify
+     rounds) + draft layers x chunks through the replays; (b) phase 3's
+     load at full width, bf16, drop-free MoE capacity, on the sync engine
+     on graphs in turns (plain, shallow:1 k = 4, self k = 2, shallow:1
+     k = 4, plain): tokens equal the first plain run's but for near ties
+     counted against ``NEAR_TIE`` (the margins of a plain run), every
+     identity-draft rejection on a near tie of the verify logits, the
+     same launch counts, K2 on its tensor-core route at C = k + 1 in
+     every verify graph, the two shallow runs identical; per run
+     tokens/s, accept rate, tokens a round, capture time, peak memory and
+     the verify and draft spans against the plain tick's device_step
+     (trace medians), and the serve's time summed by span (prefill;
+     decode: draft + verify, or device_step; host_sample); (c) the async
+     engine with shallow:1 k = 4 and
+     telemetry on: the sync engine's tokens, the trace valid, verify rows
+     in the drift report.
 
 The line before the last is the kernel table as JSON (``launches`` sums
 the main paths that ran a kernel, ``launches_by_path`` splits them;
@@ -300,22 +326,25 @@ SCALE = (128 + 64) ** -0.5          # DeepSeek-V2's qk_nope + qk_rope
 
 
 def paged_work(q_bytes: int, row_bytes: int):
-    """(bytes, operations) of K1 and K2 at phase 2's load: q read once,
-    each cached position the row attends read once (``row_bytes``: both
-    leaves of one position, scales included), the output written once,
-    the block-table entries and per-request ints read once; two products
-    of (Dl + Dr) and Dl per (query row, position)."""
+    """(bytes, operations) of K1 and K2 at phase 2's load: the q rows that
+    attend read once (an inactive slot's or a row past n_valid comes out
+    0 and needs none), each cached position the row attends read once
+    (``row_bytes``: both leaves of one position, scales included), every
+    output row written once, the block-table entries and per-request ints
+    read once; two products of (Dl + Dr) and Dl per (query row,
+    position)."""
     pre_rows_pos = sum(ln + c + 1 for ln, nv in zip(PRE_LENGTHS, PRE_NVALID)
                        for c in range(nv))
     blocks = lambda need: sum(-(-n // BS) for n in need)
+    dec_rows = sum(i >= 0 for i in DEC_INDICES)
     return {
         "mla_decode_paged": (
-            B * H * (DL + DR + DL) * q_bytes + sum(NEED_DEC) * row_bytes
-            + (blocks(NEED_DEC) + B) * 4,
+            (dec_rows * (DL + DR) + B * DL) * H * q_bytes
+            + sum(NEED_DEC) * row_bytes + (blocks(NEED_DEC) + B) * 4,
             2 * H * sum(NEED_DEC) * (DL + DR + DL)),
         "mla_prefill_paged": (
-            B * C * H * (DL + DR + DL) * q_bytes + sum(NEED_PRE) * row_bytes
-            + (blocks(NEED_PRE) + 2 * B) * 4,
+            (sum(PRE_NVALID) * (DL + DR) + B * C * DL) * H * q_bytes
+            + sum(NEED_PRE) * row_bytes + (blocks(NEED_PRE) + 2 * B) * 4,
             2 * H * pre_rows_pos * (DL + DR + DL)),
     }
 
@@ -1071,6 +1100,144 @@ def check_prefill_tc_edges(torch):
     return worst
 
 
+# phase 9's verify step on K2: chunk C = k + 1 with k = SPEC_K; each
+# request's resident prefix (the decode indices of phase 2's load) and its
+# window: n_valid < C on a budget-clipped row, an idle request
+SPEC_K = 4
+CV = SPEC_K + 1
+VERIFY_LENGTHS = [1055, 255, 511, 1023, 300, 767, 15, 0]
+VERIFY_NVALID = [5, 5, 5, 3, 5, 1, 2, 0]
+
+
+def verify_work(cv, lengths, n_valid, q_bytes: int, row_bytes: int):
+    """(bytes, operations, bytes with every valid chunk row reading its
+    own prefix) of K2 over (B, cv) query rows: the valid rows' q read once
+    (a row past n_valid comes out 0 and needs none), each cached position
+    a request's rows attend read once, every output row written once, the
+    table entries and per-request ints read once; two products of
+    (Dl + Dr) and Dl per (query row, position)."""
+    need = [ln + nv if nv else 0 for ln, nv in zip(lengths, n_valid)]
+    rows_pos = sum(ln + c + 1 for ln, nv in zip(lengths, n_valid)
+                   for c in range(nv))
+    fixed = (sum(n_valid) * (DL + DR) + B * cv * DL) * H * q_bytes \
+        + (sum(-(-n // BS) for n in need) + 2 * B) * 4
+    return (fixed + sum(need) * row_bytes,
+            2 * H * rows_pos * (DL + DR + DL),
+            fixed + rows_pos * row_bytes)
+
+
+def check_verify_kernel(torch):
+    """K2 at the verify width C = k + 1 (phase 9's step): bf16 q on bf16,
+    int8 and fp8 pools, both rescales, held row by row and elementwise
+    against its plain walk and the split walk's model, on its
+    tensor-core route, rows past n_valid exactly 0; then its time on the
+    bf16 pool beside its plain version, SDPA and two bounds — the
+    prefix read once for all of a request's rows (what the cost model's
+    ``mla_verify_cost`` prices) and read once per chunk row (what a CTA
+    per (request, chunk row) does) — and beside K2 at C = 1 and K1 on the
+    same prefixes.  Returns the row for the kernel table."""
+    import torch.nn.functional as F
+
+    from repro_torch.core import cache as cachelib
+    from repro_torch.kernels import mla_decode, mla_prefill, ref
+
+    kern = mla_prefill.mla_prefill_paged_kernel
+    tol = TOL["bfloat16"]
+    need = [ln + nv for ln, nv in zip(VERIFY_LENGTHS, VERIFY_NVALID)]
+    ckv, krope, bt = paged_inputs(torch, torch.float32, need, 11)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(12)
+    q = torch.randn((B, CV, H, DL + DR), generator=g,
+                    device="cuda").bfloat16()
+    i32 = lambda a: torch.tensor(a, dtype=torch.int32, device="cuda")
+    ln, nv = i32(VERIFY_LENGTHS), i32(VERIFY_NVALID)
+    worst = 0.0
+    for pool in ("bf16", "int8", "fp8"):
+        if pool == "bf16":
+            c, r, qkw = ckv.bfloat16(), krope.bfloat16(), {}
+        else:
+            qdtype, qmax = cachelib.cache_dtype_info(pool)
+            c, cs = cachelib.quantize_latent(ckv, qmax, qdtype)
+            r, rs = cachelib.quantize_latent(krope, qmax, qdtype)
+            qkw = dict(ckv_scales=cs, krope_scales=rs)
+        for rescale in ref.RESCALES:
+            kw = dict(softmax_scale=SCALE, rescale=rescale, **qkw)
+            got = kern(q, c, r, bt, ln, nv, **kw)
+            torch.cuda.synchronize()
+            plan = launched_plan(kern)
+            wants = (ref.mla_prefill_paged_ref(q, c, r, bt, ln, nv, **kw),
+                     ref.mla_prefill_split_ref(
+                         q, c, r, bt, ln, nv, split_pos=plan["split_pos"],
+                         **kw))
+            rels = [row_rel(torch, got, w) for w in wants]
+            ok = max(rels) <= tol and all(
+                torch.allclose(got.float(), w.float(), atol=tol, rtol=tol)
+                for w in wants)
+            zero = all(bool((got[b, n:] == 0).all())
+                       for b, n in enumerate(VERIFY_NVALID))
+            log(f"[kernels] mla_prefill_paged at the verify width C = {CV} "
+                f"(k = {SPEC_K}), bf16 {pool} pool, {rescale}: largest "
+                f"per-row |kernel - plain| / |plain| {rels[0]:.3g}, vs the "
+                f"split walk {rels[1]:.3g} (bound {tol}), "
+                f"{plan_text(plan)}, dead rows exactly 0: {zero}")
+            if not (ok and zero):
+                raise AssertionError(f"mla_prefill_paged at C = {CV} on a "
+                                     f"{pool} pool disagrees")
+            if plan["grid"][2] != B * CV:
+                raise AssertionError(f"K2 at C = {CV} planned {plan}")
+            worst = max(worst, *rels)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    c, r = ckv.bfloat16(), krope.bfloat16()
+    kw = dict(softmax_scale=SCALE, rescale="exp_add")
+    run = functools.partial(kern, q, c, r, bt, ln, nv, **kw)
+    row = dict(ms=time_ms(torch, run, flush))
+    row["plan"] = launched_plan(kern)
+    row["ms_with_host"] = time_ms(torch, run, flush, sleep=False)
+    row["plain_ms"] = time_ms(torch, functools.partial(
+        ref.mla_prefill_paged_ref, q, c, r, bt, ln, nv, **kw), flush, reps=5)
+    S = bt.shape[1] * BS
+    kv = torch.cat([c[bt.long()].reshape(B, S, DL),
+                    r[bt.long()].reshape(B, S, DR)], dim=-1)
+    pos = torch.arange(S, device="cuda")
+    qpos = ln[:, None].long() + torch.arange(CV, device="cuda")[None, :]
+    mask = ((pos[None, None, :] <= qpos[:, :, None])
+            & (torch.arange(CV, device="cuda")[None, :, None]
+               < nv[:, None, None].long()))[:, None]
+    k_ = kv[:, None].expand(B, H, S, DL + DR)
+    v_ = kv[:, None, :, :DL].expand(B, H, S, DL)
+    qs = q.permute(0, 2, 1, 3)
+    row["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qs, k_, v_, attn_mask=mask, scale=SCALE), flush, reps=5)
+    n_bytes, n_ops, per_row_bytes = verify_work(
+        CV, VERIFY_LENGTHS, VERIFY_NVALID, 2, (DL + DR) * 2)
+    row["bound_ms"], row["bound_by"] = bound(n_bytes, n_ops)
+    row["bound_ms_per_row_reads"] = bound(per_row_bytes, n_ops)[0]
+    row["max_abs_err"] = (run().float() - ref.mla_prefill_paged_ref(
+        q, c, r, bt, ln, nv, **kw).float()).abs().max().item()
+    # the same prefixes at C = 1 (K2) and through K1 (index = lengths)
+    one = torch.clamp(nv, max=1)
+    row["c1_ms"] = time_ms(torch, functools.partial(
+        kern, q[:, :1].contiguous(), c, r, bt, ln, one, **kw), flush)
+    idx = torch.where(nv > 0, ln, torch.full_like(ln, -1))
+    q1 = q[:, 0].contiguous()
+    row["k1_ms"] = time_ms(torch, functools.partial(
+        mla_decode.mla_decode_paged_kernel, q1, c, r, bt, idx, **kw), flush)
+    row["row_rel"] = worst
+    log(f"[kernels] mla_prefill_paged at the verify width C = {CV}, bf16: "
+        f"time {row['ms']:.4f} ms ({host_text(row)}), plain "
+        f"{row['plain_ms']:.4f} ms, SDPA {row['library_ms']:.4f} ms, bound "
+        f"{row['bound_ms']:.5f} ms ({row['bound_by']}: {n_bytes / 1e6:.2f} "
+        f"MB with each prefix read once, {n_ops / 1e9:.2f} GFLOP; "
+        f"{row['bound_ms'] / row['ms']:.4f} of it reached), "
+        f"{row['bound_ms_per_row_reads']:.5f} ms with each valid chunk row "
+        f"reading its own prefix ({per_row_bytes / 1e6:.2f} MB); the same "
+        f"prefixes at C = 1: K2 {row['c1_ms']:.4f} ms, K1 "
+        f"{row['k1_ms']:.4f} ms; C = {CV} / C = 1 "
+        f"{row['ms'] / row['c1_ms']:.3f}, / K1 {row['ms'] / row['k1_ms']:.3f}; "
+        f"{plan_text(row['plan'])}")
+    return row
+
+
 def sdpa_calls(torch, q, k, v, do):
     """``scaled_dot_product_attention`` forward, and its backward alone,
     on the same tensors (timed only; the port never calls it), and the
@@ -1123,9 +1290,11 @@ def requests_full(cfg, np, Request, SamplingParams, gen: int):
 
 
 def full_width(torch, np):
-    """Phases 3, 4 and 7, on one full-width model: paged serving on a
-    bf16 and on an fp8 pool, contiguous serving, then sampled serving
-    with telemetry.  Returns the kernel launch counts of each path."""
+    """Phases 3, 4, 7, 8 and 9, on one full-width model: paged serving
+    on a bf16 and on an fp8 pool, contiguous serving, sampled serving
+    with telemetry, the engines in turns and the frontend, then
+    speculative decoding (9(a) on the f32 smoke config).  Returns the
+    kernel launch counts of each path."""
     from repro_torch import configs, models
     from repro_torch.nn import module as nnm
 
@@ -1157,11 +1326,13 @@ def full_width(torch, np):
     by_path.update(phase8_turns(torch, np, cfg, params))
     by_path.update(phase8_sampled(torch, np, cfg, params))
     by_path.update(phase8_frontend(torch, np, cfg, params))
+    spec_smoke_parity(torch, np)
+    by_path.update(spec_full_width(torch, np, cfg, params))
     del params
     gc.collect()
     torch.cuda.empty_cache()
     # every engine and its graphs are gone: what stays allocated leaked
-    log(f"[e2e] after phases 3, 4, 7 and 8: "
+    log(f"[e2e] after phases 3, 4, 7, 8 and 9: "
         f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB still allocated, "
         f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved")
     return by_path
@@ -1820,12 +1991,17 @@ def tie_count(base: dict, got: dict, margins, label: str) -> int:
     return len(first)
 
 
+def span_durs(trace, name, tid=None):
+    """Durations (ms) of the engine track's ``name`` spans."""
+    from repro_torch.obs.trace import PID_ENGINE
+    return [e["dur"] / 1e3 for e in trace["traceEvents"]
+            if e["ph"] == "X" and e["pid"] == PID_ENGINE
+            and e["name"] == name and (tid is None or e["tid"] == tid)]
+
+
 def span_ms(trace, name, tid=None):
     """Median duration (ms) of the engine track's ``name`` spans."""
-    from repro_torch.obs.trace import PID_ENGINE
-    d = [e["dur"] / 1e3 for e in trace["traceEvents"]
-         if e["ph"] == "X" and e["pid"] == PID_ENGINE and e["name"] == name
-         and (tid is None or e["tid"] == tid)]
+    d = span_durs(trace, name, tid)
     return statistics.median(d) if d else float("nan")
 
 
@@ -2126,6 +2302,270 @@ def phase8_frontend(torch, np, cfg, params):
         f"/v1/health {health}; /v1/metrics answered; server stopped; "
         f"launches {launches}")
     return {"frontend_async": launches}
+
+
+# ------------------------------------------ phase 9: speculative decoding --
+
+
+# phase 9(b): the spec engines in turns on phase 3's load: (label, k, draft)
+SPEC_TURNS = (("plain", 0, ""), ("shallow:1 k=4", 4, "shallow:1"),
+              ("self k=2", 2, "self"), ("shallow:1 k=4", 4, "shallow:1"),
+              ("plain", 0, ""))
+
+
+def spec_launches_wanted(cfg, engine, summary) -> dict:
+    """K1 / K2 launches a serve on ``engine`` must have made: K1 = target
+    layers x plain ticks + draft layers x draft steps; K2 = target layers
+    x (prefill chunks + verify rounds) + draft layers x prefill chunks."""
+    rounds = summary["spec_rounds"]
+    ticks = sum(summary["schemes_used"].values()) - rounds
+    chunks = summary["prefill_chunks"]
+    dl = engine.draft_cfg.n_layers if engine.spec_k else 0
+    return {"mla_decode_paged": cfg.n_layers * ticks
+            + dl * engine.stats.spec_draft_steps,
+            "mla_prefill_paged": cfg.n_layers * (chunks + rounds)
+            + dl * chunks}
+
+
+def record_rejections(torch, engine, store):
+    """Wrap ``engine._verify`` so that ``store`` gets, for every row of a
+    round whose drafts were not all accepted, the margin by which the
+    target's verify logits preferred its own token over the first
+    rejected draft (greedy)."""
+    real = engine._verify
+
+    def rec(scheme, arrays):
+        target, logits = real(scheme, arrays)
+        toks, nv = arrays["tokens"], arrays["n_valid"]
+        for s_ in range(toks.shape[0]):
+            n = int(nv[s_])
+            bad = [j for j in range(n - 1) if toks[s_, j + 1] != target[s_, j]]
+            if bad:
+                j = bad[0]
+                row = logits[s_, j].float()
+                store.append(float(row[int(target[s_, j])]
+                                   - row[int(toks[s_, j + 1])]))
+        return target, logits
+    engine._verify = rec
+
+
+def spec_smoke_parity(torch, np):
+    """Phase 9(a): the f32 smoke config (phase 5's seed and load, drop-free
+    MoE capacity), ``impl='kernel'`` on graphs: plain paged decode, then
+    spec decoding with the identity draft at k = 2 and 4 and the
+    one-layer draft at k = 4: tokens identical to plain decode's, the
+    identity draft accepting every draft, K1 / K2 launches as
+    ``spec_launches_wanted`` through the replays."""
+    from repro_torch import configs, models
+    from repro_torch.kernels import mla_decode, mla_prefill
+    from repro_torch.launch.serve import (build_engine, serve_paged,
+                                          synthetic_requests)
+    from repro_torch.nn import module as nnm
+
+    cfg = drop_free(configs.smoke("deepseek-v2-236b"))
+    params = nnm.init_params(models.model_defs(cfg), seed=4,
+                             dtype=torch.float32, device="cuda")
+    k1, k2 = mla_decode.mla_decode_paged_kernel, \
+        mla_prefill.mla_prefill_paged_kernel
+    base = None
+    for spec_k, draft in ((0, ""), (2, "self"), (4, "self"),
+                          (4, "shallow:1")):
+        engine = build_engine(cfg, params, batch=4, max_len=48 + 12, gen=12,
+                              impl="kernel", scheme="auto", platform="h100",
+                              prefill_chunk=8, compute_dtype=torch.float32,
+                              device="cuda", spec_k=spec_k, draft=draft)
+        if not engine.cuda_graphs:
+            raise AssertionError("the engine's default on the card is graphs")
+        engine.warm_up()
+        k1.launches = k2.launches = 0
+        s = serve_paged(engine, synthetic_requests(cfg, batch=4,
+                                                   prompt_len=48, gen=12,
+                                                   seed=4),
+                        log=lambda *_: None, log_every=0)
+        launches = {"mla_decode_paged": k1.launches,
+                    "mla_prefill_paged": k2.launches}
+        want = spec_launches_wanted(cfg, engine, s)
+        got = outputs(engine)
+        if base is None:
+            base = got
+        label = f"k = {spec_k}, draft {draft!r}" if spec_k else "plain"
+        log(f"[spec] smoke f32, impl kernel on graphs, {label}: tokens "
+            f"{'identical to' if got == base else 'DIFFERENT from'} plain "
+            f"decode's over {len(got)} requests, "
+            f"{s['spec_rounds']} rounds, accept rate "
+            f"{s['spec_accept_rate']:.3f} ({s['spec_accepted']}/"
+            f"{s['spec_drafted']}), launches {launches}")
+        if got != base or len(got) != 4:
+            raise AssertionError(f"spec tokens differ ({label}): {got} vs "
+                                 f"{base}")
+        if launches != want:
+            raise AssertionError(f"spec launches {launches} != {want}")
+        if draft == "self" and s["spec_accepted"] != s["spec_drafted"]:
+            raise AssertionError("the identity draft was rejected in f32")
+        engine.close()
+        del engine
+    del params
+    torch.cuda.empty_cache()
+
+
+def spec_full_width(torch, np, cfg, params):
+    """Phase 9(b) and (c): phase 3's load (bf16 pool, greedy) at drop-free
+    MoE capacity on the sync engine on graphs, in turns plain, shallow:1
+    k = 4, self k = 2, shallow:1 k = 4, plain, then the async engine with
+    shallow:1 k = 4 and telemetry on.  Returns the launch counts by run."""
+    from repro_torch.kernels import mla_decode, mla_prefill
+    from repro_torch.launch.serve import build_engine, serve_paged
+    from repro_torch.obs import Telemetry, validate_trace
+    from repro_torch.runtime import Request, SamplingParams
+
+    cfg = drop_free(cfg)
+    gen = 32
+    reqs_fn = lambda: requests_full(cfg, np, Request, SamplingParams, gen)
+    kw = dict(batch=8, max_len=1024 + gen, gen=gen, block_size=BS,
+              impl="kernel", scheme="auto", platform="h100", prefill_chunk=C,
+              compute_dtype=torch.bfloat16, device="cuda")
+    k1, k2 = mla_decode.mla_decode_paged_kernel, \
+        mla_prefill.mla_prefill_paged_kernel
+    margins = {}
+
+    def plain_margins():
+        # a plain serve recording the margin of every token it sampled;
+        # run only when a spec run's tokens differ from the first plain run
+        if not margins:
+            eng = build_engine(cfg, params, **kw)
+            record_margins(torch, eng, margins)
+            eng.run(reqs_fn())
+            eng.close()
+        return {"store": margins, "temperature": 1.0}
+
+    by_path, base, tps, shallow, spans = {}, None, [], [], []
+    for i, (label, spec_k, draft) in enumerate(SPEC_TURNS):
+        tel = Telemetry.on(trace=True, metrics=False, drift=False)
+        engine = build_engine(cfg, params, spec_k=spec_k, draft=draft,
+                              telemetry=tel, **kw)
+        capture_s = engine.warm_up()
+        rejections = []
+        if draft == "self":
+            record_rejections(torch, engine, rejections)
+        torch.cuda.reset_peak_memory_stats()
+        k1.launches = k2.launches = 0
+        summary = serve_paged(engine, reqs_fn(), log=lambda *_: None,
+                              log_every=0)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launches = {"mla_decode_paged": k1.launches,
+                    "mla_prefill_paged": k2.launches}
+        want = spec_launches_wanted(cfg, engine, summary)
+        if launches != want:
+            raise AssertionError(f"{label}: kernel launches {launches} != "
+                                 f"{want}")
+        plans = check_graph_plans(engine)
+        if spec_k:
+            vplans = [p["mla_prefill_paged_kernel"] for g, p in plans.items()
+                      if g.startswith("verify/")]
+            if not vplans or any(p["grid"][2] != 8 * (spec_k + 1)
+                                 for p in vplans):
+                raise AssertionError(f"{label}: the verify graphs' K2 plans "
+                                     f"{vplans}")
+        got = outputs(engine)
+        if base is None:
+            base = got
+        ties = tie_count(base, got, plain_margins, label)
+        if spec_k == 4:
+            shallow.append((got, {k: summary[k] for k in STATS_KEYS
+                                  + ("spec_rounds", "spec_accepted")}))
+        off_tie = [m for m in rejections if m >= NEAR_TIE]
+        if off_tie:
+            raise AssertionError(f"{label}: identity-draft rejections off a "
+                                 f"near tie: margins {off_tie}")
+        trace = tel.tracer.to_dict()
+        key = label.replace(" ", "_").replace(":", "").replace("=", "")
+        by_path[f"spec_{key}_{i + 1}"] = launches
+        tps.append(summary["tokens_per_s"])
+        # the serve's time by span, summed over the trace (each of these
+        # spans ends on a wait for the device): prefill (its chunks, the
+        # draft's too), decode (a spec run's draft + verify spans, a plain
+        # run's device_step), and the host_sample spans after decode
+        total = {n: sum(span_durs(trace, n)) / 1e3
+                 for n in ("step", "prefill", "draft", "verify",
+                           "device_step", "host_sample")}
+        dec = (total["draft"] + total["verify"] if spec_k
+               else total["device_step"])
+        step = (f"verify span {span_ms(trace, 'verify'):.3f} ms median, "
+                f"draft span {span_ms(trace, 'draft'):.3f} ms median"
+                if spec_k else
+                f"decode tick device_step {span_ms(trace, 'device_step'):.3f}"
+                f" ms median")
+        step += (f"; summed spans: step {total['step']:.4f} s, "
+                 f"prefill {total['prefill']:.4f} s, decode "
+                 + (f"(draft {total['draft']:.4f} + verify "
+                    f"{total['verify']:.4f}) " if spec_k else
+                    "(device_step) ")
+                 + f"{dec:.4f} s, host_sample {total['host_sample']:.4f} s")
+        spans.append((dec, total["prefill"]))
+        log(f"[spec] {i + 1} {label}: {summary['tokens_per_s']:.1f} tokens/s, "
+            f"{summary['decode_tokens']} decode tokens in {summary['steps']} "
+            f"steps ({summary['spec_rounds']} rounds, accept rate "
+            f"{summary['spec_accept_rate']:.3f}, "
+            f"{summary['spec_mean_emitted']:.3f} tokens a round a request, "
+            f"{engine.stats.spec_draft_steps} draft steps), {step}, "
+            f"prefill_chunk span {span_ms(trace, 'prefill_chunk'):.3f} ms "
+            f"median, capture {capture_s:.3f}s, peak {peak:.2f} GiB, "
+            f"launches {launches} (as wanted), tokens as the first plain "
+            f"run's but {ties} near ties"
+            + (f", {len(rejections)} identity-draft rejections, each on a "
+               f"near tie (margins {[round(m, 4) for m in rejections]})"
+               if draft == "self" else ""))
+        engine.close()
+        del engine
+        torch.cuda.empty_cache()
+    if shallow[0] != shallow[1]:
+        raise AssertionError("the two shallow:1 k = 4 runs differ")
+    log(f"[spec] tokens/s in turns {', '.join(t[0] for t in SPEC_TURNS)}: "
+        f"{', '.join(f'{t:.1f}' for t in tps)}; shallow:1 k = 4 / plain "
+        f"{(tps[1] + tps[3]) / (tps[0] + tps[4]):.3f}, self k = 2 / plain "
+        f"{2 * tps[2] / (tps[0] + tps[4]):.3f}; summed decode spans "
+        f"(s) {', '.join(f'{d:.4f}' for d, _ in spans)}, summed "
+        f"prefill spans (s) {', '.join(f'{p:.4f}' for _, p in spans)};"
+        f" the two shallow:1 runs identical (tokens, EngineStats)")
+    # (c) the async engine on the same spec load, telemetry on
+    tel = Telemetry.on(trace=True, metrics=True, drift=True)
+    engine = build_engine(cfg, params, engine="async", spec_k=4,
+                          draft="shallow:1", telemetry=tel, **kw)
+    engine.warm_up()
+    k1.launches = k2.launches = 0
+    summary = serve_paged(engine, reqs_fn(), log=lambda *_: None,
+                          log_every=0)
+    launches = {"mla_decode_paged": k1.launches,
+                "mla_prefill_paged": k2.launches}
+    if launches != spec_launches_wanted(cfg, engine, summary):
+        raise AssertionError(f"async spec launches {launches}")
+    if outputs(engine) != shallow[0][0]:
+        raise AssertionError("the async spec engine's tokens differ from "
+                             "the sync engine's")
+    tel.finalize(engine)
+    trace = tel.tracer.to_dict()
+    problems = validate_trace(trace)
+    if problems:
+        raise AssertionError(f"async spec trace: {problems[:3]}")
+    rep = tel.drift.report()
+    verify = {k: b for k, b in rep["buckets"].items()
+              if k.startswith("verify/")}
+    if not verify or tel.drift.check_coverage(summary["schemes_used"],
+                                              kinds=("verify",)):
+        raise AssertionError(f"no verify drift rows: {rep['kinds']}")
+    by_path["spec_async_telemetry"] = launches
+    log(f"[spec] async engine, shallow:1 k = 4, telemetry on: "
+        f"{summary['tokens_per_s']:.1f} tokens/s, tokens as the sync "
+        f"engine's, launches {launches}, trace valid "
+        f"({len(trace['traceEvents'])} events), drift verify rows "
+        + "; ".join(f"{k}: n {b['n']}, p50 {b['time_ratio_p50']:.1f}, "
+                    f"measured {b['meas_time_s'] / b['n'] * 1e3:.3f} ms, "
+                    f"predicted {b['pred_time_s'] / b['n'] * 1e3:.4g} ms"
+                    for k, b in verify.items()))
+    engine.close()
+    del engine
+    torch.cuda.empty_cache()
+    return by_path
 
 
 # ------------------------------------------------- phase 5: token parity --
@@ -2493,6 +2933,7 @@ def main() -> int:
     rows.update(check_contiguous_kernel(torch))
     check_split_boundaries(torch)
     check_prefill_tc_edges(torch)
+    rows["mla_prefill_paged"]["verify"] = check_verify_kernel(torch)
     check_flash_tc_edges(torch)
     rows.update(check_flash(torch))
     by_path = full_width(torch, np)

@@ -11,6 +11,8 @@ continuous-batching engine (``--paged``).
         --trace t.json --metrics m.json --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b \
         --smoke --paged --engine async --serve --port 8931
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b \
+        --smoke --paged --spec-k 4 --draft shallow:1 --device cpu
 
 Without ``--paged`` the batch prefills together through the contiguous
 MHA-mode prefill (``runtime.steps.make_prefill_step``: the
@@ -57,6 +59,15 @@ Paged only (each raises without ``--paged``):
                       dequantized in the kernels' registers; needs
                       --prefill-chunk > 0)
   --n N               parallel samples per request (one prefill, n-way fork)
+  --spec-k K          speculative decoding: draft K tokens per tick and
+                      verify them in ONE k + 1-query chunk step of the
+                      target (kernel K2 under --impl kernel).  Rejected
+                      drafts are a host-side length rewind; the tokens
+                      are plain decode's, greedy and seeded; draft
+                      quality moves throughput only
+  --draft SPEC        draft model under --spec-k: 'shallow:N' (the
+                      target's own first N layers, sharing its weights)
+                      or 'self' (draft == target: every draft accepted)
   --admission A       cache_aware | fcfs admission order
   --admission-age-bound N
                       bypasses of cache-aware admission before a waiting
@@ -87,8 +98,7 @@ Paged only (each raises without ``--paged``):
   --host H / --port N frontend bind address (default 127.0.0.1:8000)
 
 Weights are random (``--seed``) and f32, as in the JAX launcher; the
-contiguous path decodes greedily.  Speculative decoding and meshes are
-on ROADMAP.md.
+contiguous path decodes greedily.  Meshes are on ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -107,7 +117,7 @@ from ..nn import module as nnm
 from ..obs import Telemetry
 from ..runtime import (AsyncPagedMLAEngine, PagedMLAEngine, Request,
                        SamplingParams, blocks_for, make_prefill_step,
-                       make_serve_step)
+                       make_serve_step, parse_draft_spec)
 
 ENGINES = {"sync": PagedMLAEngine, "async": AsyncPagedMLAEngine}
 
@@ -122,14 +132,21 @@ def build_engine(cfg, params, *, batch: int, max_len: int, n: int = 1,
                  sample_seed: int = 0, telemetry: Optional[Telemetry] = None,
                  compute_dtype=torch.float32, device="cuda",
                  engine: str = "sync", prefill_impl: Optional[str] = None,
-                 cuda_graphs: Optional[bool] = None) -> PagedMLAEngine:
+                 cuda_graphs: Optional[bool] = None, spec_k: int = 0,
+                 draft: str = "") -> PagedMLAEngine:
     """A paged engine (``engine`` 'sync': ``PagedMLAEngine``, 'async':
     ``AsyncPagedMLAEngine``) sized for ``batch`` request groups of up to
     ``max_len`` tokens (prompt + generation), each forked ``n`` ways.
     ``prefill_chunk`` 0 prefills per request (``prefill_mode=
-    'per_request'``).  ``cuda_graphs`` None: graphs on a CUDA device."""
+    'per_request'``).  ``cuda_graphs`` None: graphs on a CUDA device.
+    ``spec_k`` > 0 decodes speculatively with the draft ``draft`` names
+    (``runtime.spec.parse_draft_spec``: 'self' | 'shallow:N')."""
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; expected {ENGINES}")
+    draft_cfg = draft_params = None
+    if spec_k:
+        draft_cfg, draft_params = parse_draft_spec(draft, cfg, params)
+    # a verify window is clipped to the request's budget: no wider table
     per_req = blocks_for(max_len + 1, block_size)
     # fork children share the prompt blocks; each needs its own tail run
     per_group = per_req + (n - 1) * blocks_for(gen + 1, block_size)
@@ -144,7 +161,8 @@ def build_engine(cfg, params, *, batch: int, max_len: int, n: int = 1,
         admission=admission, admission_age_bound=admission_age_bound,
         temperature=temperature, top_k=top_k, sample_seed=sample_seed,
         telemetry=telemetry, device=device, prefill_impl=prefill_impl,
-        cuda_graphs=cuda_graphs)
+        cuda_graphs=cuda_graphs, spec_k=spec_k, draft_cfg=draft_cfg,
+        draft_params=draft_params)
 
 
 def synthetic_requests(cfg, *, batch: int, prompt_len: int, gen: int,
@@ -177,6 +195,13 @@ def serve_paged(engine: PagedMLAEngine, requests: List[Request], *,
         f"{summary['prompt_tokens']:.0f} prompt tokens), "
         f"{summary['prefill_tokens']:.0f} prefilled in "
         f"{summary['prefill_chunks']:.0f} chunks")
+    if engine.spec_k:
+        log(f"[serve] spec decode: {summary['spec_rounds']:.0f} rounds, "
+            f"accept rate {summary['spec_accept_rate']:.2f} "
+            f"({summary['spec_accepted']:.0f}/"
+            f"{summary['spec_drafted']:.0f} drafts), "
+            f"{summary['spec_mean_emitted']:.2f} tokens/round, "
+            f"{summary['spec_compiles']:.0f} spec step shapes")
     if summary["fork_groups"]:
         log(f"[serve] parallel sampling: {summary['fork_groups']:.0f} groups "
             f"forked ({summary['fork_children']:.0f} children)")
@@ -291,6 +316,15 @@ def main(argv: Optional[List[str]] = None):
     ap.add_argument("--n", type=int, default=1,
                     help="parallel samples per request (prefill once, "
                          "fork n ways copy-on-write)")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="speculative decoding: draft K tokens per tick "
+                         "and verify them in one k+1-query chunk step "
+                         "(token-identical to plain decode; requires "
+                         "--paged)")
+    ap.add_argument("--draft", default="shallow:2",
+                    help="draft model under --spec-k: 'shallow:N' = the "
+                         "target's own first N layers (self-speculation) "
+                         "| 'self' = identity draft (acceptance oracle)")
     ap.add_argument("--admission", default="cache_aware",
                     choices=("cache_aware", "fcfs"))
     ap.add_argument("--admission-age-bound", type=int, default=64)
@@ -334,6 +368,7 @@ def main(argv: Optional[List[str]] = None):
                   "--metrics": bool(args.metrics),
                   "--engine": args.engine != "sync",
                   "--serve": args.serve,
+                  "--spec-k": args.spec_k != 0,
                   "--prefill-impl": args.prefill_impl != "auto"}
     if not args.paged and any(paged_only.values()):
         raise SystemExit(f"{[k for k, v in paged_only.items() if v]} "
@@ -362,7 +397,11 @@ def main(argv: Optional[List[str]] = None):
         cache_dtype=args.cache_dtype, temperature=args.temperature,
         top_k=args.top_k, sample_seed=args.seed, telemetry=tel,
         device=args.device, engine=args.engine,
-        prefill_impl=args.prefill_impl)
+        prefill_impl=args.prefill_impl, spec_k=args.spec_k,
+        draft=args.draft)
+    if args.spec_k:
+        print(f"[serve] speculative decoding: k={args.spec_k}, "
+              f"draft={args.draft} ({engine.draft_cfg.n_layers} layers)")
     # capture before the first request, so no tick times a capture
     engine.warm_up()
     if args.serve:

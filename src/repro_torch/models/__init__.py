@@ -8,6 +8,9 @@ of decoder-only models):
                                                       -> logits, cache
     prefill_chunk_paged(params, cfg, tokens, pool, block_tables, lengths,
                         n_valid, ...)                 -> logits, pool
+    verify_chunk_paged(params, cfg, tokens, pool, block_tables, lengths,
+                       n_valid, ...)                  -> (B, C, V) logits,
+                                                         pool
     decode_step(params, cfg, token, pool, block_tables, lengths, ...)
                                                       -> logits, pool
     init_cache(cfg, batch, capacity, dtype, device)
@@ -19,7 +22,8 @@ from __future__ import annotations
 from . import lm
 from .common import ModelConfig, Sub
 from .lm import (decode_step, decode_step_contiguous, forward, init_cache,
-                 init_paged_cache, prefill, prefill_chunk_paged)
+                 init_paged_cache, prefill, prefill_chunk_paged,
+                 verify_chunk_paged)
 
 
 def model_defs(cfg: ModelConfig):
@@ -31,4 +35,4 @@ def model_defs(cfg: ModelConfig):
 
 __all__ = ["ModelConfig", "Sub", "decode_step", "decode_step_contiguous",
            "forward", "init_cache", "init_paged_cache", "lm", "model_defs",
-           "prefill", "prefill_chunk_paged"]
+           "prefill", "prefill_chunk_paged", "verify_chunk_paged"]

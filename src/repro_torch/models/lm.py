@@ -14,6 +14,7 @@ reference's ``jax.checkpoint`` of the scanned body).
     decode_step_contiguous(params, cfg, token, cache, index, ...)
                                                         -> logits, cache
     prefill_chunk_paged(params, cfg, tokens, pool, ...) -> logits, pool
+    verify_chunk_paged(params, cfg, tokens, pool, ...)  -> logits, pool
     decode_step(params, cfg, token, pool, ...)          -> logits, pool
     init_cache(cfg, batch, capacity, ...)                     cache tree
     init_paged_cache(cfg, num_blocks, block_size, ...)        pool tree
@@ -222,13 +223,47 @@ def prefill_chunk_paged(params, cfg: ModelConfig, tokens, pool,
     logits matter only for the chunk that finishes a request's prompt.
     ``impl`` 'kernel' runs the chunk attention in the paged prefill kernel;
     'ref' on the gathered block-table view."""
+    x, pool = _chunk_paged_hidden(params, cfg, tokens, pool, block_tables,
+                                  lengths, n_valid,
+                                  compute_dtype=compute_dtype, impl=impl,
+                                  scheme=scheme)
+    last = torch.clamp(n_valid.long() - 1, min=0)
+    h = x[torch.arange(x.shape[0], device=x.device), last]
+    return _logits(params, cfg, h), pool
+
+
+def verify_chunk_paged(params, cfg: ModelConfig, tokens, pool,
+                       block_tables, lengths, n_valid, *,
+                       compute_dtype=torch.bfloat16, impl: str = "ref",
+                       scheme: str = "seq"):
+    """The multi-token VERIFY step of speculative decoding: the chunked
+    paged prefill with logits at EVERY chunk position.
+
+    tokens: (B, C) int — row b holds [last sampled token, draft_1 ..
+    draft_{n_valid[b]-1}] at absolute positions lengths[b].. (C = k + 1).
+    The attention and the pool writes are :func:`prefill_chunk_paged`'s;
+    the head returns (B, C, V): row (b, j) is the target's next-token
+    distribution after draft j.  Positions past ``n_valid`` write the
+    null block and their logits are never read.  Returns (logits,
+    pool)."""
+    x, pool = _chunk_paged_hidden(params, cfg, tokens, pool, block_tables,
+                                  lengths, n_valid,
+                                  compute_dtype=compute_dtype, impl=impl,
+                                  scheme=scheme)
+    return _logits(params, cfg, x), pool
+
+
+def _chunk_paged_hidden(params, cfg: ModelConfig, tokens, pool,
+                        block_tables, lengths, n_valid, *, compute_dtype,
+                        impl, scheme):
+    """Shared body of prefill_chunk_paged / verify_chunk_paged: one (B, C)
+    chunk through the stack against the paged pool; returns the pre-norm
+    hidden states (B, C, D) and the pool."""
     x = _embed(params, cfg, tokens, compute_dtype)
     ctx = Ctx(mode="prefill_chunk", impl=impl, scheme=scheme,
               block_tables=block_tables, lengths=lengths, n_valid=n_valid)
     x, pool, _ = _run_stack(params, cfg, x, ctx, pool)
-    last = torch.clamp(n_valid.long() - 1, min=0)
-    h = x[torch.arange(x.shape[0], device=x.device), last]
-    return _logits(params, cfg, h), pool
+    return x, pool
 
 
 def decode_step(params, cfg: ModelConfig, token, pool, block_tables,

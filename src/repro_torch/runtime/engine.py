@@ -34,9 +34,22 @@ through the contiguous MHA-mode prefill (``steps.make_prefill_step``) and
 scatters its cache into the pool in whole blocks; it turns the prefix
 cache off and refuses a quantized pool, as the reference does.
 
-On a CUDA device the decode step (one per scheme) and the prefill chunk
-run as CUDA graphs (``runtime.graphs.StepGraph``; the reference's
-``jit``), captured at first use or by :meth:`PagedMLAEngine.warm_up`,
+``spec_k > 0`` with a draft (``runtime.spec``: 'self' or 'shallow:N')
+turns each decode tick into a speculative round (:meth:`PagedMLAEngine.
+_spec_round`): the draft proposes up to k tokens by paged decode against
+its own pool (the draft pool: the scheduler's block geometry, the
+engine's ``cache_dtype``, filled by the draft's own prefill of every
+chunk), the target verifies them in one k + 1-query chunk step
+(``models.verify_chunk_paged``: K2 under ``impl='kernel'``) and samples
+its own token at every position on the device, and the host accepts the
+leading drafts equal to those tokens and rewinds the lengths past them.
+The tokens are plain decode's, greedy and seeded.
+
+On a CUDA device the decode step (one per scheme), the prefill chunk and,
+with ``spec_k``, the draft's decode step and chunk and the verify step
+(one per scheme) run as CUDA graphs (``runtime.graphs.StepGraph``; the
+reference's ``jit``), captured at first use or by
+:meth:`PagedMLAEngine.warm_up`,
 their capture time in ``EngineStats.capture_s``.  ``cuda_graphs=False``
 runs the same steps eagerly; asking for graphs on the CPU raises.  A
 step's inputs are copied from pinned host memory into the fixed device
@@ -54,14 +67,14 @@ Two engines share this machinery:
 
 ``telemetry=`` (``obs.Telemetry``) arms the reference's hooks: the
 per-step spans (step / schedule / prefill / prefill_chunk / device_step /
-host_sample; the async engine's device_step on its own track,
-``TID_DEVICE``), the roofline drift rows (each decode tick timed around
-``device_step``, which ends in a device synchronize — dispatch to ready
-in the async engine — and each admitted batch's prefill, priced on
-``platform``), the step-time and pool histograms, and the prefix cache's
-and scheduler's instants.  Off (the default) each site costs one
-attribute check.  Speculative decoding and meshes are not ported yet:
-asking for them raises ``NotImplementedError`` (ROADMAP.md).
+draft / verify / host_sample; the async engine's device_step on its own
+track, ``TID_DEVICE``), the roofline drift rows (each decode tick timed
+around ``device_step`` and each verify around ``verify``, both ending in
+a device synchronize — dispatch to ready in the async engine — and each
+admitted batch's prefill, priced on ``platform``), the step-time and
+pool histograms, and the prefix cache's and scheduler's instants.  Off
+(the default) each site costs one attribute check.  Meshes are not
+ported yet: asking for one raises ``NotImplementedError`` (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -84,8 +97,10 @@ from ..obs import OFF_TELEMETRY, Telemetry
 from ..obs.trace import PID_ENGINE
 from .graphs import StepGraph
 from .loop import drive
+from . import spec as speclib
 from .scheduler import ContinuousScheduler, Request, blocks_for
-from .steps import (make_paged_sample_step, make_prefill_step, sample_tokens,
+from .steps import (make_paged_sample_step, make_prefill_step,
+                    make_verify_step, sample_tokens, sample_window,
                     scatter_prefill_to_paged)
 
 # PID_ENGINE tid 0 carries the host-phase spans; the async engine's
@@ -112,6 +127,11 @@ class EngineStats:
     mid_gen_admissions: int = 0     # admitted while other slots were decoding
     preemptions: int = 0
     scheme_switches: int = 0
+    spec_rounds: int = 0            # speculative draft+verify ticks
+    spec_slot_rounds: int = 0       # per-slot verify rows across rounds
+    spec_drafted: int = 0           # draft tokens proposed
+    spec_accepted: int = 0          # draft tokens accepted by the target
+    spec_draft_steps: int = 0       # draft decode steps run (port only)
     util_valid_sum: float = 0.0     # time-avg of valid/allocated
     util_pool_sum: float = 0.0
     util_samples: int = 0
@@ -133,6 +153,15 @@ class EngineStats:
             "scheme_switches": self.scheme_switches,
             "tokens_per_s": (self.decode_tokens / self.wall)
             if self.wall > 0 else 0.0,
+            "spec_rounds": self.spec_rounds,
+            "spec_drafted": self.spec_drafted,
+            "spec_accepted": self.spec_accepted,
+            "spec_accept_rate": self.spec_accepted / self.spec_drafted
+            if self.spec_drafted else 0.0,
+            # per-REQUEST tokens per verify: the quantity the cost model's
+            # break-even is stated in (1 <= E <= k + 1)
+            "spec_mean_emitted": self.decode_tokens / self.spec_slot_rounds
+            if self.spec_slot_rounds else 0.0,
             "cache_utilization": self.util_valid_sum / n,
             "pool_occupancy": self.util_pool_sum / n,
             "schemes_used": dict(self.schemes_used),
@@ -158,6 +187,8 @@ class PagedMLAEngine:
                  temperature: float = 0.0, top_k: int = 0,
                  sample_seed: int = 0,
                  mesh=None, spec_k: int = 0,
+                 draft_cfg: Optional[ModelConfig] = None,
+                 draft_params=None,
                  cache_dtype: str = "bf16",
                  admission: str = "cache_aware",
                  admission_age_bound: int = 64,
@@ -191,8 +222,23 @@ class PagedMLAEngine:
             # the per-request path recomputes and rewrites WHOLE prompts,
             # which would scatter over read-only shared blocks
             enable_prefix_cache = False
+        if spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0, got {spec_k}")
         if spec_k:
-            raise _not_ported("speculative decoding (spec_k > 0)")
+            if prefill_mode != "chunked":
+                raise NotImplementedError(
+                    "speculative decoding requires prefill_mode='chunked' "
+                    "(the draft pool is filled by the same chunked path)")
+            if draft_cfg is None or draft_params is None:
+                raise ValueError(
+                    "spec_k > 0 needs draft_cfg + draft_params — build "
+                    "them with runtime.spec.shallow_draft / identity_draft")
+            if draft_cfg.vocab != cfg.vocab:
+                raise ValueError(
+                    f"draft vocab {draft_cfg.vocab} != target {cfg.vocab}")
+            if draft_cfg.attn_kind != "mla":
+                raise NotImplementedError("drafts must be MLA models "
+                                          "(they share the paged runtime)")
         if mesh is not None:
             raise _not_ported("mesh serving")
         self.cfg = cfg
@@ -235,11 +281,32 @@ class PagedMLAEngine:
             num_blocks=num_blocks, block_size=block_size,
             max_batch=max_batch, max_blocks_per_req=max_blocks_per_req,
             enable_prefix_cache=enable_prefix_cache,
+            decode_window=spec_k + 1,
             admission=admission,
             admission_age_bound=admission_age_bound)
         self.pool = models.init_paged_cache(cfg, num_blocks, block_size,
                                             compute_dtype, self.device,
                                             cache_dtype)
+        # -- speculative decoding: the draft model and its own pool, which
+        # shares the scheduler's block geometry (one allocator and one
+        # block table serve both), so accept / reject is one length rewind
+        # and every block-level op (CoW copies) applies to both pools
+        self.spec_k = int(spec_k)
+        self.draft_cfg = draft_cfg
+        self.draft_params = draft_params
+        self.draft_pool = None
+        # drafts decode and prefill with 'seq' (all schemes compute the
+        # same function; 'seq' needs no absorbed leaves, so a shallow draft
+        # sliced from an un-absorbed tree serves every engine scheme)
+        self._draft_scheme = "seq"
+        self._spec_shapes: set = set()
+        if spec_k:
+            self.draft_pool = models.init_paged_cache(
+                draft_cfg, num_blocks, block_size, compute_dtype,
+                self.device, cache_dtype)
+            if draft_params is params:
+                # identity draft ('self'): the engine's prepared tree
+                self.draft_params = self.params
         self.pending = np.zeros((max_batch,), np.int32)   # next token to feed
         # the fixed device buffers the steps read (a graph holds their
         # addresses), filled from pinned host memory every step
@@ -295,18 +362,38 @@ class PagedMLAEngine:
     def _step_inputs(self) -> Dict[str, Dict[str, torch.Tensor]]:
         """The device buffers of each step kind's inputs: 'decode'
         (token, block table, lengths) and 'chunk' (tokens (B, C), block
-        table, lengths, n_valid)."""
+        table, lengths, n_valid); with ``spec_k``, 'draft' (decode's and
+        the (B,) rids / poss of its sampler) and 'verify' (tokens
+        (B, k + 1), block table, lengths, n_valid, rids, and each row's
+        first absolute position, poss).  'draft_chunk' runs on 'chunk''s
+        (``_buffers``)."""
         B, nb, C = self.sched.max_batch, self.sched.max_blocks, \
             self.prefill_chunk
 
         def z(*shape, dtype=torch.int32):
             return torch.zeros(shape, dtype=dtype, device=self.device)
 
-        return {"decode": dict(token=z(B, dtype=torch.long),
-                               block_table=z(B, nb), lengths=z(B)),
-                "chunk": dict(tokens=z(B, C, dtype=torch.long),
-                              block_table=z(B, nb), lengths=z(B),
-                              n_valid=z(B))}
+        out = {"decode": dict(token=z(B, dtype=torch.long),
+                              block_table=z(B, nb), lengths=z(B)),
+               "chunk": dict(tokens=z(B, C, dtype=torch.long),
+                             block_table=z(B, nb), lengths=z(B),
+                             n_valid=z(B))}
+        if self.spec_k:
+            out["draft"] = dict(token=z(B, dtype=torch.long),
+                                block_table=z(B, nb), lengths=z(B),
+                                rids=z(B, dtype=torch.long),
+                                poss=z(B, dtype=torch.long))
+            out["verify"] = dict(tokens=z(B, self.spec_k + 1,
+                                          dtype=torch.long),
+                                 block_table=z(B, nb), lengths=z(B),
+                                 n_valid=z(B), rids=z(B, dtype=torch.long),
+                                 poss=z(B, dtype=torch.long))
+        return out
+
+    def _buffers(self, kind: str) -> Dict[str, torch.Tensor]:
+        """``kind``'s input buffers: the draft chunk replays on the ones
+        the target's chunk was just given."""
+        return self._inputs["chunk" if kind == "draft_chunk" else kind]
 
     def _chunk_impl(self) -> str:
         """Chunk-attention impl: ``prefill_impl`` when set, else
@@ -314,13 +401,31 @@ class PagedMLAEngine:
         return {"gather": "ref", "kernel": "kernel",
                 None: self.impl}[self.prefill_impl]
 
+    def _model(self, kind: str):
+        """(cfg, params, pool) a step of ``kind`` runs: the draft's for
+        'draft' and 'draft_chunk', the target's otherwise."""
+        if kind.startswith("draft"):
+            return self.draft_cfg, self.draft_params, self.draft_pool
+        return self.cfg, self.params, self.pool
+
     def _step_fn(self, kind: str, scheme: str):
         """The device step of ``kind`` under ``scheme``, as a function of
         its input buffers.  It holds the params and the pool, not the
         engine, so a graph of it dies with the engine."""
-        params, cfg, pool = self.params, self.cfg, self.pool
+        cfg, params, pool = self._model(kind)
         kw = dict(compute_dtype=self.compute_dtype, scheme=scheme)
-        if kind == "chunk":
+        sample_kw = dict(temperature=self.temperature, top_k=self.top_k,
+                         sample_seed=self._sample_seed)
+        if kind == "verify":
+            verify = make_verify_step(cfg, impl=self._chunk_impl(), **kw)
+
+            def run_verify(tokens, block_table, lengths, n_valid, rids,
+                           poss):
+                logits, _ = verify(params, tokens, pool, block_table,
+                                   lengths, n_valid)
+                return sample_window(logits, rids, poss, **sample_kw), logits
+            return run_verify
+        if kind in ("chunk", "draft_chunk"):
             chunk_impl = self._chunk_impl()
 
             def chunk(tokens, block_table, lengths, n_valid):
@@ -337,9 +442,9 @@ class PagedMLAEngine:
                                                impl=impl, **kw)
                 return logits
             return decode
-        step = make_paged_sample_step(
-            cfg, impl=impl, temperature=self.temperature,
-            top_k=self.top_k, sample_seed=self._sample_seed, **kw)
+        # 'sample' (the async engine's tick) and 'draft' (the draft's
+        # proposals): decode with the sampler folded in
+        step = make_paged_sample_step(cfg, impl=impl, **sample_kw, **kw)
 
         def sample(token, block_table, lengths, rids, poss):
             return step(params, token, pool, block_table, lengths, rids,
@@ -354,10 +459,10 @@ class PagedMLAEngine:
         g = self._graphs.get((kind, scheme))
         if g is not None:
             return g
-        inputs = self._inputs[kind]
+        inputs = self._buffers(kind)
         for t in inputs.values():
             t.zero_()
-        params, pool = self.params, self.pool
+        _, params, pool = self._model(kind)
         g = StepGraph(self._step_fn(kind, scheme), inputs,
                       held=lambda: [*cachelib.pool_leaves(pool),
                                     *cachelib.pool_leaves(params)],
@@ -368,32 +473,43 @@ class PagedMLAEngine:
         return g
 
     def _run_step(self, kind: str, scheme: str,
-                  arrays: Dict[str, np.ndarray]):
-        """Upload ``arrays`` into ``kind``'s input buffers and run the
-        step: its graph's replay on a CUDA engine with graphs, the eager
-        step otherwise.  Returns the step's output (a graph's is valid
-        until its next replay)."""
+                  arrays: Optional[Dict[str, np.ndarray]] = None):
+        """Upload ``arrays`` (None: none, the buffers hold this step's
+        inputs already) into ``kind``'s input buffers and run the step:
+        its graph's replay on a CUDA engine with graphs, the eager step
+        otherwise.  Returns the step's output (a graph's is valid until
+        its next replay)."""
+        inputs = self._buffers(kind)
         if self.cuda_graphs:
             g = self._graph(kind, scheme)
-            self._upload(self._inputs[kind], arrays)
+            if arrays is not None:
+                self._upload(inputs, arrays)
             return g.replay()
-        self._upload(self._inputs[kind], arrays)
-        return self._step_fn(kind, scheme)(**self._inputs[kind])
+        if arrays is not None:
+            self._upload(inputs, arrays)
+        return self._step_fn(kind, scheme)(**inputs)
 
     def warm_up(self) -> float:
-        """Capture the graphs a serve will replay — the decode step of
-        every scheme the engine may dispatch, and the prefill chunk —
-        before the first request, so no tick pays for a capture.  Returns the seconds it took (also
-        in ``EngineStats.capture_s``); a no-op without graphs."""
+        """Capture the graphs a serve will replay before the first
+        request, so no tick pays for a capture: the prefill chunk, and
+        the decode step of every scheme the engine may dispatch — with
+        ``spec_k``, instead of the decode steps (a spec engine runs none),
+        the draft's decode step and chunk and the verify step of every
+        such scheme.  Returns the seconds it took (also in
+        ``EngineStats.capture_s``); a no-op without graphs."""
         if not self.cuda_graphs:
             return 0.0
         t0 = self.stats.capture_s
         schemes = ("seq", "rc", "ru") if self.scheme == "auto" \
             else (self.scheme,)
         for scheme in schemes:
-            self._graph(self._decode_kind, scheme)
+            self._graph("verify" if self.spec_k else self._decode_kind,
+                        scheme)
         if self.prefill_mode == "chunked":
             self._graph("chunk", self._chunk_scheme())
+        if self.spec_k:
+            self._graph("draft", self._draft_scheme)
+            self._graph("draft_chunk", self._draft_scheme)
         return self.stats.capture_s - t0
 
     def graph_plans(self) -> Dict[str, Dict[str, dict]]:
@@ -405,7 +521,14 @@ class PagedMLAEngine:
         """Drop the captured graphs (their memory pools go with them)."""
         self._graphs.clear()
 
-    def _pick_scheme(self) -> str:
+    @property
+    def spec_compiles(self) -> int:
+        """Distinct speculative step shapes run so far (the reference
+        counts its compiles): verify steps (at most one a scheme, all at
+        chunk k + 1) plus the draft decode step."""
+        return len(self._spec_shapes)
+
+    def _pick_scheme(self, verify_k: int = 0) -> str:
         active = self.sched.active_slots
         cache_len = int(self.sched.lengths[active].max()) + 1 if active else 1
         # the live dispatch point, kept for the drift channel: predictions
@@ -416,7 +539,7 @@ class PagedMLAEngine:
             return self.scheme
         s = auto_dispatch(self.mla, self.platform, cache_len=cache_len,
                           batch=max(len(active), 1),
-                          paged_block=self.block_size,
+                          paged_block=self.block_size, verify_k=verify_k,
                           cache_dtype=self.cache_dtype)
         if self._last_scheme is not None and s != self._last_scheme:
             self.stats.scheme_switches += 1
@@ -470,6 +593,10 @@ class PagedMLAEngine:
         t_pf = time.perf_counter() if drift else 0.0
         pending = dict(admitted)
         fill = {slot: req.n_cached for slot, req in admitted}
+        if self.spec_k and self.cuda_graphs:
+            # its capture zeroes the buffers it shares with the chunk, so
+            # it comes before the chunk's upload
+            self._graph("draft_chunk", self._draft_scheme)
         while pending:
             tokens = np.zeros((B, C), np.int32)
             lens = np.zeros((B,), np.int32)
@@ -486,10 +613,18 @@ class PagedMLAEngine:
                     finishing.append((slot, req))
                     del pending[slot]
             with tr.span("prefill_chunk"):
-                logits = self._run_step(
-                    "chunk", self._chunk_scheme(),
-                    dict(tokens=tokens, block_table=self.sched.block_table,
-                         lengths=lens, n_valid=nv))
+                arrays = dict(tokens=tokens,
+                              block_table=self.sched.block_table,
+                              lengths=lens, n_valid=nv)
+                logits = self._run_step("chunk", self._chunk_scheme(),
+                                        arrays)
+                if self.spec_k:
+                    # the draft prefills the SAME chunk into its own pool,
+                    # so a request drafts as soon as it is admitted
+                    # (prefix-cache hits skip both pools alike: shared
+                    # block ids hold valid latents in each), from the
+                    # buffers the chunk was just given
+                    self._run_step("draft_chunk", self._draft_scheme)
             self.stats.prefill_tokens += int(nv.sum())
             self.stats.prefill_chunks += 1
             for slot, req in finishing:
@@ -611,13 +746,17 @@ class PagedMLAEngine:
             return
         srcs = [p[0] for p in pairs]
         dsts = [p[1] for p in pairs]
+        # block-level ops track both pools (same geometry)
+        pools = [p for p in (self.pool, self.draft_pool) if p is not None]
         if len(pairs) == 1 or (set(srcs) & set(dsts)):
             for src, dst in pairs:
-                cachelib.copy_block_paged(self.pool, src, dst)
+                for pool in pools:
+                    cachelib.copy_block_paged(pool, src, dst)
             return
-        cachelib.copy_blocks_paged(self.pool,
-                                   self._dev(np.asarray(srcs, np.int64)),
-                                   self._dev(np.asarray(dsts, np.int64)))
+        s, d = (self._dev(np.asarray(srcs, np.int64)),
+                self._dev(np.asarray(dsts, np.int64)))
+        for pool in pools:
+            cachelib.copy_blocks_paged(pool, s, d)
 
     def step(self) -> None:
         """One scheduler tick: admit + batched prefill, then one batched
@@ -659,7 +798,9 @@ class PagedMLAEngine:
                 self._drain_cow()
 
             active = self.sched.active_slots
-            if active:
+            if active and self.spec_k:
+                self._spec_round(active, step_i)
+            elif active:
                 scheme = self._pick_scheme()
                 self.stats.schemes_used[scheme] = \
                     self.stats.schemes_used.get(scheme, 0) + 1
@@ -701,6 +842,108 @@ class PagedMLAEngine:
                 u["allocated_blocks"] * self.block_size
                 * self.cache_token_bytes)
 
+    # ------------------------------------------------ speculative round ----
+
+    def _spec_round(self, active, step_i: int) -> None:
+        """One draft + verify + accept tick over all active slots (the
+        reference's ``_spec_round``).
+
+        1. DRAFT: the draft proposes up to k tokens a slot by paged decode
+           against its own pool, sampling on the device with the target's
+           rule — greedy, or the fold(rid, absolute position) key of the
+           position it proposes — so an identity draft proposes what the
+           target will sample.  The loop runs each slot's whole write
+           window (nv[s] = min(k + 1, remaining budget)), so the last
+           draft's latent is written too: its proposal is discarded, but
+           its write keeps the draft pool complete when all k are
+           accepted.  A slot whose window is used up re-writes the same
+           token at the same position (idempotent), so one step shape
+           (one graph) serves ragged windows.
+        2. VERIFY: one chunk step of the target over [pending, d_1 ..
+           d_{nv-1}] at C = k + 1 (``steps.make_verify_step``), its
+           token at every position sampled on the device
+           (``steps.sample_window``) under plain decode's keys.
+        3. ACCEPT: the leading drafts equal to the target's tokens are
+           accepted; the round emits them plus one bonus / correction
+           token (``spec.accept_length``).  Rejection is a host-side
+           length rewind (``scheduler.advance_multi``)."""
+        k = self.spec_k
+        B = self.sched.max_batch
+        tr = self.tel.tracer
+        drift = self.tel.drift if (self.tel.drift is not None
+                                   and self.tel.drift.active) else None
+        nv = np.zeros((B,), np.int32)
+        rids = np.zeros((B,), np.int64)
+        base = np.zeros((B,), np.int64)
+        for s in active:
+            req = self.sched.slots[s]
+            nv[s] = self.sched._window(req)
+            rids[s] = req.rid
+            base[s] = req.plen + len(req.tokens)   # abs pos, next sample
+        bt = self.sched.block_table
+        # ---- 1. draft ---------------------------------------------------
+        drafts = np.zeros((B, k), np.int64)
+        d_pending = self.pending.astype(np.int64)
+        d_lens = self.sched.lengths.copy()
+        self._spec_shapes.add(("draft", self._draft_scheme))
+        with tr.span("draft"):
+            for j in range(int(nv.max())):
+                # the proposal at absolute position d_lens + 1 draws the
+                # key the target samples THAT position with in verify
+                prop = self._run_step(
+                    "draft", self._draft_scheme,
+                    dict(token=d_pending, block_table=bt, lengths=d_lens,
+                         rids=rids, poss=d_lens.astype(np.int64) + 1)
+                ).cpu().numpy()
+                self.stats.spec_draft_steps += 1
+                for s in active:
+                    if j < nv[s] - 1:
+                        drafts[s, j] = prop[s]
+                        self.stats.spec_drafted += 1
+                    if j + 1 < nv[s]:    # still drafting next iteration
+                        d_pending[s] = prop[s]
+                        d_lens[s] += 1
+        # ---- 2. verify --------------------------------------------------
+        tokens_v = np.zeros((B, k + 1), np.int64)
+        for s in active:
+            tokens_v[s, 0] = self.pending[s]
+            tokens_v[s, 1:nv[s]] = drafts[s, :nv[s] - 1]
+        scheme = self._pick_scheme(verify_k=k)
+        self.stats.schemes_used[scheme] = \
+            self.stats.schemes_used.get(scheme, 0) + 1
+        self._spec_shapes.add(("verify", scheme))
+        t_v = time.perf_counter() if drift else 0.0
+        with tr.span("verify"):
+            target, _ = self._verify(scheme, dict(
+                tokens=tokens_v, block_table=bt, lengths=self.sched.lengths,
+                n_valid=nv, rids=rids, poss=base))
+        if drift:
+            b, cl = self._last_point
+            drift.record_verify(scheme, b, cl, k, time.perf_counter() - t_v)
+        # ---- 3. accept + host-side length rewind ------------------------
+        with tr.span("host_sample"):
+            emitted = {}
+            for s in active:
+                t_s = target[s, :nv[s]]
+                n_acc = speclib.accept_length(drafts[s, :nv[s] - 1], t_s)
+                emitted[s] = [int(t) for t in t_s[:n_acc + 1]]
+                self.stats.spec_accepted += n_acc
+            self.sched.advance_multi(emitted, step_i)
+        for s, toks in emitted.items():
+            if self.sched.slots[s] is not None:
+                self.pending[s] = toks[-1]
+        self.stats.decode_tokens += sum(len(t) for t in emitted.values())
+        self.stats.spec_rounds += 1
+        self.stats.spec_slot_rounds += len(active)
+
+    def _verify(self, scheme: str, arrays: Dict[str, np.ndarray]):
+        """Run the verify step on ``arrays`` and wait for it; returns the
+        target's tokens (B, k + 1) on the host and the step's logits
+        (B, k + 1, V) on the device (a graph's, valid until its next
+        replay)."""
+        ids, logits = self._run_step("verify", scheme, arrays)
+        return ids.cpu().numpy(), logits
+
     def run(self, requests: List[Request], *, max_steps: int = 100_000,
             log_every: int = 0, log=print) -> Dict[str, float]:
         """Drive a request stream to completion (:func:`runtime.loop.drive`)."""
@@ -715,6 +958,7 @@ class PagedMLAEngine:
             self.sched.allocator.total_allocs)
         out["fork_groups"] = float(self.sched.fork_groups)
         out["fork_children"] = float(self.sched.forked_children)
+        out["spec_compiles"] = float(self.spec_compiles)
         out["cache_dtype"] = self.cache_dtype
         out["cache_token_bytes"] = float(self.cache_token_bytes)
         out["cuda_graphs"] = self.cuda_graphs
@@ -751,7 +995,9 @@ class AsyncPagedMLAEngine(PagedMLAEngine):
     """Double-buffered engine: host work for tick N+1 overlaps the
     device's execution of tick N.
 
-    Per tick:
+    Per tick (plain decode; ``spec_k > 0`` drains the pipeline and runs
+    the synchronous :meth:`PagedMLAEngine._spec_round` — accept / rewind
+    is host work that depends on the values):
 
       1. *schedule* — while the device still runs the step dispatched
          last tick: requests whose in-flight token is structurally their
@@ -811,6 +1057,11 @@ class AsyncPagedMLAEngine(PagedMLAEngine):
     # ------------------------------------------------------------- tick ----
 
     def step(self) -> None:
+        if self.spec_k:
+            # drain, then run the synchronous spec tick: double-buffering
+            # applies to plain decode; spec rounds are host-interactive
+            self._drain_inflight()
+            return super().step()
         t0 = time.perf_counter()
         step_i = self.stats.steps
         self._process_cancels(step_i)

@@ -158,6 +158,15 @@ def gumbel(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     return -torch.log(-torch.log(u))
 
 
+# PyTorch takes the log of a contiguous float CPU tensor in MKL's VML, 2,048
+# elements a thread.  When a process's first VML log runs on two threads at
+# once, one thread's chunk can come back hundreds of ulps off (4,096
+# elements: 3 fresh processes in 600 read up to 840 ulps; later calls were
+# exact).  So the module takes a one-element log, which runs on one thread,
+# before ``gumbel`` can take its first.
+torch.log(torch.ones(1))
+
+
 def categorical(keys: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     """``vmap(jax.random.categorical)(keys, logits)``: row b draws
     ``argmax(gumbel(keys[b], (V,)) + logits[b])`` (ties to the lowest

@@ -47,11 +47,14 @@ tables / lengths / copy-on-write block pairs; ``runtime.engine`` owns
 params, device steps, the chunked prefill -> pool scatter, and the device
 side of every CoW copy (``cow_pending``).
 
-Every decode tick writes one cache position per request.  The JAX
-package's speculative write window, its block-granular prefix matching
-and its switch for decode-block registration serve features the port
-does not run yet (ROADMAP.md, queue 1); they come back with those
-features.  With telemetry on, ``fork_group`` puts a ``fork_group``
+A decode tick writes ``decode_window`` cache positions per request: 1
+for plain decode, ``spec_k + 1`` under speculative decoding (the verify
+step writes the fed token and up to k drafts), clipped to the request's
+remaining budget; admission and block growth reserve that window, and
+``advance_multi`` accounts a round's accepted tokens.  The JAX package's
+block-granular prefix matching and its switch for decode-block
+registration serve features the port does not run yet (ROADMAP.md,
+queue 1).  With telemetry on, ``fork_group`` puts a ``fork_group``
 instant on the trace (through ``prefix.tel``, as in the reference).
 """
 from __future__ import annotations
@@ -251,13 +254,22 @@ def blocks_for(n_tokens: int, block_size: int) -> int:
 
 class ContinuousScheduler:
     """Slots, block tables and lengths of the running requests, their
-    queue, and the radix prefix cache over the pool (module docstring)."""
+    queue, and the radix prefix cache over the pool (module docstring).
+
+    ``decode_window`` is the number of cache positions one decode tick
+    may WRITE per request: 1 for plain decode, ``spec_k + 1`` for
+    speculative decoding.  Admission and per-step block growth reserve
+    the window (clipped to each request's remaining budget), so a verify
+    write never runs past the block table (:meth:`_require_table_room`)."""
 
     def __init__(self, *, num_blocks: int, block_size: int, max_batch: int,
                  max_blocks_per_req: Optional[int] = None,
                  enable_prefix_cache: bool = True,
+                 decode_window: int = 1,
                  admission: str = "fcfs",
                  admission_age_bound: int = 64):
+        if decode_window < 1:
+            raise ValueError(f"decode_window must be >= 1, {decode_window}")
         if admission not in ("fcfs", "cache_aware"):
             raise ValueError(f"unknown admission policy {admission!r} "
                              "(expected 'fcfs' or 'cache_aware')")
@@ -265,6 +277,7 @@ class ContinuousScheduler:
             raise ValueError("admission_age_bound must be >= 1")
         self.allocator = BlockAllocator(num_blocks)
         self.block_size = block_size
+        self.decode_window = decode_window
         self.admission = admission
         self.admission_age_bound = admission_age_bound
         self.prefix = PrefixCache(self.allocator, block_size,
@@ -377,9 +390,9 @@ class ContinuousScheduler:
             group = [] if req.forked else req.fork_children
             if 1 + len(group) > len(free):
                 break
-            need = blocks_for(req.plen + 1, self.block_size)
+            need = blocks_for(req.plen + self._window(req), self.block_size)
             n_shared_full = req.plen // self.block_size
-            child_needs = [blocks_for(c.plen + 1,
+            child_needs = [blocks_for(c.plen + self._window(c),
                                       self.block_size) - n_shared_full
                            for c in group]
             if need > self.max_blocks:
@@ -514,8 +527,10 @@ class ContinuousScheduler:
         re-prefilling.  Called as ``lengths`` crosses each block
         boundary; idempotent — trie paths already present are only
         LRU-refreshed, and a block registered once is never offered
-        again (``PrefixCache.insert``).  Only blocks fully below
-        ``lengths`` are offered."""
+        again (``PrefixCache.insert``).  Safe against speculative
+        rewind: only blocks fully below ``lengths`` are offered, and
+        ``lengths`` advances over ACCEPTED tokens only, so rejected-draft
+        latents always sit past the registered range."""
         if not self.prefix.enabled:
             return 0
         req = self.slots[slot]
@@ -528,6 +543,13 @@ class ContinuousScheduler:
                                   self.blocks_of[slot][:n_full], decode=True)
 
     # ----------------------------------------------------- decode cycle ---
+
+    def _window(self, req: Request) -> int:
+        """Write window of the next decode tick for ``req``: the verify
+        window clipped to the remaining generation budget (a request about
+        to finish never writes — or needs blocks for — the full k + 1)."""
+        return max(1, min(self.decode_window,
+                          req.max_new - len(req.tokens)))
 
     def _require_table_room(self, slot: int, n_tokens: int) -> None:
         """Raise if ``n_tokens`` total tokens would overflow slot's block
@@ -546,7 +568,8 @@ class ContinuousScheduler:
 
     def ensure_step_capacity(self) -> List[Request]:
         """Grow each active request's allocation so the next decode tick's
-        write (position lengths[slot]) has a block.  Oldest
+        write window (positions lengths[slot] .. lengths[slot] + window - 1;
+        window = ``decode_window`` budget-clipped) has blocks.  Oldest
         admissions grow first; on pool exhaustion the cache is
         LRU-evicted, then the YOUNGEST running request is preempted
         (recompute-style) so the oldest always make progress.  If a
@@ -558,8 +581,10 @@ class ContinuousScheduler:
         for slot in list(self._admit_order):          # oldest first
             if self.slots[slot] is None:              # already preempted
                 continue
-            self._require_table_room(slot, int(self.lengths[slot]) + 1)
-            need = blocks_for(int(self.lengths[slot]) + 1, self.block_size)
+            window = self._window(self.slots[slot])
+            self._require_table_room(slot, int(self.lengths[slot]) + window)
+            need = blocks_for(int(self.lengths[slot]) + window,
+                              self.block_size)
             while need > len(self.blocks_of[slot]):
                 got = self.prefix.alloc(1)
                 if got is None:
@@ -575,33 +600,33 @@ class ContinuousScheduler:
                 self.blocks_of[slot].extend(got)
                 self.block_table[slot, len(self.blocks_of[slot]) - 1] = got[0]
             if self.slots[slot] is not None:
-                self._cow_write_target(slot)
+                self._cow_write_target(slot, window)
         return preempted
 
-    def _cow_write_target(self, slot: int) -> None:
-        """Copy-on-write: if the block about to receive this slot's next
-        token is shared, swap in a private copy.
+    def _cow_write_target(self, slot: int, window: int = 1) -> None:
+        """Copy-on-write: if any block about to receive one of this slot's
+        next ``window`` tokens is shared, swap in a private copy.
         Structurally this does not arise from prefix sharing, fork
         groups or decode-block registration alone (shared / registered
         blocks are always FULL — writes land strictly past them), but a
         preempted request replaying through a partial cache hit, or an
         external fork, can put a shared block under the write cursor."""
-        widx = int(self.lengths[slot]) // self.block_size
-        if widx >= len(self.blocks_of[slot]):
-            return
-        old = self.blocks_of[slot][widx]
-        if not self.prefix.is_write_shared(old):
-            return
-        got = self.prefix.alloc(1)
-        if got is None:
-            raise RuntimeError(
-                f"pool exhausted breaking a copy-on-write share of "
-                f"block {old} (slot {slot}); increase num_blocks")
-        self.blocks_of[slot][widx] = got[0]
-        self.block_table[slot, widx] = got[0]
-        self.prefix.release([old])
-        self.prefix.count_cow()
-        self.cow_pending.append((old, got[0]))
+        lo = int(self.lengths[slot]) // self.block_size
+        hi = (int(self.lengths[slot]) + window - 1) // self.block_size
+        for widx in range(lo, min(hi, len(self.blocks_of[slot]) - 1) + 1):
+            old = self.blocks_of[slot][widx]
+            if not self.prefix.is_write_shared(old):
+                continue
+            got = self.prefix.alloc(1)
+            if got is None:
+                raise RuntimeError(
+                    f"pool exhausted breaking a copy-on-write share of "
+                    f"block {old} (slot {slot}); increase num_blocks")
+            self.blocks_of[slot][widx] = got[0]
+            self.block_table[slot, widx] = got[0]
+            self.prefix.release([old])
+            self.prefix.count_cow()
+            self.cow_pending.append((old, got[0]))
 
     def drain_cow(self) -> List[Tuple[int, int]]:
         """Hand the queued (src, dst) copy-on-write block copies to the
@@ -646,18 +671,40 @@ class ContinuousScheduler:
         the cache (lengths += 1).  Finished requests are evicted and their
         blocks released (trie-registered ones stay LRU-evictable).
         Returns the requests finished this step."""
+        return self.advance_multi({s: [t] for s, t in sampled.items()}, step)
+
+    def advance_multi(self, emitted: Dict[int, List[int]],
+                      step: int = 0) -> List[Request]:
+        """Account one SPECULATIVE round: ``emitted[slot]`` is the ordered
+        list of tokens the verify step produced for that slot (accepted
+        drafts + one bonus/correction token, at most the slot's write
+        window).  The cache gained the fed token plus every accepted draft
+        — lengths += len(emitted); the LAST emitted token is the new
+        pending token (not yet written; rejected drafts' latents sit past
+        ``lengths`` and are overwritten before they can ever be attended).
+        Len-1 lists are plain :meth:`advance`.  Returns the requests
+        finished this round."""
         done: List[Request] = []
-        for slot, tok in sampled.items():
+        for slot, toks in emitted.items():
             req = self.slots[slot]
-            if req is None:
+            if req is None or not toks:
                 continue
-            self.lengths[slot] += 1
-            req.tokens.append(int(tok))
-            if int(self.lengths[slot]) % self.block_size == 0:
-                # a block of generated latents just completed — make
-                # it matchable (multi-turn decode-block reuse)
-                self.register_decode_blocks(slot)
-            self._check_stop(req)
+            if len(toks) > self._window(req):
+                raise ValueError(
+                    f"slot {slot}: {len(toks)} emitted tokens exceed the "
+                    f"write window {self._window(req)}")
+            # token-at-a-time so a stop hit is token-exact: tokens after
+            # the match (later accepted drafts in a spec round) are
+            # discarded, never accounted.
+            for t in toks:
+                self.lengths[slot] += 1
+                req.tokens.append(int(t))
+                if int(self.lengths[slot]) % self.block_size == 0:
+                    # a block of generated latents just completed — make
+                    # it matchable (multi-turn decode-block reuse)
+                    self.register_decode_blocks(slot)
+                if self._check_stop(req) or req.done:
+                    break
             if req.done:
                 done.append(self._finish(slot, step))
         return done

@@ -14,8 +14,13 @@ paged pool.
     make_paged_sample_step(cfg, ...)           -> fn(params, token, pool,
                                                      block_tables, lengths,
                                                      rids, poss) -> tokens
+    make_verify_step(cfg, ...)                 -> fn(params, tokens, pool,
+                                                     block_tables, lengths,
+                                                     n_valid) -> (logits
+                                                     (B, C, V), pool)
     scatter_prefill_to_paged(pool, cache, pages) -> pool
     sample_tokens(logits, rids, poss, ...)     -> (B,) token ids
+    sample_window(logits, rids, poss, ...)     -> (B, C) token ids
     sample_scores(logits, rids, poss, ...)     -> (B, V) perturbed scores
 
 The training step takes gradients with ``torch.autograd.grad`` over the
@@ -224,6 +229,31 @@ def make_paged_sample_step(cfg: ModelConfig, *,
     return run
 
 
+def make_verify_step(cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
+                     impl: str = "ref", scheme: str = "seq"):
+    """The speculative-decoding verify step over the paged pool (the
+    reference's ``make_verify_step``, single device):
+
+        fn(params, tokens (B, C), pool, block_tables (B, nb), lengths (B,),
+           n_valid (B,)) -> (logits (B, C, V), pool)
+
+    the chunked prefill at C = k + 1 with logits at every position
+    (``models.verify_chunk_paged``): row b scores its last sampled token
+    plus ``n_valid[b] - 1`` drafts against its resident latent prefix,
+    and writes their latents into the pool in place.  ``impl`` 'kernel'
+    attends in kernel K2."""
+    if cfg.attn_kind != "mla":
+        raise NotImplementedError("paged serving requires attn_kind='mla'")
+
+    def run(params, tokens, pool, block_tables, lengths, n_valid):
+        return models.verify_chunk_paged(params, cfg, tokens, pool,
+                                         block_tables, lengths, n_valid,
+                                         compute_dtype=compute_dtype,
+                                         impl=impl, scheme=scheme)
+
+    return run
+
+
 def _layer_pairs(pool_tree, cache_tree):
     """(pool, cache) of each layer of two trees laid out alike."""
     if isinstance(pool_tree, dict) and "ckv" in pool_tree:
@@ -305,3 +335,21 @@ def sample_tokens(logits, rids, poss, *, temperature: float, top_k: int = 0,
     return torch.argmax(sample_scores(logits, rids, poss,
                                       temperature=temperature, top_k=top_k,
                                       sample_seed=sample_seed), dim=-1)
+
+
+def sample_window(logits, rids, poss, *, temperature: float, top_k: int = 0,
+                  sample_seed: int = 0) -> torch.Tensor:
+    """One token per position of a verify window: logits (B, C, V), row b
+    at absolute positions poss[b] .. poss[b] + C - 1, each drawn by
+    :func:`sample_tokens` under fold(fold(seed, rids[b]), position), the
+    key plain decode uses for that position.  Returns (B, C) int64."""
+    B, C, V = logits.shape
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1)
+    offs = torch.arange(C, dtype=poss.dtype, device=poss.device)
+    flat = sample_tokens(logits.reshape(B * C, V),
+                         rids[:, None].expand(B, C).reshape(-1),
+                         (poss[:, None] + offs).reshape(-1),
+                         temperature=temperature, top_k=top_k,
+                         sample_seed=sample_seed)
+    return flat.reshape(B, C)

@@ -15,7 +15,9 @@ loop over GQA / MQA query heads and check the route each launch recorded
 the Random123 known answers on the card and the CPU's bits, and the
 sampler the CPU's tokens except where a row's two best perturbed scores
 lie within a few ulps (the Gumbel noise's two logarithms may round
-differently on the two devices).
+differently on the two devices).  K2 runs at the speculative verify
+width C = k + 1, and the spec engines give plain decode's tokens with
+and without graphs, their K1 / K2 launches counted through replays.
 
 Every test here is marked ``gpu`` and skips without a CUDA device (the
 kernels have no CPU mode); on a machine with one:
@@ -426,6 +428,60 @@ def test_prefill_tc_route_boundaries_on_card(case, dtype, pool):
         for want in wants:
             _row_close(got, want, tol)
             _close(got, want, tol)
+        for b in range(B):
+            assert (got[b, n_valid[b]:] == 0).all()
+
+
+# K2 at the verify step's width C = k + 1 (speculative decoding, k = 4 and
+# k = 2): (B, C, H, Dl, Dr, bs, nb, N, lengths, n_valid) with a
+# budget-clipped window (n_valid < C), one-row windows, an idle request,
+# and prefixes ending on and next to 64-position tile edges.
+VERIFY_CASES = [
+    (8, 5, 128, 512, 64, 16, 70, 600,
+     [1055, 255, 511, 1023, 300, 767, 15, 0], [5, 5, 5, 3, 5, 1, 2, 0]),
+    (3, 3, 128, 512, 64, 16, 12, 60, [62, 0, 127], [3, 2, 1]),
+]
+
+
+@pytest.mark.parametrize("pool", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("case", VERIFY_CASES)
+def test_prefill_kernel_at_verify_width_on_card(case, pool):
+    """bf16 K2 at C = k + 1 on its tensor-core walk (``last_plan``: a
+    split plan over B x C rows), both rescales, held row by row and
+    elementwise against its plain walk and the split walk's model; rows
+    past n_valid and the idle request exactly 0."""
+    dev = _cuda()
+    B, C, H, Dl, Dr, bs, nb, N, lengths, n_valid = case
+    if pool == "bf16":
+        g = torch.Generator(device=dev)
+        g.manual_seed(N + C)
+        ckv, krope = (torch.randn(s, generator=g, device=dev).bfloat16()
+                      for s in ((N, bs, Dl), (N, bs, Dr)))
+        qkw = {}
+    else:
+        ckv, krope, cs, rs = _quantized_pool(dev, N, bs, Dl, Dr, pool, N)
+        qkw = dict(ckv_scales=cs, krope_scales=rs)
+    rng = np.random.default_rng(nb + C)
+    bt = np.stack([rng.permutation(np.arange(1, N))[:nb] for _ in range(B)])
+    q, bt, ln, nv = _on(dev, torch.bfloat16,
+                        rng.standard_normal((B, C, H, Dl + Dr)),
+                        bt.astype(np.int32), np.asarray(lengths, np.int32),
+                        np.asarray(n_valid, np.int32))
+    for rescale in tref.RESCALES:
+        got = mla_prefill_paged_kernel(q, ckv, krope, bt, ln, nv,
+                                       rescale=rescale, **qkw)
+        torch.cuda.synchronize()
+        plan = mla_prefill_paged_kernel.last_plan
+        assert plan["n_split"] > 0, plan
+        assert plan["grid"] == (-(-H // 64), plan["n_split"], B * C)
+        for want in (tref.mla_prefill_paged_ref(q, ckv, krope, bt, ln, nv,
+                                                rescale=rescale, **qkw),
+                     tref.mla_prefill_split_ref(
+                         q, ckv, krope, bt, ln, nv,
+                         split_pos=plan["split_pos"], rescale=rescale,
+                         **qkw)):
+            _row_close(got, want, 2e-2)
+            _close(got, want, 2e-2)
         for b in range(B):
             assert (got[b, n_valid[b]:] == 0).all()
 
@@ -949,6 +1005,76 @@ def test_graph_replays_count_kernel_launches_on_card():
         pre = plans["chunk/seq"]["mla_prefill_paged_kernel"]
         assert dec == k1.last_plan and pre == k2.last_plan
         assert dec["n_split"] > 0 and pre["n_split"] > 0
+
+
+SPEC_COUNTERS = COUNTERS + ("spec_rounds", "spec_drafted", "spec_accepted")
+
+
+def _spec_engine(cfg, params, engine, draft, spec_k, **kw):
+    from repro_torch.runtime import spec
+    dcfg, dparams = spec.parse_draft_spec(draft, cfg, params)
+    return _smoke_engine(cfg, params, engine, spec_k=spec_k, draft_cfg=dcfg,
+                         draft_params=dparams, **kw)
+
+
+@pytest.mark.parametrize("sampling", [{}, dict(temperature=0.8, top_k=5,
+                                               sample_seed=7)],
+                         ids=["greedy", "seeded"])
+def test_spec_graphs_match_eager_on_card(sampling):
+    """Speculative decoding (a two-layer draft at k = 2, the identity draft
+    at k = 3) on the sync engine eagerly, on graphs and on the async
+    engine on graphs: the same tokens as plain decode, the same counters
+    in the three runs, every identity draft accepted (f32 smoke config,
+    an n = 2 fork, and a pool small enough to preempt)."""
+    cfg, params = _smoke_model()
+    for num_blocks in (64, 12):
+        plain, _ = _serve(_smoke_engine(cfg, params, num_blocks=num_blocks,
+                                        **sampling),
+                          _smoke_requests(cfg.vocab, n_fork=2))
+        for draft, spec_k in (("shallow:2", 2), ("self", 3)):
+            runs = []
+            for engine, graphs in (("sync", False), ("sync", True),
+                                   ("async", True)):
+                eng = _spec_engine(cfg, params, engine, draft, spec_k,
+                                   num_blocks=num_blocks, cuda_graphs=graphs,
+                                   **sampling)
+                toks, _ = _serve(eng, _smoke_requests(cfg.vocab, n_fork=2))
+                s = eng.summary()
+                runs.append((toks, {k: s[k] for k in SPEC_COUNTERS}))
+            for toks, stats in runs:
+                assert toks == plain
+                assert stats == runs[0][1]
+            assert runs[0][1]["spec_drafted"] > 0
+            if draft == "self":
+                assert runs[0][1]["spec_accepted"] == \
+                    runs[0][1]["spec_drafted"]
+
+
+def test_spec_graph_replays_count_kernel_launches_on_card():
+    """bf16 spec engines on graphs: K1 launches = draft layers x draft
+    steps, K2 launches = layers x (chunks + verify rounds) + draft layers
+    x chunks, counted through the replays; every verify graph captured
+    K2 on its tensor-core walk over B x (k + 1) rows."""
+    from repro_torch.kernels.mla_decode import mla_decode_paged_kernel as k1
+    from repro_torch.kernels.mla_prefill import mla_prefill_paged_kernel as k2
+    cfg, params = _smoke_model(torch.bfloat16)
+    for engine in ("sync", "async"):
+        for draft, spec_k, dl in (("shallow:1", 4, 1), ("self", 2, 4)):
+            eng = _spec_engine(cfg, params, engine, draft, spec_k,
+                               dtype=torch.bfloat16)
+            eng.warm_up()
+            k1.launches = k2.launches = 0
+            s = eng.run(_smoke_requests(cfg.vocab))
+            rounds, chunks = s["spec_rounds"], s["prefill_chunks"]
+            assert rounds == sum(s["schemes_used"].values()) > 0
+            assert k1.launches == dl * eng.stats.spec_draft_steps > 0
+            assert k2.launches == cfg.n_layers * (chunks + rounds) \
+                + dl * chunks
+            plan = eng.graph_plans()["verify/seq"]["mla_prefill_paged_kernel"]
+            assert plan["n_split"] > 0
+            assert plan["grid"][2] == 4 * (spec_k + 1)
+            assert eng.graph_plans()["draft/seq"][
+                "mla_decode_paged_kernel"]["n_split"] > 0
 
 
 def test_graph_addresses_stay_fixed_on_card():

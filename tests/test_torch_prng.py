@@ -137,6 +137,26 @@ def test_gumbel_matches_jax_within_two_ulps(seed):
         assert np.all(np.abs(got - want) <= 2 * ulp)
 
 
+def test_first_cpu_log_runs_on_one_thread():
+    """Importing ``runtime.prng`` takes a one-element log (one thread)
+    before ``gumbel`` can take its first: a process's first VML log on
+    two threads at once can come back hundreds of ulps off (the comment
+    under ``prng.gumbel``).  Run in a fresh process, where no log has been
+    taken yet."""
+    import subprocess
+    import sys
+    code = (
+        "import torch\n"
+        "sizes = []\n"
+        "real = torch.log\n"
+        "torch.log = lambda x: sizes.append(x.numel()) or real(x)\n"
+        "from repro_torch.runtime import prng\n"
+        "assert sizes == [1], sizes\n"
+        "prng.gumbel(prng.PRNGKey(0), (4096,))\n"
+        "assert sizes == [1, 4096, 4096], sizes\n")
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+
+
 def test_categorical_matches_jax():
     """``categorical`` over a batch of keys equals jax's vmapped
     ``categorical`` (rows far from ties: the Gumbel noise's last place

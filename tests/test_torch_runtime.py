@@ -252,16 +252,15 @@ def test_engine_tokens_and_logits_match_jax(models_pair, num_blocks, cancel):
 
 
 def test_engine_rejects_what_is_not_ported(models_pair):
-    """Speculative decoding and meshes raise; sampling knobs that differ
-    from the engine's raise ValueError, as in the reference (seeded
-    sampling and telemetry are ported: tests/test_torch_sampling.py,
-    tests/test_torch_obs.py)."""
+    """Meshes raise; sampling knobs that differ from the engine's raise
+    ValueError, as in the reference (seeded sampling, telemetry and
+    speculative decoding are ported: tests/test_torch_sampling.py,
+    tests/test_torch_obs.py, tests/test_torch_spec.py)."""
     _, tcfg, _, tp = models_pair
     kw = dict(num_blocks=8, block_size=4, max_batch=2, scheme="seq",
               device="cpu")
-    for bad in (dict(spec_k=2), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TEngine(tcfg, tp, **kw, **bad)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TEngine(tcfg, tp, **kw, mesh=object())
     with pytest.raises(ValueError):
         TEngine(tcfg, tp, **dict(kw, scheme="auto"))      # no platform
     eng = TEngine(tcfg, tp, **kw)                         # greedy
@@ -282,7 +281,8 @@ def test_import_without_jax():
             "repro_torch.hwmodel, repro_torch.launch.train, "
             "repro_torch.optim, repro_torch.data, repro_torch.checkpoint, "
             "repro_torch.obs, repro_torch.hwmodel.roofline, "
-            "repro_torch.runtime.prng, repro_torch.configs.deepseek_v3_671b; "
+            "repro_torch.runtime.prng, repro_torch.runtime.spec, "
+            "repro_torch.configs.deepseek_v3_671b; "
             "bad = [m for m, mod in sys.modules.items() if mod is not None "
             "and (m.split('.')[0] in ('repro', 'jax', 'jaxlib'))]; "
             "assert not bad, bad")
