@@ -8,6 +8,8 @@ one CUDA card:
     python3 chip_profile.py eager         # ... the engine without graphs
     python3 chip_profile.py async         # ... the async engine
     python3 chip_profile.py contiguous    # contiguous serving
+    python3 chip_profile.py contiguous phi3-mini-3.8b   # ... of phase 10's
+    python3 chip_profile.py contiguous gemma3-1b        # baseline families
     python3 chip_profile.py train         # training
     python3 chip_profile.py flash         # K4-K6's time, by ablation
 
@@ -30,7 +32,11 @@ combine.
 x 2,048 prompt tokens, 32 generated, ``scheme='auto'``, ``impl='kernel'``)
 through ``launch.serve.serve_contiguous``: a warm-up, an untraced run,
 then one under ``torch.profiler`` with a span around the prefill step
-(``prefill``) and each decode step (``decode_step``).
+(``prefill``) and each decode step (``decode_step``).  Followed by a
+registered arch of the attention families (``phi3-mini-3.8b``,
+``gemma3-1b``: phase 10's, at full width and full depth, random bf16
+weights), it runs the same load on that model, with a span around each
+layer's ``gqa_decode`` call (``gqa_decode``) as well.
 
 ``train`` builds phase 6's model (DeepSeek-V2 widths cut to 2 layers,
 bf16 params, f32 Adam moments, batch 2 x 4096, the config's MoE
@@ -394,7 +400,7 @@ def train_profile() -> int:
     return report(torch, prof, traced, ("lm_loss", "adamw_update"))
 
 
-def contiguous_profile() -> int:
+def contiguous_profile(arch: str = "deepseek-v2-236b") -> int:
     import dataclasses
 
     import torch
@@ -403,10 +409,14 @@ def contiguous_profile() -> int:
     import chip_smoke
     from repro_torch import configs, models
     from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import blocks
     from repro_torch.nn import module as nnm
 
     print(f"[card] {chip_smoke.card_line()}", flush=True)
-    cfg = dataclasses.replace(configs.full("deepseek-v2-236b"), n_layers=4)
+    cfg = configs.full(arch)
+    if cfg.attn_kind == "mla":       # phase 4's cut
+        cfg = dataclasses.replace(cfg, n_layers=4)
+    print(f"[model] {cfg.name}, {cfg.n_layers} layers", flush=True)
     params = nnm.init_params(models.model_defs(cfg), seed=0,
                              dtype=torch.bfloat16, device="cuda")
     kw = dict(batch=chip_smoke.B, prompt_len=chip_smoke.PROMPT,
@@ -437,21 +447,29 @@ def contiguous_profile() -> int:
           f"{steps * chip_smoke.B / res['decode_s']:.1f} tokens/s "
           f"({res['decode_s'] * 1e3 / steps:.2f} ms a step), whole run "
           f"{wall:.3f} s", flush=True)
-    plain = (serve_mod.make_prefill_step, serve_mod.make_serve_step)
+    plain = (serve_mod.make_prefill_step, serve_mod.make_serve_step,
+             blocks.gqa_decode)
     serve_mod.make_prefill_step = spanned("prefill", plain[0])
     serve_mod.make_serve_step = spanned("decode_step", plain[1])
+
+    def gqa_decode(*a, **k):
+        with record_function("gqa_decode"):
+            return plain[2](*a, **k)
+    blocks.gqa_decode = gqa_decode
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             res, traced = run()
             torch.cuda.synchronize()
     finally:
-        serve_mod.make_prefill_step, serve_mod.make_serve_step = plain
+        (serve_mod.make_prefill_step, serve_mod.make_serve_step,
+         blocks.gqa_decode) = plain
     print(f"[traced] whole run {traced:.3f} s (tracing cost "
           f"{traced - wall:+.3f} s), prefill {res['prefill_s'] * 1e3:.1f} ms, "
           f"decode {res['decode_s'] * 1e3 / steps:.2f} ms a step",
           flush=True)
-    return report(torch, prof, traced, ("prefill", "decode_step"))
+    return report(torch, prof, traced, ("prefill", "decode_step",
+                                        "gqa_decode"))
 
 
 def main() -> int:
@@ -465,8 +483,8 @@ def main() -> int:
     sys.path.insert(0, os.path.join(HERE, "src"))
     if sys.argv[1:] == ["train"]:
         return train_profile()
-    if sys.argv[1:] == ["contiguous"]:
-        return contiguous_profile()
+    if sys.argv[1:2] == ["contiguous"] and len(sys.argv) <= 3:
+        return contiguous_profile(*sys.argv[2:])
     if sys.argv[1:] == ["flash"]:
         return flash_ablation()
     words = set(sys.argv[1:])

@@ -144,11 +144,35 @@ Phases, each printing its own lines; any failure exits non-zero:
      decode: draft + verify, or device_step; host_sample); (c) the async
      engine with shallow:1 k = 4 and
      telemetry on: the sync engine's tokens, the trace valid, verify rows
-     in the drift report.
+     in the drift report;
+ 10. the paper's baseline families (run last): (a) phi3-mini-3.8b, the
+     paper's MHA baseline (32 layers, 32 heads = 32 kv heads, head dim
+     96), and (b) gemma3-1b (26 layers, MQA at head dim 256, 22 layers
+     with a 512-position window and 4 global ones), each at full width
+     and full depth, random bf16 weights, served as phase 4 serves
+     DeepSeek-V2 (batch 8 x 2,048 prompt tokens, 32 generated,
+     ``impl='kernel'``, after a warm-up at the same shapes): prefill ms,
+     decode tokens/s, ms a step, peak memory; K4 launched once a layer,
+     every launch on route 'tc', K3 never (their decode is
+     ``gqa_decode``, plain PyTorch as in the reference); prefill and last
+     decode step logits held against ``impl='ref'`` per row, every decode
+     step's logits finite; then the KV-cache bytes per cached token of
+     each beside DeepSeek-V2's latent bytes at 4 and 60 layers, with
+     phase 4's decode tokens/s; K4 alone at each one's prefill shapes
+     (one row a window) held against its plain version and timed beside
+     it, SDPA (``enable_gqa=True``, an explicit mask for a window) and its
+     bound; (c) the f32 smoke configs of all six attention families
+     (phi3, starcoder2, granite-34b, gemma3, granite-moe at drop-free
+     capacity, internvl2 with its patch prefix): greedy tokens of the
+     contiguous serve, ``impl='kernel'`` identical to ``'ref'``, and one
+     train step's loss and per-leaf gradients kernel against ref (f32,
+     within ``GQA_GRAD_REL``).
 
 The line before the last is the kernel table as JSON (``launches`` sums
 the main paths that ran a kernel, ``launches_by_path`` splits them;
-``plan`` is the plan each wrapper recorded at the timed launch); the
+``plan`` is the plan each wrapper recorded at the timed launch; K2's row
+holds its verify-width timing under ``verify``, K4's its phase 10 rows
+under ``baseline``); the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or outside a checkout of the repository, it exits non-zero and prints no
 result.
@@ -234,12 +258,15 @@ TRAIN_GRAD_REL_L2 = {"float32": 1e-3, "bfloat16": 5e-2}
 
 def drop_free(cfg):
     """``cfg`` with drop-free MoE capacity (capacity_factor = n_experts /
-    top_k, as the JAX package's serving benchmark runs it) for the
+    top_k, as the JAX package's serving benchmark runs it; a config
+    without experts as it is) for the
     comparisons of two attention paths: at the configs' 1.25 the idle
     rows of a prefill chunk compete with real tokens for expert slots, so
     two paths that differ only in what they return for idle rows would
     route real tokens differently.  Serving and timing use the config's
     own capacity."""
+    if not cfg.n_experts:
+        return cfg
     return dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
 
 
@@ -1435,6 +1462,8 @@ def serve_contiguous_full(torch, np, cfg, params):
         f"{res['decode_s'] * 1e3 / steps:.2f} ms mean, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
         f"{launches}, MoE capacity factor {cfg.capacity_factor}")
+    MEASURED["contiguous"] = dict(tokens_per_s=steps * B / res["decode_s"],
+                                  step_ms=res["decode_s"] * 1e3 / steps)
     tokens = res["tokens"]
     if tokens.shape != (B, GEN) or tokens.min() < 0 \
             or tokens.max() >= cfg.vocab \
@@ -2909,6 +2938,388 @@ def train_loop_resume(torch):
         raise AssertionError("the training loop did not resume correctly")
 
 
+# ------------------------------ phase 10: the paper's baseline families --
+
+
+# (a) the paper's MHA baseline and (b) MQA with 5:1 local:global sliding
+# windows, each at full width and full depth, served as phase 4 serves
+# DeepSeek-V2 (batch 8 x 2,048 prompt tokens, 32 generated)
+BASELINE_ARCHS = ("phi3-mini-3.8b", "gemma3-1b")
+# (c) the f32 smoke configs of the six attention families.  Seed 5: on
+# their load (4 requests x 48 prompt tokens, 12 generated) the smallest
+# top-1 / top-2 logit margin of any of them is 1.1e-3 (CPU run), three
+# orders above f32 noise, so identical tokens test the kernel and not a
+# near tie
+GQA_ARCHS = ("phi3-mini-3.8b", "starcoder2-7b", "granite-34b", "gemma3-1b",
+             "granite-moe-1b-a400m", "internvl2-26b")
+GQA_SEED = 5
+# (c)'s smoke train step, kernel path vs ref path, f32, per leaf |a-b|/|b|:
+# the same arithmetic in other orders (~1e-6); a wrong head, mask, window
+# or scale moves a leaf by O(1)
+GQA_GRAD_REL = 1e-3
+# phase 4's numbers, kept for phase 10's comparison of cache bytes
+MEASURED = {}
+
+
+def record_k4_plans(plans):
+    """Wrap the flash Function's forward so that ``plans`` gets K4's plan
+    at every launch a model makes; returns a function that restores it."""
+    from repro_torch.kernels import flash_attention as fa
+
+    real = fa._FlashAttention.forward
+
+    def forward(ctx, *args):
+        out = real(ctx, *args)
+        plans.append(fa.flash_fwd_kernel.last_plan)
+        return out
+    fa._FlashAttention.forward = staticmethod(forward)
+
+    def restore():
+        fa._FlashAttention.forward = staticmethod(real)
+    return restore
+
+
+def baseline_families(torch, np):
+    """Phase 10: (a) and (b) served at full width and full depth, K4
+    timed at their prefill shapes, then (c).  Returns (K4's rows at those
+    shapes, the kernel launches of each path)."""
+    from repro_torch import configs, models
+    from repro_torch.core import cache as cachelib
+    from repro_torch.nn import module as nnm
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows, by_path, kv = {}, {}, {}
+    for arch in BASELINE_ARCHS:
+        cfg = configs.full(arch)
+        t0 = time.perf_counter()
+        params = nnm.init_params(models.model_defs(cfg), seed=0,
+                                 dtype=torch.bfloat16, device="cuda")
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for t in _leaves(params))
+        windows = sorted({str(d.window) for d, _ in
+                          models.lm.layers(cfg, params)})
+        log(f"[base] {cfg.name}: {cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv, "
+            f"head dim {cfg.resolved_head_dim}, windows {windows}, vocab "
+            f"{cfg.vocab}: {n_params / 1e9:.3f} B params bf16 "
+            f"({n_params * 2 / 1e9:.2f} GB) in "
+            f"{time.perf_counter() - t0:.1f}s")
+        by_path[f"serve_{arch}"], res = serve_baseline(torch, np, cfg,
+                                                       params)
+        kv[arch] = (cfg.n_layers * cachelib.bytes_per_token_dense(
+            cfg.n_kv_heads, cfg.resolved_head_dim), res)
+        compare_baseline(torch, np, cfg, params)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        rows.update(time_k4_baseline(torch, cfg))
+    latent = cachelib.bytes_per_token_latent(DL, DR)
+    contig = MEASURED["contiguous"]
+    log("[base] KV-cache bytes per cached token (bf16), the paper's "
+        "comparison: "
+        + "; ".join(f"{a} {b:,} B ({res['tokens_per_s']:.1f} decode "
+                    f"tokens/s, {res['step_ms']:.2f} ms a step)"
+                    for a, (b, res) in kv.items())
+        + f"; DeepSeek-V2's latent cache {latent * 4:,} B at phase 4's 4 "
+        f"layers ({contig['tokens_per_s']:.1f} decode tokens/s, "
+        f"{contig['step_ms']:.2f} ms a step), {latent * 60:,} B at its "
+        f"60; phi3 / DeepSeek-V2 x60 = "
+        f"{kv['phi3-mini-3.8b'][0] / (latent * 60):.2f}")
+    by_path.update(gqa_smoke_parity(torch, np))
+    return rows, by_path
+
+
+def serve_baseline(torch, np, cfg, params):
+    """(a) / (b): the contiguous launcher's path, batch 8 x 2,048 prompt
+    tokens, 32 generated, ``impl='kernel'``, after a warm-up at the same
+    shapes: K4 launched once a layer, every launch on route 'tc', K3 not
+    at all (decode is ``gqa_decode``, as in the reference)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mla_decode
+    from repro_torch.launch.serve import serve_contiguous
+
+    kw = dict(batch=B, prompt_len=PROMPT, gen=GEN, scheme="auto",
+              platform="h100", impl="kernel", compute_dtype=torch.bfloat16,
+              device="cuda")
+    t0 = time.perf_counter()
+    serve_contiguous(cfg, params, log=lambda _: None, **kw)
+    log(f"[base] warm-up at the same shapes: "
+        f"{time.perf_counter() - t0:.2f}s")
+    torch.cuda.reset_peak_memory_stats()
+    fa.flash_fwd_kernel.launches = 0
+    mla_decode.mla_decode_kernel.launches = 0
+    plans = []
+    restore = record_k4_plans(plans)
+    try:
+        res = serve_contiguous(cfg, params, log=log, **kw)
+    finally:
+        restore()
+    launches = {"flash_attention_fwd": fa.flash_fwd_kernel.launches}
+    steps = res["decode_steps"]
+    out = dict(tokens_per_s=steps * B / res["decode_s"],
+               step_ms=res["decode_s"] * 1e3 / steps,
+               prefill_ms=res["prefill_s"] * 1e3,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    routes = sorted({p["route"] for p in plans})
+    log(f"[base] {cfg.name}, batch {B} x {PROMPT} prompt tokens, {GEN} "
+        f"generated, scheme '{res['scheme']}': prefill "
+        f"{out['prefill_ms']:.1f} ms, decode {out['tokens_per_s']:.1f} "
+        f"tokens/s, step {out['step_ms']:.2f} ms mean, peak memory "
+        f"{out['peak_gib']:.2f} GiB, launches {launches}, K4 routes "
+        f"{routes}, K4 plan {plans[-1] if plans else None}")
+    tokens = res["tokens"]
+    if tokens.shape != (B, GEN) or tokens.min() < 0 \
+            or tokens.max() >= cfg.vocab \
+            or not bool(torch.isfinite(res["last_logits"]).all()):
+        raise AssertionError(f"{cfg.name}: the contiguous serve returned "
+                             f"bad tokens or logits")
+    if launches["flash_attention_fwd"] != cfg.n_layers \
+            or len(plans) != cfg.n_layers \
+            or mla_decode.mla_decode_kernel.launches:
+        raise AssertionError(f"{cfg.name}: K4 launches {launches} "
+                             f"(recorded {len(plans)}), K3 "
+                             f"{mla_decode.mla_decode_kernel.launches}; want "
+                             f"K4 = {cfg.n_layers} layers, K3 none")
+    if routes != ["tc"]:
+        raise AssertionError(f"{cfg.name}: a bf16 K4 launch left its "
+                             f"tensor-core route: {plans}")
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def compare_baseline(torch, np, cfg, params):
+    """(a) / (b): prefill logits, impl='kernel' against impl='ref', per
+    row within LOGITS_REL_L2 (each request prefilled alone: the dense
+    reference attention holds (Hkv, G, L, L) f32 scores a layer), then
+    GEN - 1 decode steps from each impl's caches on the kernel path's
+    greedy tokens: every step's logits finite, the last step's within
+    LOGITS_REL_L2.  Decode itself is ``gqa_decode`` under both impls, so
+    the decode comparison holds the caches the two prefills wrote."""
+    from repro_torch.runtime import make_prefill_step, make_serve_step
+
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (B, PROMPT)), device="cuda")
+    kw = dict(compute_dtype=torch.bfloat16, scheme="seq")
+    prefill = {impl: make_prefill_step(cfg, capacity=S_CONTIG, impl=impl,
+                                       **kw) for impl in ("kernel", "ref")}
+    step = make_serve_step(cfg, **kw)
+    first, caches, rel_prefill = [], {"kernel": [], "ref": []}, []
+    for b in range(B):
+        logits = {}
+        for impl in ("kernel", "ref"):
+            logits[impl], cache = prefill[impl](params, toks[b:b + 1])
+            caches[impl].append(cache)
+        rel_prefill += _row_rel(torch, logits["kernel"], logits["ref"])
+        first.append(logits["kernel"])
+    cache = {impl: _cat(torch, c) for impl, c in caches.items()}
+    del caches
+    tok = torch.argmax(torch.cat(first), dim=-1)
+    finite = True
+    for i in range(GEN - 1):
+        dec = {}
+        for impl in ("kernel", "ref"):
+            dec[impl], cache[impl] = step(params, tok, cache[impl],
+                                          PROMPT + i)
+            finite &= bool(torch.isfinite(dec[impl]).all())
+        tok = torch.argmax(dec["kernel"], dim=-1)
+    rel_decode = _row_rel(torch, dec["kernel"], dec["ref"])
+    log(f"[base] {cfg.name} logits kernel vs ref, per-row |a-b|/|b| (bound "
+        f"{LOGITS_REL_L2}): prefill max {max(rel_prefill):.4f}, decode "
+        f"step {GEN - 1} (index {PROMPT + GEN - 2}) max "
+        f"{max(rel_decode):.4f}; every decode step's logits finite: "
+        f"{finite}")
+    if max(rel_prefill + rel_decode) > LOGITS_REL_L2 or not finite:
+        raise AssertionError(f"{cfg.name}: kernel-path logits disagree "
+                             f"with the reference path")
+    del cache
+    torch.cuda.empty_cache()
+
+
+def window_pairs(L: int, window):
+    """(query, key) pairs of causal attention over L positions, each
+    query seeing at most ``window`` keys."""
+    if window is None:
+        return L * (L + 1) // 2
+    return sum(min(i + 1, window) for i in range(L))
+
+
+def time_k4_baseline(torch, cfg):
+    """K4 alone at (a)'s / (b)'s prefill shapes, one row for each window
+    the config's layers use: q (B, H, 2048, D) and k, v (B, Hkv, 2048, D)
+    bf16 as transposed (B, L, H, D) views (the layout the GQA path hands
+    over), causal.  Held row by row against the plain version; timed (L2
+    flushed, CUDA events) beside the plain version and SDPA with
+    ``enable_gqa=True`` (an explicit mask for a window)."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import flash_attention as fa
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    prefix, period, n_periods, suffix = cfg.layer_plan()
+    descs = prefix + period * n_periods + suffix
+    rows = {}
+    for window in sorted({d.window for d in descs},
+                         key=lambda w: (w is None, w)):
+        n_layers = sum(d.window == window for d in descs)
+        g = torch.Generator(device="cuda")
+        g.manual_seed(11)
+
+        def rn(h):
+            return torch.randn((B, PROMPT, h, D), generator=g,
+                               device="cuda").to(torch.bfloat16).transpose(
+                                   1, 2)
+        q, k, v = rn(H), rn(Hkv), rn(Hkv)
+        kw = dict(causal=True, window=window, q_offset=0, scale=D ** -0.5)
+        out, lse = fa.flash_fwd_kernel(q, k, v, **kw)
+        plan = launched_plan(fa.flash_fwd_kernel)
+        out_p, lse_p = fa.flash_fwd_plain(q, k, v, **kw)
+        row_err = row_rel(torch, out, out_p)
+        lse_err = (lse - lse_p).abs().max().item()
+        max_abs = (out.float() - out_p.float()).abs().max().item()
+        del out_p, lse_p
+        skw = dict(scale=D ** -0.5, enable_gqa=True)
+        if window is None:
+            skw["is_causal"] = True
+        else:
+            i = torch.arange(PROMPT, device="cuda")
+            skw["attn_mask"] = (i[None, :] <= i[:, None]) \
+                & (i[None, :] > i[:, None] - window)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q, k, v, **skw)
+        sdpa_err = row_rel(torch, sdpa(), out)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            sdpa()
+            torch.cuda.synchronize()
+        names = [e.key for e in sorted(
+            prof.key_averages(), key=lambda e: -e.self_device_time_total)
+            if e.device_type.name == "CUDA"]
+        label = f"{cfg.name} prefill" + (f", window {window}" if window
+                                         else ", global")
+        # SDPA must compute the same function (a wrong mask or window is
+        # O(1) off); it rounds elsewhere than the plain version
+        if not (row_err <= FLASH_ROW_TOL["bfloat16"] and lse_err <= LSE_ATOL
+                and sdpa_err <= LOGITS_REL_L2):
+            raise AssertionError(
+                f"K4 at {label}: a row's |kernel - plain| / |plain| "
+                f"{row_err:.3g}, lse {lse_err:.3g}, SDPA against the kernel "
+                f"{sdpa_err:.3g}")
+        pairs = B * H * window_pairs(PROMPT, window)
+        n_bytes = 2 * (q.numel() + k.numel() + v.numel() + out.numel()) \
+            + 4 * lse.numel()
+        n_ops = 2 * (D + D) * pairs
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        t_ops = n_ops / PEAK_OPS["bfloat16"] * 1e3
+        r = rows[label] = dict(
+            launches=n_layers, max_abs_err=max_abs, row_rel=row_err,
+            ms=time_ms(torch, lambda: fa.flash_fwd_kernel(q, k, v, **kw),
+                       flush, reps=7),
+            plain_ms=time_ms(torch, lambda: fa.flash_fwd_plain(q, k, v,
+                                                               **kw),
+                             flush, reps=3),
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=time_ms(torch, sdpa, flush, reps=7),
+            library=names[0][:80] if names else "an unnamed kernel",
+            plan=plan, shapes=dict(q=list(q.shape), kv=list(k.shape),
+                                   window=window))
+        log(f"[base] K4 at {label}: q {tuple(q.shape)}, k/v "
+            f"{tuple(k.shape)}, bf16: time {r['ms']:.3f} ms, plain "
+            f"{r['plain_ms']:.3f} ms, SDPA {r['library_ms']:.3f} ms "
+            f"({r['library']}), K4 / SDPA {r['ms'] / r['library_ms']:.2f}, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
+            f"{n_bytes / 1e9:.3f} GB, {n_ops / 1e12:.3f} TFLOP over "
+            f"{pairs:,} pairs; {r['bound_ms'] / r['ms']:.4f} of it "
+            f"reached), {plan_text(plan)}; per-row error {row_err:.4f}, "
+            f"lse {lse_err:.2e}, SDPA vs kernel {sdpa_err:.4f}; "
+            f"{n_layers} launches a prefill")
+        del q, k, v, out, lse, skw
+        torch.cuda.empty_cache()
+    return rows
+
+
+def gqa_smoke_parity(torch, np):
+    """(c): for each of the six attention families' f32 smoke configs (MoE
+    at drop-free capacity), greedy tokens of the contiguous serve,
+    impl='kernel' against 'ref' (identical), and one train step's loss
+    and per-leaf gradients kernel against ref (within GQA_GRAD_REL), the
+    VLM's batch with its patch prefix.  Returns the launches of each
+    path."""
+    from repro_torch import configs, models
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import serve_contiguous
+    from repro_torch.launch.train import batch_maker
+    from repro_torch.nn import module as nnm
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime import lm_loss
+
+    kernels = (fa.flash_fwd_kernel, fa.flash_bwd_dq_kernel,
+               fa.flash_bwd_dkv_kernel)
+    names = ("flash_attention_fwd", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv")
+    serve_n, train_n = {names[0]: 0}, dict.fromkeys(names, 0)
+    for arch in GQA_ARCHS:
+        cfg = drop_free(configs.smoke(arch))
+        params = nnm.init_params(models.model_defs(cfg), seed=GQA_SEED,
+                                 dtype=torch.float32, device="cuda")
+        toks = {}
+        for impl in ("ref", "kernel"):
+            before = kernels[0].launches
+            toks[impl] = serve_contiguous(
+                cfg, params, batch=4, prompt_len=48, gen=12, scheme="auto",
+                impl=impl, seed=GQA_SEED, compute_dtype=torch.float32,
+                device="cuda", log=lambda _: None)["tokens"]
+            fwd = kernels[0].launches - before
+            if fwd != (cfg.n_layers if impl == "kernel" else 0):
+                raise AssertionError(f"{arch} smoke serve, impl {impl}: "
+                                     f"{fwd} K4 launches")
+            serve_n[names[0]] += fwd
+        same = np.array_equal(toks["kernel"], toks["ref"])
+
+        leaves = list(tree_leaves(params))
+        data = np.random.default_rng(GQA_SEED).integers(0, cfg.vocab,
+                                                        (2, 257))
+        batch = batch_maker(cfg, "cuda", torch.float32)(data[:, :-1],
+                                                        data[:, 1:])
+        out = {}
+        for impl in ("ref", "kernel"):
+            before = [kern.launches for kern in kernels]
+            for t in leaves:
+                t.requires_grad_(True)
+            loss, _ = lm_loss(params, cfg, batch["tokens"], batch["labels"],
+                              embeds=batch.get("embeds"),
+                              compute_dtype=torch.float32, impl=impl)
+            out[impl] = (loss.item(), torch.autograd.grad(loss, leaves))
+            for t in leaves:
+                t.requires_grad_(False)
+            n = [kern.launches - b for kern, b in zip(kernels, before)]
+            if n != [cfg.n_layers if impl == "kernel" else 0] * 3:
+                raise AssertionError(f"{arch} smoke train step, impl "
+                                     f"{impl}: K4 / K5 / K6 launches {n}")
+            for name, c in zip(names, n):
+                train_n[name] += c
+        rel = [((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+               for a, b in zip(out["kernel"][1], out["ref"][1])]
+        loss_rel = abs(out["kernel"][0] - out["ref"][0]) / abs(out["ref"][0])
+        log(f"[base] {arch} smoke f32: greedy tokens of 4 requests x 12, "
+            f"impl kernel vs ref: {'identical' if same else 'DIFFERENT'}; "
+            f"one train step at 2 x 256 tokens: loss {out['kernel'][0]:.6f} "
+            f"vs {out['ref'][0]:.6f} (rel {loss_rel:.2e}), per-leaf "
+            f"gradient |a-b|/|b| max {max(rel):.2e} over {len(rel)} leaves "
+            f"(bound {GQA_GRAD_REL})")
+        if not same:
+            raise AssertionError(f"{arch}: smoke tokens differ: {toks}")
+        if max(rel) > GQA_GRAD_REL or loss_rel > GQA_GRAD_REL:
+            raise AssertionError(f"{arch}: kernel-path gradients disagree "
+                                 f"with the reference path")
+        del params, leaves, out
+        torch.cuda.empty_cache()
+    return {"serve_gqa_smoke": serve_n, "train_gqa_smoke": train_n}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2942,6 +3353,9 @@ def main() -> int:
     train_attention_check(torch)
     train_grad_check(torch)
     train_loop_resume(torch)
+    rows["flash_attention_fwd"]["baseline"], base_paths = \
+        baseline_families(torch, np)
+    by_path.update(base_paths)
 
     csrc = "src/repro_torch/kernels/csrc/"
     meta = {"mla_decode_paged": (csrc + "mla_decode_paged.cu",

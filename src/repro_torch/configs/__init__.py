@@ -1,7 +1,11 @@
-"""Config registry: ``full(arch)`` / ``smoke(arch)`` -> ``ModelConfig``.
+"""Config registry: ``full(arch)`` / ``smoke(arch)`` -> ``ModelConfig``,
+``skip_shapes(arch)`` -> {shape name: reason}.
 
-Port of ``repro.configs``.  Only the architectures the port can serve are
-registered; the other families' configs come with their model code.
+Port of ``repro.configs``.  Only the architectures the port can run are
+registered: MLA (DeepSeek) and the attention families (dense GQA / MQA /
+MHA with sliding windows, MoE over GQA, a VLM patch prefix).  The
+recurrent and encoder-decoder configs come with their model code
+(ROADMAP.md queue 1, item 17).
 """
 from __future__ import annotations
 
@@ -9,9 +13,16 @@ import importlib
 from typing import Dict
 
 from ..models.common import ModelConfig
+from .shapes import SHAPES, Shape
 
 _MODULES: Dict[str, str] = {
+    "gemma3-1b": "gemma3_1b",
+    "granite-34b": "granite_34b",
+    "phi3-mini-3.8b": "phi3_mini_3_8b",
+    "starcoder2-7b": "starcoder2_7b",
     "deepseek-v2-236b": "deepseek_v2_236b",
+    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+    "internvl2-26b": "internvl2_26b",
     "deepseek-v3-671b": "deepseek_v3_671b",     # the paper's Table 1
 }
 
@@ -30,3 +41,10 @@ def full(arch: str) -> ModelConfig:
 
 def smoke(arch: str) -> ModelConfig:
     return _load(arch).SMOKE
+
+
+def skip_shapes(arch: str) -> dict:
+    return _load(arch).SKIP_SHAPES
+
+
+__all__ = ["ARCHS", "SHAPES", "Shape", "full", "skip_shapes", "smoke"]

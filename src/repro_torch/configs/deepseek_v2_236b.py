@@ -31,3 +31,6 @@ SMOKE = ModelConfig(
     first_dense_layers=1, first_dense_d_ff=128,
     max_seq=128, remat=False,
 )
+
+SKIP_SHAPES: dict = {}  # MLA latent cache (576 B/token/layer): 500k decode
+# is exactly the paper's headline benefit — runs.

@@ -31,3 +31,5 @@ SMOKE = ModelConfig(
     first_dense_layers=3, first_dense_d_ff=128,
     max_seq=128, remat=False,
 )
+
+SKIP_SHAPES: dict = {}

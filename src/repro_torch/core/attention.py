@@ -1,6 +1,11 @@
-"""Standard GQA attention, the dense reference path of MHA-mode MLA
-(port of ``repro.core.attention.gqa_attention``; the other functions of
-that module come with the non-MLA families, ROADMAP.md)."""
+"""Standard MHA / GQA / MQA attention — the paper's baseline family
+(MHA_l / MHA_s) and the dense reference path of MHA-mode MLA (port of
+``repro.core.attention``).
+
+Plain PyTorch, as the reference is plain ``jnp``: the models swap in the
+flash-attention kernel K4 for the prefill / train path; one-token decode
+(``gqa_decode``) stays here.
+"""
 from __future__ import annotations
 
 from typing import Optional
@@ -34,3 +39,28 @@ def gqa_attention(q, k, v, *, causal: bool = True,
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgls,bshd->blhgd", p.to(v.dtype).float(), v.float())
     return out.reshape(B, Lq, H, v.shape[-1]).to(q.dtype)
+
+
+def gqa_decode(q, k_cache, v_cache, index: int, *,
+               window: Optional[int] = None,
+               softmax_scale: Optional[float] = None):
+    """One-token decode.  q: (B, H, Dh); caches (B, S, Hkv, Dh) already
+    holding the new token at ``index`` (a host int).  Position p is
+    attended when p <= index and, with a window, p > index - window.
+    Native-dtype operands, f32 products and softmax.  Returns (B, H, Dv)
+    in q's dtype."""
+    B, H, Dh = q.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    scale = softmax_scale if softmax_scale is not None else Dh ** -0.5
+    qg = q.reshape(B, Hkv, H // Hkv, Dh)
+    scores = torch.einsum("bhgd,bshd->bhgs", qg.to(k_cache.dtype).float(),
+                          k_cache.float()) * scale
+    pos = torch.arange(S, device=q.device)
+    valid = pos <= index
+    if window is not None:
+        valid &= pos > index - window
+    scores = torch.where(valid, scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", p.to(v_cache.dtype).float(),
+                       v_cache.float())
+    return out.reshape(B, H, v_cache.shape[-1]).to(q.dtype)

@@ -1,9 +1,13 @@
-"""Decode-time latent caches of MLA (port of the MLA sections of
-``repro.core.cache``): the contiguous per-request cache and the paged
-block pool, optionally stored quantized.
+"""Decode-time caches (port of the KV and MLA sections of
+``repro.core.cache``): the dense KV cache of the attention families,
+MLA's contiguous per-request latent cache and its paged block pool,
+optionally stored quantized.
 
-Contiguous cache (``latent_cache``): ckv (B, S, D_kvl), krope (B, S,
-D_rope) in the compute dtype; ``update_latent`` writes new tokens at
+Dense KV cache (``kv_cache``): k, v (B, S, Hkv, Dh) in the compute dtype;
+``update_kv`` writes new tokens at ``index`` along S.
+
+Contiguous latent cache (``latent_cache``): ckv (B, S, D_kvl), krope (B,
+S, D_rope) in the compute dtype; ``update_latent`` writes new tokens at
 ``index`` along S.
 
 Paged pool: a global pool of fixed-size token blocks shared by all
@@ -105,6 +109,34 @@ def cache_element_bytes(kv_lora: int, rope_dim: int, dtype_bytes: int = 2,
 
 
 # ------------------------------------------------------------ contiguous --
+
+
+def kv_cache(batch: int, capacity: int, n_kv: int, head_dim: int,
+             dtype=torch.bfloat16, device="cuda") -> Dict[str, torch.Tensor]:
+    """Dense KV cache of one attention layer: k, v (B, S, Hkv, Dh),
+    zeros."""
+    shape = (batch, capacity, n_kv, head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def update_kv(cache: Dict[str, torch.Tensor], k_new, v_new,
+              index: int) -> Dict[str, torch.Tensor]:
+    """Write (B, L_new, Hkv, Dh) keys and values at ``index`` along S, in
+    place.  ``index`` is a host int, taken as the reference's
+    ``dynamic_update_slice_in_dim`` takes it: a negative one counts from
+    the end (S + index), and the start is then clamped to [0, S - L_new],
+    so a write that would run past the end lands on the last L_new
+    positions."""
+    n, S = k_new.shape[1], cache["k"].shape[1]
+    if n > S:
+        raise ValueError(f"update_kv: {n} new positions exceed the "
+                         f"cache's {S}")
+    index = int(index)
+    start = min(max(index + S if index < 0 else index, 0), S - n)
+    cache["k"][:, start:start + n] = k_new.to(cache["k"].dtype)
+    cache["v"][:, start:start + n] = v_new.to(cache["v"].dtype)
+    return cache
 
 
 def latent_cache(batch: int, capacity: int, kv_lora: int, rope_dim: int,

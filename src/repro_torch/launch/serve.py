@@ -15,16 +15,26 @@ continuous-batching engine (``--paged``).
         --smoke --paged --spec-k 4 --draft shallow:1 --device cpu
 
 Without ``--paged`` the batch prefills together through the contiguous
-MHA-mode prefill (``runtime.steps.make_prefill_step``: the
-flash-attention forward kernel under ``--impl kernel``) into one latent
-cache per request of prompt + gen + 1 positions, then decodes one token
-per step for the whole batch (``make_serve_step``: kernel K3 under
-``--impl kernel``).  ``--scheme auto`` picks rc / ru / seq once, for
-(batch, prompt + gen) on ``--platform``, and prints its choice.
+prefill (``runtime.steps.make_prefill_step``: the flash-attention
+forward kernel under ``--impl kernel``; MLA in MHA mode) into one cache
+per request of prompt + gen + 1 positions (a VLM's patches on top), then
+decodes one token per step for the whole batch (``make_serve_step``:
+kernel K3 for MLA under ``--impl kernel``).  ``--scheme auto`` picks rc
+/ ru / seq once, for (batch, prompt + gen) on ``--platform``, and prints
+its choice; for the attention families (``--arch phi3-mini-3.8b``,
+``gemma3-1b``, ...: contiguous only, as in the reference) it resolves to
+'seq'.  A VLM (``internvl2-26b``) gets random patch embeddings, drawn
+as the reference draws them: ``runtime.prng``'s normal * 0.02 under the
+second key of split(PRNGKey(seed + 1)).
 
-``--paged`` serves the batch as a request stream through
-``PagedMLAEngine``: paged latent pool, per-request block tables, chunked
-prefill, mid-generation admission, the radix prefix cache; ``--scheme
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \
+        --smoke --impl kernel --device cpu
+
+``--paged`` (MLA models only; another arch raises ``NotImplementedError:
+PagedMLAEngine requires an MLA model``) serves the batch as a request
+stream through ``PagedMLAEngine``: paged latent pool, per-request block
+tables, chunked prefill, mid-generation admission, the radix prefix
+cache; ``--scheme
 auto`` re-runs the dispatch every decode step on the live (batch, max
 cache_len) point.  On a CUDA device the paged engines run their decode
 and prefill-chunk steps as CUDA graphs (``runtime.graphs``), captured
@@ -98,7 +108,10 @@ Paged only (each raises without ``--paged``):
   --host H / --port N frontend bind address (default 127.0.0.1:8000)
 
 Weights are random (``--seed``) and f32, as in the JAX launcher; the
-contiguous path decodes greedily.  Meshes are on ROADMAP.md.
+contiguous path decodes greedily.  Unlike the JAX launcher, the
+contiguous decode ``index`` counts a VLM's cached patches (the JAX
+launcher's starts at the prompt length and overwrites text positions,
+ROADMAP.md queue 3).  Meshes are on ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -117,7 +130,7 @@ from ..nn import module as nnm
 from ..obs import Telemetry
 from ..runtime import (AsyncPagedMLAEngine, PagedMLAEngine, Request,
                        SamplingParams, blocks_for, make_prefill_step,
-                       make_serve_step, parse_draft_spec)
+                       make_serve_step, parse_draft_spec, prng)
 
 ENGINES = {"sync": PagedMLAEngine, "async": AsyncPagedMLAEngine}
 
@@ -233,19 +246,26 @@ def serve_contiguous(cfg, params, *, batch: int, prompt_len: int, gen: int,
                      impl: str = "ref", seed: int = 0,
                      compute_dtype=torch.float32, device="cuda",
                      log=print) -> dict:
-    """Prefill ``batch`` random prompts of ``prompt_len`` tokens together,
-    then decode ``gen - 1`` greedy steps over contiguous caches; log a
-    report and return {scheme, tokens (B, gen), prefill_s, decode_s,
-    decode_steps}, times from the host clock around work that ends in a
-    device synchronize."""
-    if scheme == "auto":
+    """Prefill ``batch`` random prompts of ``prompt_len`` tokens together
+    (after ``vlm_embeds``' patches for a VLM), then decode ``gen - 1``
+    greedy steps over contiguous caches; log a report and return {scheme,
+    tokens (B, gen), prefill_s, decode_s, decode_steps, last_logits},
+    times from the host clock around work that ends in a device
+    synchronize.  ``scheme`` 'auto' runs the dispatch for an MLA model
+    and resolves to 'seq' for the others."""
+    if scheme == "auto" and cfg.attn_kind == "mla":
         cap = prompt_len + gen
         scheme = auto_dispatch(cfg.mla_config(), PLATFORMS[platform],
                                cache_len=cap, batch=batch)
         log(f"[serve] auto_dispatch({platform}, L={cap}, B={batch}) -> "
             f"scheme '{scheme}'")
-    params = _prepare_mla(params, cfg, scheme)
-    prefill = make_prefill_step(cfg, capacity=prompt_len + gen + 1,
+    elif scheme == "auto":
+        scheme = "seq"
+    if cfg.attn_kind == "mla":
+        params = _prepare_mla(params, cfg, scheme)
+    embeds = vlm_embeds(cfg, batch, seed, device)
+    n_pre = 0 if embeds is None else embeds.shape[1]
+    prefill = make_prefill_step(cfg, capacity=n_pre + prompt_len + gen + 1,
                                 compute_dtype=compute_dtype, impl=impl,
                                 scheme=scheme)
     step = make_serve_step(cfg, compute_dtype=compute_dtype, impl=impl,
@@ -257,14 +277,17 @@ def serve_contiguous(cfg, params, *, batch: int, prompt_len: int, gen: int,
         else (lambda: None)
     sync()
     t0 = time.perf_counter()
-    logits, cache = prefill(params, toks)
+    logits, cache = prefill(params, toks, embeds)
     out = [torch.argmax(logits, dim=-1)]
     sync()
     prefill_s = time.perf_counter() - t0
-    log(f"[serve] prefill {batch}x{prompt_len}: {prefill_s:.2f}s")
+    log(f"[serve] prefill {batch}x{prompt_len}"
+        + (f" after {n_pre} patches" if n_pre else "")
+        + f": {prefill_s:.2f}s")
     t0 = time.perf_counter()
     for i in range(gen - 1):
-        logits, cache = step(params, out[-1], cache, prompt_len + i)
+        # the index counts every cached position, the patches too
+        logits, cache = step(params, out[-1], cache, n_pre + prompt_len + i)
         out.append(torch.argmax(logits, dim=-1))
     sync()
     decode_s = time.perf_counter() - t0
@@ -276,6 +299,17 @@ def serve_contiguous(cfg, params, *, batch: int, prompt_len: int, gen: int,
     return {"scheme": scheme, "tokens": tokens, "prefill_s": prefill_s,
             "decode_s": decode_s, "decode_steps": gen - 1,
             "last_logits": logits}
+
+
+def vlm_embeds(cfg, batch: int, seed: int = 0, device="cuda"):
+    """A VLM's stub patch prefix (B, n_patches, d_model) f32, drawn as the
+    reference launcher draws it: normal * 0.02 under the second key of
+    split(PRNGKey(seed + 1)) (the reference draws its prompts under the
+    first); None for other families."""
+    if cfg.family != "vlm":
+        return None
+    emb_key = prng.split(prng.PRNGKey(seed + 1, device))[1]
+    return prng.normal(emb_key, (batch, cfg.n_patches, cfg.d_model)) * 0.02
 
 
 def _prepare_mla(params, cfg, scheme: str):

@@ -3,8 +3,11 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-v2-236b \\
         --smoke --steps 20 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch internvl2-26b \\
+        --smoke --steps 20 --impl kernel --device cpu
 
-  --arch / --smoke    model config (``--smoke``: the tiny CI config)
+  --arch / --smoke    model config (``--smoke``: the tiny CI config); any
+                      registered config (``repro_torch.configs.ARCHS``)
   --steps N           training steps (the cosine schedule's length)
   --batch N / --seq N global batch and sequence length
   --lr X              peak learning rate (cosine, 20 warm-up steps)
@@ -21,9 +24,12 @@
   --device D          cuda (default) or cpu
 
 Weights are random (``--seed``); the data is the synthetic stream of
-``repro_torch.data``.  Params and compute are bf16 on the card (the
-reference launcher's choice on an accelerator mesh) and f32 on the CPU
-(its choice without a mesh); Adam moments are f32.  Relaunching with the same ``--ckpt-dir`` continues
+``repro_torch.data``.  A VLM's batch also carries its stub patch prefix,
+as in the reference: normal * 0.02 (f32, then the compute dtype) under
+PRNGKey(the batch's first token), through ``runtime.prng``.  Params and
+compute are bf16 on the card (the reference launcher's choice on an
+accelerator mesh) and f32 on the CPU (its choice without a mesh); Adam
+moments are f32.  Relaunching with the same ``--ckpt-dir`` continues
 from the last complete checkpoint.
 """
 from __future__ import annotations
@@ -39,7 +45,24 @@ from .. import configs, models
 from ..data import DataConfig, SyntheticLM
 from ..nn import module as nnm
 from ..optim import AdamWConfig, adamw_init, cosine
-from ..runtime import LoopConfig, TrainLoop, TrainStepConfig, make_train_step
+from ..runtime import (LoopConfig, TrainLoop, TrainStepConfig,
+                       make_train_step, prng)
+
+
+def batch_maker(cfg, device, dtype):
+    """(tokens, labels) numpy -> the step's batch dict; a VLM's carries
+    ``embeds`` (B, n_patches, d_model), drawn as the reference launcher
+    draws them."""
+    def make_batch(toks, labels):
+        b = {"tokens": torch.as_tensor(toks, device=device),
+             "labels": torch.as_tensor(labels, device=device)}
+        if cfg.family == "vlm":
+            key = prng.PRNGKey(int(toks[0, 0]), device)
+            b["embeds"] = (prng.normal(
+                key, (toks.shape[0], cfg.n_patches, cfg.d_model))
+                * 0.02).to(dtype)
+        return b
+    return make_batch
 
 
 def main(argv: Optional[List[str]] = None):
@@ -77,7 +100,8 @@ def main(argv: Optional[List[str]] = None):
     loop = TrainLoop(
         LoopConfig(total_steps=args.steps, ckpt_every=args.ckpt_every,
                    ckpt_dir=ckpt_dir, fail_at_step=args.fail_at),
-        step_fn, params, opt, data)
+        step_fn, params, opt, data,
+        make_batch=batch_maker(cfg, args.device, dtype))
     metrics = loop.run()
     print(f"[train] done at step {loop.step}: "
           f"loss {float(metrics['loss']):.4f}")

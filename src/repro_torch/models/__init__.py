@@ -1,9 +1,10 @@
-"""Model API of the port (MLA serving, contiguous and paged, and training
-of decoder-only models):
+"""Model API of the port (serving and training of decoder-only models:
+MLA, contiguous and paged, and the attention families, contiguous):
 
     model_defs(cfg)                                   param definitions
-    forward(params, cfg, tokens, ...)                 -> logits, aux
-    prefill(params, cfg, tokens, capacity=...)        -> logits, cache
+    forward(params, cfg, tokens, embeds=..., ...)     -> logits, aux
+    prefill(params, cfg, tokens, embeds=..., capacity=...)
+                                                      -> logits, cache
     decode_step_contiguous(params, cfg, token, cache, index, ...)
                                                       -> logits, cache
     prefill_chunk_paged(params, cfg, tokens, pool, block_tables, lengths,
@@ -28,7 +29,7 @@ from .lm import (decode_step, decode_step_contiguous, forward, init_cache,
 
 def model_defs(cfg: ModelConfig):
     if cfg.family == "encdec":
-        raise NotImplementedError("the port serves decoder-only MLA models; "
+        raise NotImplementedError("the port serves decoder-only models; "
                                   "encoder-decoder is on ROADMAP.md")
     return lm.lm_defs(cfg)
 

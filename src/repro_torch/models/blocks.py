@@ -1,18 +1,20 @@
 """Sublayer bodies: (pre-norm mixer) + (pre-norm FFN), dispatched on the
-``Sub`` descriptor (port of the MLA modes of ``repro.models.blocks``).
+``Sub`` descriptor (port of ``repro.models.blocks``).
 
     sub_defs(cfg, desc, d_ff)                -> param defs
     sub_apply(params, cfg, desc, x, ctx)     -> (x, cache, aux)
     sub_cache(cfg, desc, batch, capacity, ...)    this sublayer's
-                                                  contiguous latent cache
+                                                  contiguous cache
     sub_paged_cache(cfg, desc, ..., device)  -> this sublayer's paged pool
 
-Only MLA attention with a dense or MoE FFN is ported, in the modes
-'train' and 'prefill' (MHA-mode MLA over the whole sequence, attention
-dense with ``impl='ref'`` or in the flash-attention kernels with
-``impl='kernel'``; 'prefill' also returns a contiguous latent cache),
-'decode' (contiguous when ``ctx.lengths`` is None, else paged) and
-'prefill_chunk' (paged); other mixers and modes raise
+Ported mixers: MLA attention and the attention families (dense MHA /
+GQA / MQA with an optional sliding window), each with a dense or MoE
+FFN.  Modes: 'train' and 'prefill' over the whole sequence (attention
+dense with ``impl='ref'``, in the flash-attention kernels with
+``impl='kernel'``; 'prefill' also returns a contiguous cache: MLA's
+latent cache, the others' KV cache), 'decode' (contiguous when
+``ctx.lengths`` is None, else paged, MLA only) and 'prefill_chunk'
+(paged, MLA only).  The recurrent mixers (mamba, mlstm, slstm) raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -24,12 +26,15 @@ import torch
 
 from ..core import cache as cachelib
 from ..core import mla as mlalib
+from ..core.attention import gqa_attention, gqa_decode
 from ..kernels import ops as kops
 from ..nn import layers as nl
+from ..nn.module import P
 from . import moe as moelib
 from .common import ModelConfig, Sub
 
 MODES = ("decode", "prefill_chunk", "prefill", "train")
+UNPORTED_MIXERS = ("mamba", "mlstm", "slstm")
 # engine/model ``impl`` -> the attention path of core.mla
 _MLA_IMPL = {"ref": "gather", "kernel": "kernel"}
 
@@ -48,18 +53,31 @@ class Ctx:
     n_valid: Any = None             # (B,) int32 — chunked prefill only
 
 
-def _supported(cfg: ModelConfig, desc: Sub) -> None:
-    if desc.mixer != "attn" or cfg.attn_kind != "mla":
+def _check_mixer(desc: Sub) -> None:
+    if desc.mixer in UNPORTED_MIXERS:
         raise NotImplementedError(
-            f"the port serves MLA attention sublayers only, got "
-            f"mixer={desc.mixer!r} attn_kind={cfg.attn_kind!r} "
-            f"(other families: ROADMAP.md)")
+            f"mixer {desc.mixer!r} is not ported yet (the recurrent "
+            f"families: ROADMAP.md queue 1, item 17)")
+    if desc.mixer != "attn":
+        raise ValueError(desc.mixer)
+
+
+def _attn_defs(cfg: ModelConfig) -> Dict:
+    if cfg.attn_kind == "mla":
+        return mlalib.mla_defs(cfg.mla_config())
+    D, H, Hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, \
+        cfg.resolved_head_dim
+    return {
+        "w_q": P((D, H, dh), ("embed", "heads", None)),
+        "w_k": P((D, Hkv, dh), ("embed", "kv_heads", None)),
+        "w_v": P((D, Hkv, dh), ("embed", "kv_heads", None)),
+        "w_o": P((H, dh, D), ("heads", None, "embed")),
+    }
 
 
 def sub_defs(cfg: ModelConfig, desc: Sub, d_ff: Optional[int] = None) -> Dict:
-    _supported(cfg, desc)
-    d: Dict = {"ln1": nl.rmsnorm_defs(cfg.d_model),
-               "attn": mlalib.mla_defs(cfg.mla_config())}
+    _check_mixer(desc)
+    d: Dict = {"ln1": nl.rmsnorm_defs(cfg.d_model), "attn": _attn_defs(cfg)}
     if desc.ffn != "none":
         d["ln2"] = nl.rmsnorm_defs(cfg.d_model)
         if desc.ffn == "moe":
@@ -72,24 +90,96 @@ def sub_defs(cfg: ModelConfig, desc: Sub, d_ff: Optional[int] = None) -> Dict:
 
 def sub_cache(cfg: ModelConfig, desc: Sub, batch: int, capacity: int,
               dtype=torch.bfloat16, device="cuda") -> Dict:
-    """Contiguous decode state of one sublayer: its (B, S) latent cache."""
-    _supported(cfg, desc)
-    return cachelib.latent_cache(batch, capacity, cfg.kv_lora_rank,
-                                 cfg.qk_rope_dim, dtype, device)
+    """Contiguous decode state of one sublayer: its (B, S) latent cache
+    (MLA) or KV cache.  A windowed layer's capacity is min(capacity,
+    cfg.max_seq), as in the reference."""
+    _check_mixer(desc)
+    if cfg.attn_kind == "mla":
+        return cachelib.latent_cache(batch, capacity, cfg.kv_lora_rank,
+                                     cfg.qk_rope_dim, dtype, device)
+    eff_cap = capacity if desc.window is None else min(capacity, cfg.max_seq)
+    return cachelib.kv_cache(batch, eff_cap, cfg.n_kv_heads,
+                             cfg.resolved_head_dim, dtype, device)
 
 
 def sub_paged_cache(cfg: ModelConfig, desc: Sub, num_blocks: int,
                     block_size: int, dtype=torch.bfloat16, device="cuda",
                     cache_dtype: Optional[str] = None) -> Dict:
     """Paged decode state of one sublayer: its latent block pool
-    (quantized with scale leaves for ``cache_dtype`` 'int8' / 'fp8')."""
-    _supported(cfg, desc)
-    return cachelib.paged_latent_cache(num_blocks, block_size,
-                                       cfg.kv_lora_rank, cfg.qk_rope_dim,
-                                       dtype, device, cache_dtype)
+    (quantized with scale leaves for ``cache_dtype`` 'int8' / 'fp8').
+    Only MLA latent caches page, as in the reference; other mixers raise
+    — serve those models through the contiguous path."""
+    if desc.mixer == "attn" and cfg.attn_kind == "mla":
+        return cachelib.paged_latent_cache(num_blocks, block_size,
+                                           cfg.kv_lora_rank,
+                                           cfg.qk_rope_dim, dtype, device,
+                                           cache_dtype)
+    raise NotImplementedError(
+        f"paged serving requires MLA attention sublayers, got "
+        f"mixer={desc.mixer!r} attn_kind={cfg.attn_kind!r}")
 
 
 AUX_KEYS = ("balance", "z_loss", "dropped_frac")
+
+
+def _check_seq_impl(ctx: Ctx) -> None:
+    if ctx.impl not in ("ref", "kernel"):
+        raise NotImplementedError(
+            f"{ctx.mode} impl {ctx.impl!r}: the port runs 'ref' or "
+            f"'kernel'; 'chunked' comes with core/chunked_attention.py "
+            f"(ROADMAP.md queue 1, item 17)")
+
+
+def _flash(q, k, v, desc: Sub, softmax_scale=None):
+    """The attention of a train / prefill layer in the flash-attention
+    kernels (K4 forward; K5 / K6 under autograd): (B, L, H, D) operands,
+    handed over as (B, H, L, D) views."""
+    return kops.attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        impl="kernel", causal=desc.causal, window=desc.window,
+        softmax_scale=softmax_scale).transpose(1, 2)
+
+
+def _gqa_seq(params, cfg: ModelConfig, desc: Sub, x, ctx: Ctx):
+    """Train / prefill forward of one GQA sublayer.  x: (B, L, D)
+    normalized input.  Returns (out, cache): in 'prefill' mode a KV cache
+    of ``ctx.capacity`` (or L) positions holding the L entries, else
+    None."""
+    _check_seq_impl(ctx)
+    B, L, _ = x.shape
+    q = torch.einsum("bld,dhk->blhk", x, params["w_q"].to(x.dtype))
+    k = torch.einsum("bld,dhk->blhk", x, params["w_k"].to(x.dtype))
+    v = torch.einsum("bld,dhk->blhk", x, params["w_v"].to(x.dtype))
+    q = nl.apply_rope(q, ctx.positions, desc.rope_base)
+    k = nl.apply_rope(k, ctx.positions, desc.rope_base)
+    if ctx.impl == "kernel":
+        o = _flash(q, k, v, desc)
+    else:
+        o = gqa_attention(q, k, v, causal=desc.causal, window=desc.window,
+                          q_positions=ctx.positions[0],
+                          k_positions=ctx.positions[0])
+    out = torch.einsum("blhk,hkd->bld", o, params["w_o"].to(x.dtype))
+    if ctx.mode != "prefill":
+        return out, None
+    cache = cachelib.kv_cache(B, ctx.capacity or L, cfg.n_kv_heads,
+                              cfg.resolved_head_dim, x.dtype, x.device)
+    return out, cachelib.update_kv(cache, k, v, 0)
+
+
+def _gqa_step(params, cfg: ModelConfig, desc: Sub, x_t, ctx: Ctx):
+    """Contiguous decode of one GQA sublayer.  x_t: (B, D) normalized
+    input; the new token's k / v are written at ``ctx.index`` in place.
+    Returns (out, cache)."""
+    B = x_t.shape[0]
+    pos = torch.full((B, 1), ctx.index, dtype=torch.int64, device=x_t.device)
+    q = torch.einsum("bd,dhk->bhk", x_t, params["w_q"].to(x_t.dtype))
+    k = torch.einsum("bd,dhk->bhk", x_t, params["w_k"].to(x_t.dtype))
+    v = torch.einsum("bd,dhk->bhk", x_t, params["w_v"].to(x_t.dtype))
+    q = nl.apply_rope(q[:, None], pos, desc.rope_base)[:, 0]
+    k = nl.apply_rope(k[:, None], pos, desc.rope_base)[:, 0]
+    cache = cachelib.update_kv(ctx.cache, k[:, None], v[:, None], ctx.index)
+    o = gqa_decode(q, cache["k"], cache["v"], ctx.index, window=desc.window)
+    return torch.einsum("bhk,hkd->bd", o, params["w_o"].to(x_t.dtype)), cache
 
 
 def _mla_seq(params, cfg: ModelConfig, desc: Sub, x, ctx: Ctx):
@@ -97,18 +187,11 @@ def _mla_seq(params, cfg: ModelConfig, desc: Sub, x, ctx: Ctx):
     x: (B, L, D) normalized input.  Returns (out, cache): in 'prefill'
     mode a contiguous latent cache of ``ctx.capacity`` (or L) positions
     holding the L entries, else None."""
+    _check_seq_impl(ctx)
     attn_fn = None
     if ctx.impl == "kernel":
         def attn_fn(q, k, v, softmax_scale):
-            return kops.attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                impl="kernel", causal=desc.causal, window=desc.window,
-                softmax_scale=softmax_scale).transpose(1, 2)
-    elif ctx.impl != "ref":
-        raise NotImplementedError(
-            f"{ctx.mode} impl {ctx.impl!r}: the port runs 'ref' or "
-            f"'kernel'; 'chunked' comes with core/chunked_attention.py "
-            f"(ROADMAP.md queue 1, item 17)")
+            return _flash(q, k, v, desc, softmax_scale)
     mcfg = cfg.mla_config()
     prefill = ctx.mode == "prefill"
     out, entries = mlalib.mla_prefill(params, mcfg, x, ctx.positions,
@@ -122,34 +205,46 @@ def _mla_seq(params, cfg: ModelConfig, desc: Sub, x, ctx: Ctx):
                                        entries["krope"], 0)
 
 
+def _mla_mixer(params, cfg: ModelConfig, desc: Sub, h, ctx: Ctx):
+    if ctx.mode in ("train", "prefill"):
+        return _mla_seq(params, cfg, desc, h, ctx)
+    if ctx.mode == "decode" and ctx.lengths is None:
+        return mlalib.mla_decode(params, cfg.mla_config(), h, ctx.cache,
+                                 ctx.index, scheme=ctx.scheme,
+                                 impl=_MLA_IMPL[ctx.impl])
+    if ctx.mode == "decode":
+        return mlalib.mla_decode_paged(
+            params, cfg.mla_config(), h, ctx.cache, ctx.block_tables,
+            ctx.lengths, scheme=ctx.scheme, impl=_MLA_IMPL[ctx.impl])
+    return mlalib.mla_prefill_chunk_paged(
+        params, cfg.mla_config(), h, ctx.cache, ctx.block_tables,
+        ctx.lengths, ctx.n_valid, scheme=ctx.scheme,
+        impl=_MLA_IMPL[ctx.impl])
+
+
 def sub_apply(params, cfg: ModelConfig, desc: Sub, x, ctx: Ctx):
     """x: (B, D) for decode, (B, C, D) for prefill_chunk, (B, L, D) for
     train and prefill.  Returns (x, cache, aux) — aux holds f32 scalars
     (zeros without a router); cache is the new contiguous cache in
     prefill mode, the updated cache or pool in the decode modes, None in
     train mode."""
-    _supported(cfg, desc)
+    _check_mixer(desc)
     if ctx.mode not in MODES:
         raise NotImplementedError(
             f"mode {ctx.mode!r}: the port runs {MODES} only (ROADMAP.md)")
+    mla = cfg.attn_kind == "mla"
+    if ctx.mode == "prefill_chunk" and not mla:
+        raise NotImplementedError(
+            "chunked paged prefill requires MLA attention sublayers")
+    if ctx.mode == "decode" and ctx.lengths is not None and not mla:
+        raise NotImplementedError(
+            "paged decode requires MLA attention sublayers")
     h = nl.rmsnorm(params["ln1"], x, cfg.norm_eps)
-    pool = ctx.cache
-    if ctx.mode in ("train", "prefill"):
-        a, pool = _mla_seq(params["attn"], cfg, desc, h, ctx)
-    elif ctx.mode == "decode" and ctx.lengths is None:
-        a, pool = mlalib.mla_decode(
-            params["attn"], cfg.mla_config(), h, ctx.cache, ctx.index,
-            scheme=ctx.scheme, impl=_MLA_IMPL[ctx.impl])
-    elif ctx.mode == "decode":
-        a, pool = mlalib.mla_decode_paged(
-            params["attn"], cfg.mla_config(), h, ctx.cache,
-            ctx.block_tables, ctx.lengths, scheme=ctx.scheme,
-            impl=_MLA_IMPL[ctx.impl])
+    if mla:
+        a, pool = _mla_mixer(params["attn"], cfg, desc, h, ctx)
     else:
-        a, pool = mlalib.mla_prefill_chunk_paged(
-            params["attn"], cfg.mla_config(), h, ctx.cache,
-            ctx.block_tables, ctx.lengths, ctx.n_valid, scheme=ctx.scheme,
-            impl=_MLA_IMPL[ctx.impl])
+        fn = _gqa_step if ctx.mode == "decode" else _gqa_seq
+        a, pool = fn(params["attn"], cfg, desc, h, ctx)
     x = x + a
 
     aux = {k: x.new_zeros((), dtype=torch.float32) for k in AUX_KEYS}

@@ -1,5 +1,6 @@
-"""Decoder-only LM for MLA serving and training (port of
-``repro.models.lm``).
+"""Decoder-only LM for serving and training (port of
+``repro.models.lm``): MLA models and the attention families (dense GQA /
+MQA / MHA, MoE over GQA, a VLM's patch prefix).
 
 Layer stack = prefix + periods + suffix of ``ModelConfig.layer_plan``.
 The JAX package scans each period over stacked weights; the port keeps one
@@ -10,7 +11,8 @@ reference's ``jax.checkpoint`` of the scanned body).
 
     lm_defs(cfg)                                              param defs
     forward(params, cfg, tokens, ...)                   -> logits, aux
-    prefill(params, cfg, tokens, capacity=...)          -> logits, cache
+    prefill(params, cfg, tokens, embeds=..., capacity=...)
+                                                        -> logits, cache
     decode_step_contiguous(params, cfg, token, cache, index, ...)
                                                         -> logits, cache
     prefill_chunk_paged(params, cfg, tokens, pool, ...) -> logits, pool
@@ -142,10 +144,15 @@ def _run_stack(params, cfg: ModelConfig, x, ctx: Ctx, pools=None):
     return x, pools, aux_sum
 
 
-def _embed(params, cfg: ModelConfig, tokens, dtype):
+def _embed(params, cfg: ModelConfig, tokens, dtype, embeds=None):
+    """Token embeddings in ``dtype`` (times sqrt(d_model), rounded to
+    ``dtype``, for gemma-style configs), after the (B, P, D) modality
+    prefix ``embeds`` if given (a VLM's patch embeddings)."""
     x = nl.embed(params["embed"], tokens, dtype)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dtype)
+    if embeds is not None:
+        x = torch.cat([embeds.to(dtype), x], dim=1)
     return x
 
 
@@ -154,20 +161,21 @@ def _logits(params, cfg: ModelConfig, x):
     return nl.unembed(params["embed"], x)
 
 
-def forward(params, cfg: ModelConfig, tokens, *,
+def forward(params, cfg: ModelConfig, tokens, *, embeds=None,
             compute_dtype=torch.bfloat16, impl: str = "ref",
             scheme: str = "seq", return_hidden: bool = False):
-    """Training forward.  tokens: (B, L).  Returns (logits (B, L, V), aux);
-    with ``return_hidden`` the final-norm hidden states (B, L, D) instead
-    of logits (the vocab-chunked loss unembeds them itself).  ``impl``
-    'kernel' runs every MLA layer's attention in the flash-attention
-    kernels (forward and backward); 'ref' densely.  Training runs MLA in
-    MHA mode, so ``scheme`` must be 'seq' (the decode schemes 'rc'/'ru'
-    apply to serving only)."""
+    """Training forward.  tokens: (B, L_text); embeds: (B, P, D) modality
+    prefix (a VLM's patches) or None.  Returns (logits (B, P + L_text, V),
+    aux); with ``return_hidden`` the final-norm hidden states instead of
+    logits (the vocab-chunked loss unembeds them itself).  ``impl``
+    'kernel' runs every layer's attention in the flash-attention kernels
+    (forward and backward); 'ref' densely.  Training runs MLA in MHA
+    mode, so ``scheme`` must be 'seq' (the decode schemes 'rc'/'ru' apply
+    to serving only)."""
     if scheme != "seq":
         raise ValueError(f"training runs MLA in MHA mode: scheme must be "
                          f"'seq', got {scheme!r}")
-    x = _embed(params, cfg, tokens, compute_dtype)
+    x = _embed(params, cfg, tokens, compute_dtype, embeds)
     B, L, _ = x.shape
     positions = torch.arange(L, device=x.device).expand(B, L)
     ctx = Ctx(mode="train", impl=impl, scheme=scheme, positions=positions)
@@ -177,18 +185,20 @@ def forward(params, cfg: ModelConfig, tokens, *,
     return _logits(params, cfg, x), aux
 
 
-def prefill(params, cfg: ModelConfig, tokens, *, capacity: int = 0,
-            compute_dtype=torch.bfloat16, impl: str = "ref",
-            scheme: str = "seq"):
+def prefill(params, cfg: ModelConfig, tokens, *, embeds=None,
+            capacity: int = 0, compute_dtype=torch.bfloat16,
+            impl: str = "ref", scheme: str = "seq"):
     """Contiguous prefill of a batch of equal-length prompts.
 
-    tokens: (B, L).  Runs MLA in MHA mode over the whole prompt (the
-    attention dense under 'ref', in the flash-attention forward kernel
-    under 'kernel') and returns (last-token logits (B, V), a contiguous
-    cache tree of ``capacity`` (default L) positions holding the L
-    entries), for :func:`decode_step_contiguous`.  ``scheme`` matters at
-    decode only."""
-    x = _embed(params, cfg, tokens, compute_dtype)
+    tokens: (B, L_text); embeds: (B, P, D) modality prefix or None, so L
+    = P + L_text positions are cached.  Runs the whole prompt (MLA in
+    MHA mode; the attention dense under 'ref', in the flash-attention
+    forward kernel under 'kernel') and returns (last-token logits (B,
+    V), a contiguous cache tree of ``capacity`` (default L) positions
+    holding the L entries: latent caches for MLA, KV caches otherwise),
+    for :func:`decode_step_contiguous`, whose ``index`` then counts the
+    P cached patches too.  ``scheme`` matters at MLA decode only."""
+    x = _embed(params, cfg, tokens, compute_dtype, embeds)
     B, L, _ = x.shape
     positions = torch.arange(L, device=x.device).expand(B, L)
     ctx = Ctx(mode="prefill", impl=impl, scheme=scheme, positions=positions,
@@ -203,8 +213,10 @@ def decode_step_contiguous(params, cfg: ModelConfig, token, cache,
     """One decode step over contiguous caches: token (B,), ``index`` a host
     int (the tokens already cached, shared by the batch).  The JAX
     package's ``decode_step(token, cache, index)``; its paged form is
-    :func:`decode_step` here.  ``impl`` 'kernel' runs the latent
-    attention in kernel K3.  Returns (logits (B, V), cache)."""
+    :func:`decode_step` here.  ``impl`` 'kernel' runs MLA's latent
+    attention in kernel K3; the other families' one-token attention is
+    ``core.attention.gqa_decode`` either way, as in the reference.
+    Returns (logits (B, V), cache)."""
     x = _embed(params, cfg, token, compute_dtype)
     ctx = Ctx(mode="decode", impl=impl, scheme=scheme, index=int(index))
     x, cache, _ = _run_stack(params, cfg, x, ctx, cache)
@@ -282,7 +294,8 @@ def decode_step(params, cfg: ModelConfig, token, pool, block_tables,
 def init_cache(cfg: ModelConfig, batch: int, capacity: int,
                dtype=torch.bfloat16, device="cuda") -> Dict:
     """Contiguous cache tree laid out like the layers of :func:`lm_defs`:
-    one (batch, capacity, .) latent cache per MLA layer."""
+    one (batch, capacity, .) latent cache per MLA layer, one KV cache per
+    other attention layer (a windowed layer's capped at cfg.max_seq)."""
     return _layout(cfg, lambda d: sub_cache(cfg, d, batch, capacity, dtype,
                                             device))
 

@@ -88,7 +88,8 @@ class LoopConfig:
 
 class TrainLoop:
     def __init__(self, cfg: LoopConfig, step_fn: Callable, params, opt_state,
-                 data: SyntheticLM, *, log: Callable[[str], None] = print):
+                 data: SyntheticLM, *, make_batch: Optional[Callable] = None,
+                 log: Callable[[str], None] = print):
         self.cfg = cfg
         self.step_fn = step_fn
         self.data = data
@@ -99,6 +100,12 @@ class TrainLoop:
         self.step = 0
         self.step_times: List[float] = []
         self.straggler_events: List[Dict[str, Any]] = []
+        # (tokens, labels) numpy -> the step's batch dict (a VLM adds
+        # its ``embeds``); default: the two as tensors on the params'
+        # device
+        self.make_batch = make_batch or (lambda toks, labels: {
+            "tokens": torch.as_tensor(toks, device=self.device),
+            "labels": torch.as_tensor(labels, device=self.device)})
         self._maybe_resume()
 
     def _maybe_resume(self):
@@ -143,9 +150,7 @@ class TrainLoop:
         last_metrics: Dict[str, Any] = {}
         while self.step < self.cfg.total_steps:
             toks, labels = self.data.next_batch()
-            last_metrics = self._run_step({
-                "tokens": torch.as_tensor(toks, device=self.device),
-                "labels": torch.as_tensor(labels, device=self.device)})
+            last_metrics = self._run_step(self.make_batch(toks, labels))
             self.step += 1
             if self.cfg.log_every and self.step % self.cfg.log_every == 0:
                 self.log(f"[loop] step={self.step} "

@@ -1,21 +1,23 @@
 """The parts of ``jax.random`` the JAX package calls, in PyTorch, bit for
 bit: the Threefry-2x32 counter hash (20 rounds, Random123's
 ``threefry2x32_20``), legacy uint32 keys, ``fold_in``, ``split``,
-``random_bits``, ``uniform``, ``randint``, ``gumbel`` and
+``random_bits``, ``uniform``, ``randint``, ``normal``, ``gumbel`` and
 ``categorical``.
 
 What is reproduced is jax's default configuration: the ``threefry2x32``
 implementation with ``jax_threefry_partitionable=True`` (the counters of
 an array of random bits are the iota of its flat index, split into a
 high and a low 32-bit word, and 32-bit draws are ``bits1 ^ bits2``), and
-Gumbel noise in mode ``'low'``, ``-log(-log(uniform(tiny, 1)))``.
+Gumbel noise in mode ``'low'``, ``-log(-log(uniform(tiny, 1)))``, and
+normal draws as sqrt(2) erfinv(uniform(nextafter(-1, 0), 1)).
 
 PyTorch has no uint32 arithmetic, so every 32-bit word is carried in an
 int64 tensor holding a value in [0, 2^32) and masked back to 32 bits
 after each add, multiply and rotate.  Nothing shifts a negative value
 right and no product leaves int64.  Every function runs on the device of
 its key and gives the same bits on the CPU and on CUDA; only the two
-logarithms of ``gumbel`` go through floating-point library code.
+logarithms of ``gumbel`` and the ``erfinv`` of ``normal`` go through
+floating-point library code.
 
 A key is an int64 tensor of shape (..., 2); leading dimensions are a
 batch of keys (``fold_in`` and the draws broadcast over them).
@@ -150,6 +152,14 @@ def randint(key: torch.Tensor, shape: Sequence[int], minval: int,
     mult = ((mult * mult) & MASK) % span
     off = (_mul32(hi_bits % span, mult) + lo_bits % span) & MASK
     return (minval + off % span).to(torch.int32)
+
+
+def normal(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """float32 ``jax.random.normal``: sqrt(2) * erfinv(u), u uniform over
+    [nextafter(-1, 0), 1), in float32."""
+    u = uniform(key, shape, minval=-1.0 + 2.0 ** -24, maxval=1.0)
+    return torch.erfinv(u) * torch.full((), math.sqrt(2), dtype=torch.float32,
+                                        device=key.device)
 
 
 def gumbel(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:

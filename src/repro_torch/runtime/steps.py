@@ -6,7 +6,8 @@ paged pool.
     lm_loss(params, cfg, tokens, labels, ...)  -> (loss, metrics)
     make_train_step(cfg, opt_cfg, ts)          -> step(params, opt_state,
                                                        batch)
-    make_prefill_step(cfg, capacity=...)       -> fn(params, tokens)
+    make_prefill_step(cfg, capacity=...)       -> fn(params, tokens,
+                                                     embeds=None)
                                                   -> (logits, cache)
     make_serve_step(cfg)                       -> fn(params, token, cache,
                                                      index) -> (logits,
@@ -63,12 +64,13 @@ def _chunk_ce(embed_params, xc, lc):
     return _ce_terms(nl.unembed(embed_params, xc), lc)
 
 
-def lm_loss(params, cfg: ModelConfig, tokens, labels, *,
+def lm_loss(params, cfg: ModelConfig, tokens, labels, *, embeds=None,
             compute_dtype=torch.bfloat16, impl: str = "ref",
             scheme: str = "seq", loss_chunk: int = 0
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Causal-LM cross entropy (+ the MoE aux losses).  labels are the
-    next tokens; entries < 0 are masked.
+    next tokens; entries < 0 are masked.  With a modality prefix (embeds
+    (B, P, D)) only the text positions are scored.
 
     ``loss_chunk > 0``: vocab-chunked CE — the (B, L, V) logits are never
     materialized; the final hidden states are unembedded and scored
@@ -76,9 +78,10 @@ def lm_loss(params, cfg: ModelConfig, tokens, labels, *,
     backward pass (``torch.utils.checkpoint``), so at most
     B x loss_chunk x V logits are live."""
     if loss_chunk:
-        x, aux = models.forward(params, cfg, tokens,
+        x, aux = models.forward(params, cfg, tokens, embeds=embeds,
                                 compute_dtype=compute_dtype, impl=impl,
                                 scheme=scheme, return_hidden=True)
+        x = x[:, x.shape[1] - labels.shape[1]:]
         B, L, D = x.shape
         c = min(loss_chunk, L)
         pad = -L % c
@@ -93,9 +96,10 @@ def lm_loss(params, cfg: ModelConfig, tokens, labels, *,
                               labels[:, i:i + c], use_reentrant=False)
             ce_sum, n_tok = ce_sum + s, n_tok + m
     else:
-        logits, aux = models.forward(params, cfg, tokens,
+        logits, aux = models.forward(params, cfg, tokens, embeds=embeds,
                                      compute_dtype=compute_dtype, impl=impl,
                                      scheme=scheme)
+        logits = logits[:, logits.shape[1] - labels.shape[1]:]
         ce_sum, n_tok = _ce_terms(logits, labels)
     ce = ce_sum / torch.clamp(n_tok, min=1.0)
     loss = ce
@@ -118,7 +122,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
                     ts: TrainStepConfig = TrainStepConfig()):
     """Returns step(params, opt_state, batch) -> (params, opt_state,
     metrics); batch is {tokens, labels} (B, L) integer tensors on the
-    params' device.  ``microbatches`` > 1 splits the batch, sums f32
+    params' device, and for a VLM ``embeds`` (B, P, D), its patch
+    prefix.  ``microbatches`` > 1 splits the batch, sums f32
     gradients and averages them, as the reference's scan does."""
 
     def grads_of(params, batch):
@@ -128,6 +133,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
         try:
             loss, metrics = lm_loss(
                 params, cfg, batch["tokens"], batch["labels"],
+                embeds=batch.get("embeds"),
                 compute_dtype=ts.compute_dtype, impl=ts.impl,
                 scheme=ts.scheme, loss_chunk=ts.loss_chunk)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
@@ -168,14 +174,17 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
 def make_prefill_step(cfg: ModelConfig, *, capacity: int,
                       compute_dtype=torch.bfloat16, impl: str = "ref",
                       scheme: str = "seq"):
-    """Returns fn(params, tokens (B, L)) -> (last-token logits (B, V), a
-    contiguous cache tree of ``capacity`` positions holding the L
-    entries).  MHA-mode prefill: ``impl`` 'kernel' attends in the
-    flash-attention forward kernel."""
+    """Returns fn(params, tokens (B, L), embeds=None) -> (last-token
+    logits (B, V), a contiguous cache tree of ``capacity`` positions
+    holding the P + L entries, P the length of the modality prefix
+    ``embeds`` (B, P, D), a VLM's patches).  ``impl`` 'kernel' attends in
+    the flash-attention forward kernel (MLA in MHA mode, and every other
+    attention family)."""
 
-    def run(params, tokens):
+    def run(params, tokens, embeds=None):
         with torch.inference_mode():
-            return models.prefill(params, cfg, tokens, capacity=capacity,
+            return models.prefill(params, cfg, tokens, embeds=embeds,
+                                  capacity=capacity,
                                   compute_dtype=compute_dtype, impl=impl,
                                   scheme=scheme)
 
@@ -186,8 +195,10 @@ def make_serve_step(cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
                     impl: str = "ref", scheme: str = "seq"):
     """Returns fn(params, token (B,), cache, index) -> (logits (B, V),
     cache): one decode step over contiguous caches, the new token written
-    at the host int ``index``, the cache updated in place.  ``impl``
-    'kernel' attends in kernel K3."""
+    at the host int ``index`` (the positions cached, a VLM's patches
+    included), the cache updated in place.  ``impl`` 'kernel' attends in
+    kernel K3 for MLA; the other families decode in
+    ``core.attention.gqa_decode``, as the reference does."""
 
     def run(params, token, cache, index: int):
         with torch.inference_mode():

@@ -18,6 +18,10 @@ lie within a few ulps (the Gumbel noise's two logarithms may round
 differently on the two devices).  K2 runs at the speculative verify
 width C = k + 1, and the spec engines give plain decode's tokens with
 and without graphs, their K1 / K2 launches counted through replays.
+K4 (and K5 / K6) run at the attention families' shapes (G = 9, head dim
+96, MQA at head dim 256 with a 512-position window), and GQA smoke
+models give the same greedy tokens and gradients on the kernel path as
+on the dense one.
 
 Every test here is marked ``gpu`` and skips without a CUDA device (the
 kernels have no CPU mode); on a machine with one:
@@ -1203,3 +1207,128 @@ def test_graph_engines_leave_no_memory_behind_on_card():
 
     first = cycle()
     assert [cycle() for _ in range(3)] == [first] * 3
+
+
+# ------------------------------------------- the attention families (GQA) --
+
+# K4 at the attention families' shapes, bf16 on the tensor-core walk, q /
+# k / v as transposed (B, L, H, D) views (the GQA path's layout):
+# starcoder2's 36 query heads over 4 kv heads (G = 9, not a power of
+# two), phi3's head dim 96 (full MHA), gemma3's MQA at head dim 256 with
+# its 512-position window over 1,100 positions (the window's edge cuts
+# every query tile past the first eight, and rows 512.. attend only
+# inside it), and the same with the queries offset by 37 (the edge off
+# the 64-key tiles)
+GQA_FLASH_CASES = [
+    (1, 36, 4, 300, 300, 128, None, 0),
+    (2, 8, 8, 200, 200, 96, None, 0),
+    (1, 4, 1, 1100, 1100, 256, 512, 0),
+    (1, 4, 1, 700, 737, 256, 512, 37),
+]
+
+
+@pytest.mark.parametrize("case", GQA_FLASH_CASES)
+def test_flash_fwd_at_gqa_model_shapes_on_card(case):
+    """K4 at the attention families' shapes: route 'tc', out row by row
+    against the plain version (within the window alone as well), lse
+    within 1e-4; K5 / K6 at the same shapes against theirs."""
+    dev = _cuda()
+    B, H, Hkv, Lq, Lk, D, window, q_offset = case
+    g = torch.Generator(device=dev)
+    g.manual_seed(Lq + H)
+
+    def rn(h, n):
+        return torch.randn((B, n, h, D), generator=g, device=dev).to(
+            torch.bfloat16).transpose(1, 2)
+
+    q, k, v, do = rn(H, Lq), rn(Hkv, Lk), rn(Hkv, Lk), rn(H, Lq)
+    kw = dict(causal=True, window=window, q_offset=q_offset, scale=D ** -0.5)
+    out, lse = tfa.flash_fwd_kernel(q, k, v, **kw)
+    torch.cuda.synchronize()
+    plan = tfa.flash_fwd_kernel.last_plan
+    assert plan == dict(route="tc", tiles=(128, 64),
+                        grid=(-(-Lq // 128), B * H)), plan
+    out_p, lse_p = tfa.flash_fwd_plain(q, k, v, **kw)
+    tol = FLASH_ROW_TOL[torch.bfloat16]
+    _row_close(out, out_p, tol)
+    _close(lse, lse_p, 1e-4)
+    if window is not None:     # the rows whose window starts past key 0
+        first = max(0, window - q_offset)
+        _row_close(out[:, :, first:], out_p[:, :, first:], tol)
+    delta = (do.float() * out_p.float()).sum(-1).contiguous()
+    dq = tfa.flash_bwd_dq_kernel(q, k, v, do, lse_p, delta, **kw)
+    dk, dv = tfa.flash_bwd_dkv_kernel(q, k, v, do, lse_p, delta, **kw)
+    torch.cuda.synchronize()
+    for kern in (tfa.flash_bwd_dq_kernel, tfa.flash_bwd_dkv_kernel):
+        assert kern.last_plan["route"] == "tc", kern.last_plan
+    _row_close(dq, tfa.flash_bwd_dq_plain(q, k, v, do, lse_p, delta, **kw),
+               tol)
+    for got, want in zip((dk, dv), tfa.flash_bwd_dkv_plain(
+            q, k, v, do, lse_p, delta, **kw)):
+        _row_close(got, want, tol)
+
+
+def _gqa_smoke(arch, seed):
+    import dataclasses
+
+    from repro_torch import configs, models
+    from repro_torch.nn import module as nnm
+
+    cfg = configs.smoke(arch)
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg,
+                                  capacity_factor=cfg.n_experts / cfg.top_k)
+    return cfg, nnm.init_params(models.model_defs(cfg), seed=seed,
+                                dtype=torch.float32, device=_cuda())
+
+
+@pytest.mark.parametrize("arch", ["starcoder2-7b", "gemma3-1b",
+                                  "internvl2-26b"])
+def test_gqa_smoke_greedy_tokens_kernel_match_ref_on_card(arch):
+    """The contiguous serve of a GQA smoke model (G = 3; MQA with a window
+    of 8; the VLM's patch prefix), f32: impl 'kernel' (K4's WMMA route)
+    gives 'ref''s greedy tokens, K4 launched once a layer.  Seed 5: the
+    smallest top-1 / top-2 logit margin of the load is >= 1.1e-3 (CPU)."""
+    from repro_torch.launch.serve import serve_contiguous
+
+    cfg, params = _gqa_smoke(arch, 5)
+    toks = {}
+    for impl in ("ref", "kernel"):
+        before = tfa.flash_fwd_kernel.launches
+        toks[impl] = serve_contiguous(
+            cfg, params, batch=4, prompt_len=48, gen=12, impl=impl, seed=5,
+            compute_dtype=torch.float32, device="cuda",
+            log=lambda _: None)["tokens"]
+        assert tfa.flash_fwd_kernel.launches - before == \
+            (cfg.n_layers if impl == "kernel" else 0)
+    np.testing.assert_array_equal(toks["kernel"], toks["ref"])
+
+
+@pytest.mark.parametrize("arch", ["gemma3-1b", "granite-moe-1b-a400m"])
+def test_gqa_smoke_train_step_kernel_matches_ref_on_card(arch):
+    """One training step's loss and gradients of a GQA smoke model, f32,
+    impl 'kernel' (K4 / K5 / K6, once a layer each) against 'ref' (MoE at
+    drop-free capacity): the loss within 1e-5, each leaf within 1e-4
+    relative L2; then one make_train_step step on the kernel path."""
+    from repro_torch import optim
+    from repro_torch.runtime import TrainStepConfig, make_train_step
+
+    cfg, params = _gqa_smoke(arch, 0)
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 256))).cuda()
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 256))).cuda()
+    kernels = (tfa.flash_fwd_kernel, tfa.flash_bwd_dq_kernel,
+               tfa.flash_bwd_dkv_kernel)
+    before = [kern.launches for kern in kernels]
+    out = _kernel_vs_ref_grads(cfg, params, toks, labels, torch.float32)
+    assert [kern.launches - b for kern, b in zip(kernels, before)] == \
+        [cfg.n_layers] * 3
+    assert out["kernel"][0] == pytest.approx(out["ref"][0], rel=1e-5)
+    for a, b in zip(out["kernel"][1], out["ref"][1]):
+        assert _rel_l2(a, b) <= 1e-4
+    opt = optim.AdamWConfig(lr=1e-3)
+    step = make_train_step(cfg, opt, TrainStepConfig(
+        compute_dtype=torch.float32, impl="kernel"))
+    _, _, m = step(params, optim.adamw_init(params, opt),
+                   {"tokens": toks, "labels": labels})
+    assert np.isfinite(float(m["loss"]))

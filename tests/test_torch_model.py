@@ -94,7 +94,7 @@ def test_deepseek_configs_match():
     assert dataclasses.asdict(tconfigs.smoke(ARCH)) == \
         dataclasses.asdict(jconfigs.smoke(ARCH))
     with pytest.raises(KeyError):
-        tconfigs.full("gemma3-1b")
+        tconfigs.full("jamba-1.5-large-398b")
 
 
 def test_param_defs_and_count_match_jax():
@@ -412,7 +412,12 @@ def test_model_logits_match_jax(impl):
         _close(a["ckv"][1:], np.asarray(b["ckv"])[1:])
 
 
-def test_unported_mixers_raise():
-    cfg = tcommon.ModelConfig(**dataclasses.asdict(jconfigs.smoke("gemma3-1b")))
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "xlstm-350m",
+                                  "whisper-medium"])
+def test_unported_mixers_raise(arch):
+    """The families whose mixers are not ported yet (mamba, mLSTM /
+    sLSTM, encoder-decoder) refuse to build; the attention families are
+    served (tests/test_torch_gqa.py)."""
+    cfg = tcommon.ModelConfig(**dataclasses.asdict(jconfigs.smoke(arch)))
     with pytest.raises(NotImplementedError):
         tmodels.model_defs(cfg)
