@@ -145,7 +145,7 @@ Phases, each printing its own lines; any failure exits non-zero:
      engine with shallow:1 k = 4 and
      telemetry on: the sync engine's tokens, the trace valid, verify rows
      in the drift report;
- 10. the paper's baseline families (run last): (a) phi3-mini-3.8b, the
+ 10. the paper's baseline families: (a) phi3-mini-3.8b, the
      paper's MHA baseline (32 layers, 32 heads = 32 kv heads, head dim
      96), and (b) gemma3-1b (26 layers, MQA at head dim 256, 22 layers
      with a 512-position window and 4 global ones), each at full width
@@ -166,13 +166,34 @@ Phases, each printing its own lines; any failure exits non-zero:
      capacity, internvl2 with its patch prefix): greedy tokens of the
      contiguous serve, ``impl='kernel'`` identical to ``'ref'``, and one
      train step's loss and per-leaf gradients kernel against ref (f32,
-     within ``GQA_GRAD_REL``).
+     within ``GQA_GRAD_REL``);
+ 11. the recurrent families (run last): (a) jamba-1.5-large-398b at full
+     width cut to its first 4 layers (mamba + dense, mamba + MoE, mamba +
+     dense, attention + MoE; ~23 B params) and (b) xlstm-350m at full
+     width and depth (21 mLSTM + 3 sLSTM), random bf16 weights, served as
+     phase 10 serves its models: prefill ms, decode tokens/s, ms a step,
+     peak memory; K4 once an attention layer, on route 'tc', K3 never;
+     on one request at drop-free capacity, Jamba's prefill and 16th
+     decode step under 'kernel' against 'ref' per row, and each model's
+     16th decode step against the teacher-forced forward over the same
+     positions (the recurrent states carried on the card); the Mamba scan
+     alone at Jamba's prefill shapes (time, bound, its own peak memory)
+     and the sLSTM loop alone at xLSTM's; K4 alone at Jamba's prefill
+     shapes (64 heads over 8, head dim 128) beside SDPA; each model's
+     decode state (bytes a cached token, bytes a request) beside
+     DeepSeek-V2's and phi3's KV bytes; (c) both smoke configs in f32:
+     greedy tokens identical under 'ref', 'chunked' and 'kernel', one
+     train step's gradients of 'chunked' and 'kernel' against 'ref'
+     within ``GQA_GRAD_REL`` (xLSTM at 64 positions); (d) phi3-mini-3.8b
+     at full width, phase 4's load: the prefill under 'kernel', 'chunked'
+     and 'ref' (time, peak memory), 'chunked' within LOGITS_REL_L2 of
+     'kernel' per row.
 
 The line before the last is the kernel table as JSON (``launches`` sums
 the main paths that ran a kernel, ``launches_by_path`` splits them;
 ``plan`` is the plan each wrapper recorded at the timed launch; K2's row
 holds its verify-width timing under ``verify``, K4's its phase 10 rows
-under ``baseline``); the
+under ``baseline`` and its phase 11 row under ``jamba``); the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or outside a checkout of the repository, it exits non-zero and prints no
 result.
@@ -3145,8 +3166,8 @@ def window_pairs(L: int, window):
 
 
 def time_k4_baseline(torch, cfg):
-    """K4 alone at (a)'s / (b)'s prefill shapes, one row for each window
-    the config's layers use: q (B, H, 2048, D) and k, v (B, Hkv, 2048, D)
+    """K4 alone at a model's prefill shapes, one row for each window its
+    attention layers use: q (B, H, 2048, D) and k, v (B, Hkv, 2048, D)
     bf16 as transposed (B, L, H, D) views (the layout the GQA path hands
     over), causal.  Held row by row against the plain version; timed (L2
     flushed, CUDA events) beside the plain version and SDPA with
@@ -3159,7 +3180,8 @@ def time_k4_baseline(torch, cfg):
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     prefix, period, n_periods, suffix = cfg.layer_plan()
-    descs = prefix + period * n_periods + suffix
+    descs = [d for d in prefix + period * n_periods + suffix
+             if d.mixer == "attn"]
     rows = {}
     for window in sorted({d.window for d in descs},
                          key=lambda w: (w is None, w)):
@@ -3320,6 +3342,454 @@ def gqa_smoke_parity(torch, np):
     return {"serve_gqa_smoke": serve_n, "train_gqa_smoke": train_n}
 
 
+# ------------------------------------------ phase 11: the recurrent families --
+
+
+# (a) Jamba at full width, cut to the first 4 layers of its plan: mamba +
+# dense, mamba + MoE, mamba + dense, attention + MoE, one layer of each
+# kind (any MoE layer holds 9.66 B params, so 8 layers do not fit); (b)
+# xLSTM at full width and depth (21 mLSTM + 3 sLSTM).  Both at phase 4's
+# load, random bf16 weights, the config's MoE capacity.
+JAMBA = "jamba-1.5-large-398b"
+XLSTM = "xlstm-350m"
+JAMBA_LAYERS = 4
+# the checks of (a) and (b) on one request: the prefill, then TF_STEPS
+# greedy decode steps, against the teacher-forced forward over the
+# PROMPT + TF_STEPS positions (a length both chunked scans take: Mamba's
+# 8 chunks of 258, mLSTM's 16 of 129)
+TF_STEPS = 16
+# (c)'s smoke train step: xLSTM's mLSTM gradients are not finite at 128
+# positions a chunk (a fault of the reference, ROADMAP.md queue 3)
+SMOKE_TRAIN_L = {JAMBA: 256, XLSTM: 64}
+# (c)'s seed: on its load (4 requests x 48 prompt tokens, 12 generated)
+# the smallest top-1 / top-2 logit margin is 3.3e-3 (Jamba) and 5.4e-4
+# (xLSTM) on the CPU, far above f32 noise, so identical tokens test the
+# paths and not a near tie
+RECURRENT_SEED = 5
+
+
+def state_bytes(torch, cfg):
+    """Decode-state bytes of one request (bf16 cache dtype), by mixer:
+    (bytes a cached token of an attention layer, bytes a request of a
+    recurrent layer) summed over the stack, from the cache trees
+    ``init_cache`` builds at two capacities."""
+    from repro_torch import models
+
+    def per_kind(cap):
+        tree = models.init_cache(cfg, 1, cap, torch.bfloat16, "meta")
+        out = {}
+        for desc, c in models.lm.layers(cfg, tree):
+            n = sum(t.numel() * t.element_size() for t in c.values())
+            out[desc.mixer] = out.get(desc.mixer, 0) + n
+        return out
+
+    a, b = per_kind(1), per_kind(2)
+    per_token = {k: b[k] - a[k] for k in a if b[k] != a[k]}
+    per_request = {k: a[k] for k in a if b[k] == a[k]}
+    return per_token, per_request
+
+
+def serve_recurrent(torch, np, cfg, params, n_attn: int):
+    """(a) / (b): the contiguous launcher's path at phase 4's load,
+    ``impl='kernel'``, after a warm-up at the same shapes: K4 launched
+    once an attention layer, every launch on route 'tc', K3 never.
+    Returns (launches, the numbers)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mla_decode
+    from repro_torch.launch.serve import serve_contiguous
+
+    kw = dict(batch=B, prompt_len=PROMPT, gen=GEN, scheme="auto",
+              platform="h100", impl="kernel", compute_dtype=torch.bfloat16,
+              device="cuda")
+    t0 = time.perf_counter()
+    serve_contiguous(cfg, params, log=lambda _: None, **kw)
+    log(f"[rec] warm-up at the same shapes: "
+        f"{time.perf_counter() - t0:.2f}s")
+    torch.cuda.reset_peak_memory_stats()
+    fa.flash_fwd_kernel.launches = 0
+    mla_decode.mla_decode_kernel.launches = 0
+    plans = []
+    restore = record_k4_plans(plans)
+    try:
+        res = serve_contiguous(cfg, params, log=log, **kw)
+    finally:
+        restore()
+    launches = {"flash_attention_fwd": fa.flash_fwd_kernel.launches}
+    steps = res["decode_steps"]
+    out = dict(tokens_per_s=steps * B / res["decode_s"],
+               step_ms=res["decode_s"] * 1e3 / steps,
+               prefill_ms=res["prefill_s"] * 1e3,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    routes = sorted({p["route"] for p in plans})
+    log(f"[rec] {cfg.name}, batch {B} x {PROMPT} prompt tokens, {GEN} "
+        f"generated: prefill {out['prefill_ms']:.1f} ms, decode "
+        f"{out['tokens_per_s']:.1f} tokens/s, step {out['step_ms']:.2f} ms "
+        f"mean, peak memory {out['peak_gib']:.2f} GiB, launches "
+        f"{launches}, K4 routes {routes}")
+    tokens = res["tokens"]
+    if tokens.shape != (B, GEN) or tokens.min() < 0 \
+            or tokens.max() >= cfg.vocab \
+            or not bool(torch.isfinite(res["last_logits"]).all()):
+        raise AssertionError(f"{cfg.name}: the contiguous serve returned "
+                             f"bad tokens or logits")
+    if launches["flash_attention_fwd"] != n_attn or len(plans) != n_attn \
+            or mla_decode.mla_decode_kernel.launches:
+        raise AssertionError(f"{cfg.name}: K4 launches {launches} "
+                             f"(recorded {len(plans)}), K3 "
+                             f"{mla_decode.mla_decode_kernel.launches}; want "
+                             f"K4 = {n_attn} attention layers, K3 none")
+    if n_attn and routes != ["tc"]:
+        raise AssertionError(f"{cfg.name}: a bf16 K4 launch left its "
+                             f"tensor-core route: {plans}")
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def check_recurrent(torch, np, cfg, params, impls):
+    """(a) / (b) on one request at drop-free MoE capacity: the prefill
+    under each of ``impls`` (the first is the kernel path) and TF_STEPS
+    greedy decode steps from each one's cache on the first's tokens,
+    logits held against the first's per row within LOGITS_REL_L2 (prefill
+    and last step); then the first's last step against the teacher-forced
+    forward over the same PROMPT + TF_STEPS positions: the recurrent
+    states carried across prefill and decode on the card."""
+    from repro_torch import models
+    from repro_torch.runtime import make_prefill_step, make_serve_step
+
+    cfg = drop_free(cfg)
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (1, PROMPT)), device="cuda")
+    kw = dict(compute_dtype=torch.bfloat16, scheme="seq")
+    step = make_serve_step(cfg, **kw)
+    logits, cache = {}, {}
+    for impl in impls:
+        logits[impl], cache[impl] = make_prefill_step(
+            cfg, capacity=PROMPT + TF_STEPS, impl=impl, **kw)(params, toks)
+    rel = {impl: _row_rel(torch, logits[impl], logits[impls[0]])
+           for impl in impls[1:]}
+    seq = [toks]
+    for i in range(TF_STEPS):
+        tok = torch.argmax(logits[impls[0]], dim=-1)
+        seq.append(tok[:, None])
+        for impl in impls:
+            logits[impl], cache[impl] = step(params, tok, cache[impl],
+                                             PROMPT + i)
+    for impl in impls[1:]:
+        rel[impl] += _row_rel(torch, logits[impl], logits[impls[0]])
+    del cache
+    with torch.inference_mode():
+        full, _ = models.forward(params, cfg, torch.cat(seq, dim=1),
+                                 compute_dtype=torch.bfloat16,
+                                 impl=impls[0])
+    rel_tf = _row_rel(torch, logits[impls[0]], full[:, -1])
+    log(f"[rec] {cfg.name}, one request of {PROMPT} tokens at drop-free "
+        f"capacity, per-row |a-b|/|b| (bound {LOGITS_REL_L2}): "
+        + "".join(f"{impl} vs {impls[0]} prefill {r[0]:.4f}, decode step "
+                  f"{TF_STEPS} {r[1]:.4f}; " for impl, r in rel.items())
+        + f"{impls[0]}'s decode step {TF_STEPS} vs the teacher-forced "
+        f"forward over {PROMPT + TF_STEPS} positions {rel_tf[0]:.4f}")
+    worst = max([max(r) for r in rel.values()] + rel_tf)
+    if worst > LOGITS_REL_L2 or not bool(torch.isfinite(full).all()):
+        raise AssertionError(f"{cfg.name}: the paths disagree ({rel}, "
+                             f"teacher-forced {rel_tf})")
+    del full
+    torch.cuda.empty_cache()
+
+
+def time_mamba_scan(torch, cfg):
+    """The Mamba scan alone (``models.mamba._chunked_ssm``, the chunked
+    log-step scan and the host loop around it) at (a)'s prefill shapes:
+    dt, x (B, 2048, d_inner) f32 / bf16, B_t, C_t (B, 2048, N) f32, A
+    (d_inner, N).  Its peak memory above its inputs, its time (CUDA
+    events) and its bound: the inputs read once and y written once, or
+    its ~10 f32 operations an (position, channel, state) element at the
+    f32 rate, whichever is longer."""
+    from repro_torch.models import mamba
+    from repro_torch.models.common import chunk_len
+
+    dI, N = cfg.d_inner, cfg.d_state
+    g = torch.Generator(device="cuda")
+    g.manual_seed(12)
+    dt = torch.rand((B, PROMPT, dI), generator=g, device="cuda") * 0.7
+    x = torch.randn((B, PROMPT, dI), generator=g, device="cuda").to(
+        torch.bfloat16)
+    Bs, Cs = (torch.randn((B, PROMPT, N), generator=g, device="cuda")
+              for _ in range(2))
+    A = -torch.exp(torch.ones((dI, N), device="cuda"))
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+
+    def run():
+        with torch.inference_mode():
+            return mamba._chunked_ssm(dt, Bs, Cs, x, A, remat=False)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    y, h = run()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    if not (bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())):
+        raise AssertionError("the Mamba scan returned non-finite values")
+    del y, h
+    ms = time_ms(torch, run, flush, reps=3)
+    n = B * PROMPT * dI
+    n_bytes = n * (4 + 2 + 4) + 2 * B * PROMPT * N * 4
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 10 * n * N / PEAK_OPS["float32"] * 1e3
+    c = chunk_len(PROMPT, mamba.CHUNK)
+    width = max(1, min(dI, mamba.SCAN_SLICE_BYTES // (B * c * N * 4)))
+    r = dict(ms=ms, bound_ms=max(t_bytes, t_ops),
+             bound_by="bytes" if t_bytes >= t_ops else "operations",
+             peak_gib=peak, slices=-(-dI // width),
+             shapes=dict(x=[B, PROMPT, dI], state=[B, dI, N]))
+    log(f"[rec] Mamba scan alone at ({B}, {PROMPT}, {dI}) x N {N}: "
+        f"{ms:.2f} ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']}), "
+        f"{r['bound_ms'] / ms:.4f} of it reached; {PROMPT // c} chunks x "
+        f"{r['slices']} slices of d_inner, its own peak {peak:.2f} GiB (a "
+        f"whole chunk's (B, c, d_inner, N) f32 tensor: "
+        f"{B * c * dI * N * 4 / 2**30:.2f} GiB)")
+    del dt, x, Bs, Cs, flush
+    torch.cuda.empty_cache()
+
+
+def time_slstm_loop(torch, cfg, params):
+    """The sLSTM loop alone (``models.xlstm.slstm_forward``: one cell step
+    a position) at (b)'s prefill shapes, on (b)'s first sLSTM layer:
+    its time and its bound (the (B, L, D) input and output and the
+    weights moved once, or its products: 2 x 4D x D an input position
+    and a recurrent step, f32 for the recurrent one)."""
+    from repro_torch import models
+    from repro_torch.models import xlstm
+
+    layer = next(p for d, p in models.lm.layers(cfg, params)
+                 if d.mixer == "slstm")["attn"]
+    D = cfg.d_model
+    x = torch.randn((B, PROMPT, D), device="cuda").to(torch.bfloat16)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+
+    def run():
+        with torch.inference_mode():
+            return xlstm.slstm_forward(layer, cfg, x)[0]
+    ms = time_ms(torch, run, flush, reps=2)
+    n_bytes = 2 * (2 * B * PROMPT * D) + 2 * (4 * D * D * 2 + D * D)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (2 * B * PROMPT * D * 4 * D) * (
+        1 / PEAK_OPS["bfloat16"] + 1 / PEAK_OPS["float32"]) * 1e3
+    r = dict(ms=ms, bound_ms=max(t_bytes, t_ops),
+             bound_by="bytes" if t_bytes >= t_ops else "operations",
+             steps=PROMPT, shapes=dict(x=[B, PROMPT, D]))
+    log(f"[rec] sLSTM loop alone at ({B}, {PROMPT}, {D}): {ms:.2f} ms, "
+        f"{ms * 1e3 / PROMPT:.1f} us a position, bound "
+        f"{r['bound_ms']:.3f} ms ({r['bound_by']}), "
+        f"{r['bound_ms'] / ms:.5f} of it reached")
+    del x, flush
+    torch.cuda.empty_cache()
+
+
+def recurrent_smoke_parity(torch, np):
+    """(c): the two smoke configs in f32 at drop-free capacity: greedy
+    tokens of the contiguous serve identical under 'ref', 'chunked' and
+    'kernel', K4 launched once an attention layer under 'kernel'; one
+    train step's loss and per-leaf gradients of 'kernel' and 'chunked'
+    against 'ref' within GQA_GRAD_REL (xLSTM at 64 positions), K4 / K5 /
+    K6 once an attention layer under 'kernel'.  Returns the launches."""
+    from repro_torch import configs, models
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import serve_contiguous
+    from repro_torch.launch.train import batch_maker
+    from repro_torch.nn import module as nnm
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime import lm_loss
+
+    kernels = (fa.flash_fwd_kernel, fa.flash_bwd_dq_kernel,
+               fa.flash_bwd_dkv_kernel)
+    names = ("flash_attention_fwd", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv")
+    serve_n, train_n = {names[0]: 0}, dict.fromkeys(names, 0)
+    for arch in (JAMBA, XLSTM):
+        cfg = drop_free(configs.smoke(arch))
+        n_attn = sum(d.mixer == "attn" for d, _ in models.lm.layers(
+            cfg, models.model_defs(cfg)))
+        params = nnm.init_params(models.model_defs(cfg),
+                                 seed=RECURRENT_SEED, dtype=torch.float32,
+                                 device="cuda")
+        toks = {}
+        for impl in ("ref", "chunked", "kernel"):
+            before = kernels[0].launches
+            toks[impl] = serve_contiguous(
+                cfg, params, batch=4, prompt_len=48, gen=12, scheme="auto",
+                impl=impl, seed=RECURRENT_SEED, compute_dtype=torch.float32,
+                device="cuda", log=lambda _: None)["tokens"]
+            fwd = kernels[0].launches - before
+            if fwd != (n_attn if impl == "kernel" else 0):
+                raise AssertionError(f"{arch} smoke serve, impl {impl}: "
+                                     f"{fwd} K4 launches")
+            serve_n[names[0]] += fwd
+        same = all(np.array_equal(toks[i], toks["ref"])
+                   for i in ("chunked", "kernel"))
+
+        leaves = list(tree_leaves(params))
+        L = SMOKE_TRAIN_L[arch]
+        data = np.random.default_rng(RECURRENT_SEED).integers(
+            0, cfg.vocab, (2, L + 1))
+        batch = batch_maker(cfg, "cuda", torch.float32)(data[:, :-1],
+                                                        data[:, 1:])
+        out = {}
+        for impl in ("ref", "chunked", "kernel"):
+            before = [kern.launches for kern in kernels]
+            for t in leaves:
+                t.requires_grad_(True)
+            loss, _ = lm_loss(params, cfg, batch["tokens"], batch["labels"],
+                              compute_dtype=torch.float32, impl=impl)
+            out[impl] = (loss.item(), torch.autograd.grad(loss, leaves))
+            for t in leaves:
+                t.requires_grad_(False)
+            n = [kern.launches - b for kern, b in zip(kernels, before)]
+            if n != [n_attn if impl == "kernel" else 0] * 3:
+                raise AssertionError(f"{arch} smoke train step, impl "
+                                     f"{impl}: K4 / K5 / K6 launches {n}")
+            for name, c in zip(names, n):
+                train_n[name] += c
+        rel, finite = {}, True
+        for impl in ("chunked", "kernel"):
+            rel[impl] = max(
+                ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+                for a, b in zip(out[impl][1], out["ref"][1]))
+            rel[impl] = max(rel[impl], abs(out[impl][0] - out["ref"][0])
+                            / abs(out["ref"][0]))
+            finite &= all(bool(torch.isfinite(g).all())
+                          for g in out[impl][1])
+        log(f"[rec] {arch} smoke f32: greedy tokens of 4 requests x 12, "
+            f"impl ref / chunked / kernel: "
+            f"{'identical' if same else 'DIFFERENT'}; one train step at "
+            f"2 x {L} tokens: loss {out['kernel'][0]:.6f}, per-leaf "
+            f"gradient |a-b|/|b| max against ref: chunked "
+            f"{rel['chunked']:.2e}, kernel {rel['kernel']:.2e} over "
+            f"{len(leaves)} leaves (bound {GQA_GRAD_REL}); {n_attn} "
+            f"attention layers")
+        if not same:
+            raise AssertionError(f"{arch}: smoke tokens differ: {toks}")
+        if max(rel.values()) > GQA_GRAD_REL or not finite:
+            raise AssertionError(f"{arch}: gradients disagree with the "
+                                 f"reference path: {rel}")
+        del params, leaves, out
+        torch.cuda.empty_cache()
+    return {"serve_recurrent_smoke": serve_n,
+            "train_recurrent_smoke": train_n}
+
+
+def chunked_full_width(torch, np):
+    """(d): phi3-mini-3.8b at full width and depth, phase 4's load (batch
+    8 x 2,048), bf16: the prefill under 'kernel', 'chunked' and 'ref',
+    each one's time (host clock around a synchronize, after a warm-up of
+    its own) and peak memory; 'chunked' against 'kernel' within
+    LOGITS_REL_L2 per row.  Returns the kernel prefill's launches."""
+    from repro_torch import configs, models
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.nn import module as nnm
+    from repro_torch.runtime import make_prefill_step
+
+    cfg = configs.full("phi3-mini-3.8b")
+    params = nnm.init_params(models.model_defs(cfg), seed=0,
+                             dtype=torch.bfloat16, device="cuda")
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (B, PROMPT)), device="cuda")
+    logits, res = {}, {}
+    for impl in ("kernel", "chunked", "ref"):
+        pre = make_prefill_step(cfg, capacity=PROMPT, impl=impl,
+                                compute_dtype=torch.bfloat16, scheme="seq")
+        pre(params, toks)
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        before = fa.flash_fwd_kernel.launches
+        t0 = time.perf_counter()
+        logits[impl], cache = pre(params, toks)
+        torch.cuda.synchronize()
+        res[impl] = dict(ms=(time.perf_counter() - t0) * 1e3,
+                         peak_gib=(torch.cuda.max_memory_allocated()
+                                   - base) / 2**30,
+                         k4=fa.flash_fwd_kernel.launches - before)
+        del cache
+    rel = _row_rel(torch, logits["chunked"], logits["kernel"])
+    rel_ref = _row_rel(torch, logits["ref"], logits["kernel"])
+    log(f"[rec] phi3-mini-3.8b prefill, batch {B} x {PROMPT}, bf16: "
+        + "; ".join(f"{impl} {r['ms']:.1f} ms, peak {r['peak_gib']:.2f} "
+                    f"GiB above the weights, K4 launches {r['k4']}"
+                    for impl, r in res.items())
+        + f"; per-row |a-b|/|b| against kernel: chunked max {max(rel):.4f}"
+        f", ref max {max(rel_ref):.4f} (bound {LOGITS_REL_L2})")
+    if max(rel) > LOGITS_REL_L2 or res["chunked"]["k4"] \
+            or res["kernel"]["k4"] != cfg.n_layers:
+        raise AssertionError("phi3: the 'chunked' prefill disagrees with "
+                             "the kernel path")
+    del params, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"flash_attention_fwd": res["kernel"]["k4"]}
+
+
+def recurrent_families(torch, np):
+    """Phase 11: (a) Jamba cut to 4 layers and (b) xLSTM at full width
+    served, checked and timed, with the Mamba scan and the sLSTM loop
+    alone; (c) the smoke configs; (d) 'chunked' at full width.  Returns
+    (K4's row at Jamba's prefill shapes, the kernel launches of each
+    path)."""
+    from repro_torch import configs, models
+    from repro_torch.nn import module as nnm
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path, numbers = {}, {}
+    for arch in (JAMBA, XLSTM):
+        cfg = configs.full(arch)
+        if arch == JAMBA:
+            cfg = dataclasses.replace(cfg, n_layers=JAMBA_LAYERS)
+        t0 = time.perf_counter()
+        params = nnm.init_params(models.model_defs(cfg), seed=0,
+                                 dtype=torch.bfloat16, device="cuda")
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for t in _leaves(params))
+        plan = [(d.mixer, d.ffn) for d, _ in models.lm.layers(cfg, params)]
+        n_attn = sum(m == "attn" for m, _ in plan)
+        log(f"[rec] {cfg.name}: {cfg.n_layers} layers "
+            f"{sorted(set(plan))}, d_model {cfg.d_model}, d_inner "
+            f"{cfg.d_inner}, vocab {cfg.vocab}: {n_params / 1e9:.3f} B "
+            f"params bf16 ({n_params * 2 / 1e9:.2f} GB) in "
+            f"{time.perf_counter() - t0:.1f}s")
+        by_path[f"serve_{arch}"], numbers[arch] = serve_recurrent(
+            torch, np, cfg, params, n_attn)
+        check_recurrent(torch, np, cfg, params,
+                        ("kernel", "ref") if n_attn else ("kernel",))
+        if arch == JAMBA:
+            time_mamba_scan(torch, cfg)
+            k4 = time_k4_baseline(torch, cfg)
+        else:
+            time_slstm_loop(torch, cfg, params)
+        numbers[arch]["state"] = state_bytes(torch, cfg)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    from repro_torch.core import cache as cachelib
+    latent = cachelib.bytes_per_token_latent(DL, DR)
+    phi3 = 32 * cachelib.bytes_per_token_dense(32, 96)
+    sizes = lambda d: ", ".join(f"{k} {v:,} B" for k, v in d.items()) \
+        or "none"
+    log("[rec] decode state of one request (bf16 caches), the paper's "
+        "comparison: " + "; ".join(
+            f"{a} ({'4 layers' if a == JAMBA else '24 layers'}): a cached "
+            f"token {sizes(r['state'][0])}; a request {sizes(r['state'][1])}"
+            f" ({r['tokens_per_s']:.1f} decode tokens/s, {r['step_ms']:.2f} "
+            f"ms a step, prefill {r['prefill_ms']:.1f} ms, peak "
+            f"{r['peak_gib']:.2f} GiB)" for a, r in numbers.items())
+        + f"; DeepSeek-V2's latent cache {latent * 60:,} B a token at its "
+        f"60 layers, phi3-mini-3.8b's KV cache {phi3:,} B a token")
+    by_path.update(recurrent_smoke_parity(torch, np))
+    by_path["prefill_chunked_check_phi3"] = chunked_full_width(torch, np)
+    return k4, by_path
+
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3356,6 +3826,9 @@ def main() -> int:
     rows["flash_attention_fwd"]["baseline"], base_paths = \
         baseline_families(torch, np)
     by_path.update(base_paths)
+    rows["flash_attention_fwd"]["jamba"], rec_paths = \
+        recurrent_families(torch, np)
+    by_path.update(rec_paths)
 
     csrc = "src/repro_torch/kernels/csrc/"
     meta = {"mla_decode_paged": (csrc + "mla_decode_paged.cu",

@@ -2,10 +2,11 @@
 ``skip_shapes(arch)`` -> {shape name: reason}.
 
 Port of ``repro.configs``.  Only the architectures the port can run are
-registered: MLA (DeepSeek) and the attention families (dense GQA / MQA /
-MHA with sliding windows, MoE over GQA, a VLM patch prefix).  The
-recurrent and encoder-decoder configs come with their model code
-(ROADMAP.md queue 1, item 17).
+registered: MLA (DeepSeek), the attention families (dense GQA / MQA /
+MHA with sliding windows, MoE over GQA, a VLM patch prefix) and the
+recurrent ones (Jamba's hybrid Mamba / GQA / MoE stack, xLSTM).  The
+encoder-decoder config comes with its model code (ROADMAP.md queue 1,
+item 17).
 """
 from __future__ import annotations
 
@@ -16,12 +17,14 @@ from ..models.common import ModelConfig
 from .shapes import SHAPES, Shape
 
 _MODULES: Dict[str, str] = {
+    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
     "gemma3-1b": "gemma3_1b",
     "granite-34b": "granite_34b",
     "phi3-mini-3.8b": "phi3_mini_3_8b",
     "starcoder2-7b": "starcoder2_7b",
     "deepseek-v2-236b": "deepseek_v2_236b",
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+    "xlstm-350m": "xlstm_350m",
     "internvl2-26b": "internvl2_26b",
     "deepseek-v3-671b": "deepseek_v3_671b",     # the paper's Table 1
 }

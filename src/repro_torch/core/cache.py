@@ -1,7 +1,7 @@
-"""Decode-time caches (port of the KV and MLA sections of
-``repro.core.cache``): the dense KV cache of the attention families,
-MLA's contiguous per-request latent cache and its paged block pool,
-optionally stored quantized.
+"""Decode-time caches (port of ``repro.core.cache``): the dense KV cache
+of the attention families, Mamba's recurrent state, MLA's contiguous
+per-request latent cache and its paged block pool, optionally stored
+quantized.
 
 Dense KV cache (``kv_cache``): k, v (B, S, Hkv, Dh) in the compute dtype;
 ``update_kv`` writes new tokens at ``index`` along S.
@@ -137,6 +137,28 @@ def update_kv(cache: Dict[str, torch.Tensor], k_new, v_new,
     cache["k"][:, start:start + n] = k_new.to(cache["k"].dtype)
     cache["v"][:, start:start + n] = v_new.to(cache["v"].dtype)
     return cache
+
+
+def mamba_state(batch: int, d_inner: int, d_state: int, conv_width: int,
+                dtype=torch.bfloat16,
+                device="cuda") -> Dict[str, torch.Tensor]:
+    """Decode state of one Mamba layer, zeros: conv (B, width - 1, d_inner)
+    in ``dtype`` (the last inputs of the causal conv) and ssm (B, d_inner,
+    d_state) f32.  No capacity axis: a request's state is O(1) in its
+    length."""
+    return {"conv": torch.zeros((batch, conv_width - 1, d_inner),
+                                dtype=dtype, device=device),
+            "ssm": torch.zeros((batch, d_inner, d_state),
+                               dtype=torch.float32, device=device)}
+
+
+def update_state(state: Dict[str, torch.Tensor],
+                 new: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Overwrite a recurrent layer's decode state (Mamba's, mLSTM's,
+    sLSTM's) with the one a step returned, leaf by leaf, in place."""
+    for name, t in state.items():
+        t.copy_(new[name])
+    return state
 
 
 def latent_cache(batch: int, capacity: int, kv_lora: int, rope_dim: int,

@@ -22,13 +22,17 @@ decodes one token per step for the whole batch (``make_serve_step``:
 kernel K3 for MLA under ``--impl kernel``).  ``--scheme auto`` picks rc
 / ru / seq once, for (batch, prompt + gen) on ``--platform``, and prints
 its choice; for the attention families (``--arch phi3-mini-3.8b``,
-``gemma3-1b``, ...: contiguous only, as in the reference) it resolves to
-'seq'.  A VLM (``internvl2-26b``) gets random patch embeddings, drawn
-as the reference draws them: ``runtime.prng``'s normal * 0.02 under the
-second key of split(PRNGKey(seed + 1)).
+``gemma3-1b``, ...: contiguous only, as in the reference) and the
+recurrent ones (``jamba-1.5-large-398b``, Mamba / GQA / MoE;
+``xlstm-350m``, mLSTM / sLSTM: their decode state is O(1) a request) it
+resolves to 'seq'.  A VLM (``internvl2-26b``) gets random patch
+embeddings, drawn as the reference draws them: ``runtime.prng``'s normal
+* 0.02 under the second key of split(PRNGKey(seed + 1)).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \
         --smoke --impl kernel --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch jamba-1.5-large-398b --smoke --impl chunked --device cpu
 
 ``--paged`` (MLA models only; another arch raises ``NotImplementedError:
 PagedMLAEngine requires an MLA model``) serves the batch as a request
@@ -46,8 +50,11 @@ before the first request.
   --gen N             tokens generated per request
   --scheme S          auto | naive | seq | rc | ru
   --platform P        hwmodel platform auto_dispatch prices against
-  --impl I            attention: 'ref' (dense / gathered view) or 'kernel'
-                      (the CUDA kernels; their plain versions on CPU)
+  --impl I            attention: 'ref' (dense / gathered view), 'chunked'
+                      (the contiguous prefill in core.chunked_attention's
+                      block-pair walk; the paged engines refuse it) or
+                      'kernel' (the CUDA kernels; their plain versions on
+                      CPU)
   --seed N            weight init and prompts
   --device D          cuda (default) or cpu
 
@@ -332,7 +339,8 @@ def main(argv: Optional[List[str]] = None):
     ap.add_argument("--scheme", default="auto",
                     choices=("auto", "naive", "seq", "rc", "ru"))
     ap.add_argument("--platform", default="h100", choices=sorted(PLATFORMS))
-    ap.add_argument("--impl", default="ref", choices=("ref", "kernel"))
+    ap.add_argument("--impl", default="ref",
+                    choices=("ref", "chunked", "kernel"))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--block-size", type=int, default=16)
     ap.add_argument("--num-blocks", type=int, default=0,

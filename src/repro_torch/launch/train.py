@@ -5,6 +5,8 @@
         --smoke --steps 20 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch internvl2-26b \\
         --smoke --steps 20 --impl kernel --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-350m \\
+        --smoke --steps 20 --seq 64 --impl chunked --device cpu
 
   --arch / --smoke    model config (``--smoke``: the tiny CI config); any
                       registered config (``repro_torch.configs.ARCHS``)
@@ -14,8 +16,10 @@
   --ckpt-dir D        checkpoint directory (auto-resume from it; default
                       under the temporary directory, per config)
   --ckpt-every N      steps between checkpoints
-  --impl I            attention: 'ref' (dense) or 'kernel' (the flash
-                      attention CUDA kernels; their plain versions on CPU)
+  --impl I            attention: 'ref' (dense), 'chunked' (the block-pair
+                      walk of core.chunked_attention) or 'kernel' (the
+                      flash attention CUDA kernels; their plain versions
+                      on CPU)
   --scheme S          MLA execution scheme: only 'seq' (training runs MLA
                       in MHA mode)
   --microbatches N    gradient accumulation
@@ -75,7 +79,8 @@ def main(argv: Optional[List[str]] = None):
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=50)
-    ap.add_argument("--impl", default="ref", choices=("ref", "kernel"))
+    ap.add_argument("--impl", default="ref",
+                    choices=("ref", "chunked", "kernel"))
     ap.add_argument("--scheme", default="seq", choices=("seq",))
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--fail-at", type=int, default=None)

@@ -1,5 +1,6 @@
 """Model API of the port (serving and training of decoder-only models:
-MLA, contiguous and paged, and the attention families, contiguous):
+MLA, contiguous and paged; the attention families and the recurrent ones,
+Jamba and xLSTM, contiguous):
 
     model_defs(cfg)                                   param definitions
     forward(params, cfg, tokens, embeds=..., ...)     -> logits, aux

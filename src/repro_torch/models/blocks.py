@@ -7,15 +7,17 @@
                                                   contiguous cache
     sub_paged_cache(cfg, desc, ..., device)  -> this sublayer's paged pool
 
-Ported mixers: MLA attention and the attention families (dense MHA /
-GQA / MQA with an optional sliding window), each with a dense or MoE
-FFN.  Modes: 'train' and 'prefill' over the whole sequence (attention
-dense with ``impl='ref'``, in the flash-attention kernels with
-``impl='kernel'``; 'prefill' also returns a contiguous cache: MLA's
-latent cache, the others' KV cache), 'decode' (contiguous when
-``ctx.lengths`` is None, else paged, MLA only) and 'prefill_chunk'
-(paged, MLA only).  The recurrent mixers (mamba, mlstm, slstm) raise
-``NotImplementedError``.
+Mixers: MLA attention, the attention families (dense MHA / GQA / MQA
+with an optional sliding window) and the recurrent mixers (Mamba, mLSTM,
+sLSTM), each with a dense, MoE or no FFN.  Modes: 'train' and 'prefill'
+over the whole sequence (attention dense with ``impl='ref'``, in
+``core.chunked_attention``'s block-pair walk with ``impl='chunked'``, in
+the flash-attention kernels with ``impl='kernel'``; the recurrent mixers
+ignore ``impl``; 'prefill' also returns the decode state: MLA's latent
+cache, the others' KV cache, a recurrent layer's state), 'decode'
+(contiguous when ``ctx.lengths`` is None, else paged, MLA only) and
+'prefill_chunk' (paged, MLA only).  Contiguous decode updates every
+cache and state in place.
 """
 from __future__ import annotations
 
@@ -27,22 +29,35 @@ import torch
 from ..core import cache as cachelib
 from ..core import mla as mlalib
 from ..core.attention import gqa_attention, gqa_decode
+from ..core.chunked_attention import chunked_attention_pairs
 from ..kernels import ops as kops
 from ..nn import layers as nl
 from ..nn.module import P
+from . import mamba as mambalib
 from . import moe as moelib
+from . import xlstm as xlstmlib
 from .common import ModelConfig, Sub
 
 MODES = ("decode", "prefill_chunk", "prefill", "train")
-UNPORTED_MIXERS = ("mamba", "mlstm", "slstm")
-# engine/model ``impl`` -> the attention path of core.mla
-_MLA_IMPL = {"ref": "gather", "kernel": "kernel"}
+IMPLS = ("ref", "chunked", "kernel")
+# engine/model ``impl`` -> the decode / chunk attention path of core.mla
+# (the reference's '_mla_step' and '_mla_chunk' gather under 'chunked')
+_MLA_IMPL = {"ref": "gather", "chunked": "gather", "kernel": "kernel"}
+# recurrent mixer -> (defs, sequence forward, decode step)
+_RECURRENT = {
+    "mamba": (mambalib.mamba_defs, mambalib.mamba_forward,
+              mambalib.mamba_step),
+    "mlstm": (xlstmlib.mlstm_defs, xlstmlib.mlstm_forward,
+              xlstmlib.mlstm_step),
+    "slstm": (xlstmlib.slstm_defs, xlstmlib.slstm_forward,
+              xlstmlib.slstm_step),
+}
 
 
 @dataclasses.dataclass
 class Ctx:
     mode: str                       # decode | prefill_chunk | prefill | train
-    impl: str = "ref"               # attention impl: 'ref' | 'kernel'
+    impl: str = "ref"               # attention impl, one of IMPLS
     scheme: str = "seq"             # MLA execution scheme
     positions: Any = None           # (B, L) int — train / prefill
     cache: Optional[Dict] = None    # this sublayer's cache or paged pool
@@ -54,11 +69,7 @@ class Ctx:
 
 
 def _check_mixer(desc: Sub) -> None:
-    if desc.mixer in UNPORTED_MIXERS:
-        raise NotImplementedError(
-            f"mixer {desc.mixer!r} is not ported yet (the recurrent "
-            f"families: ROADMAP.md queue 1, item 17)")
-    if desc.mixer != "attn":
+    if desc.mixer != "attn" and desc.mixer not in _RECURRENT:
         raise ValueError(desc.mixer)
 
 
@@ -77,7 +88,9 @@ def _attn_defs(cfg: ModelConfig) -> Dict:
 
 def sub_defs(cfg: ModelConfig, desc: Sub, d_ff: Optional[int] = None) -> Dict:
     _check_mixer(desc)
-    d: Dict = {"ln1": nl.rmsnorm_defs(cfg.d_model), "attn": _attn_defs(cfg)}
+    mixer = _attn_defs(cfg) if desc.mixer == "attn" else \
+        _RECURRENT[desc.mixer][0](cfg)
+    d: Dict = {"ln1": nl.rmsnorm_defs(cfg.d_model), "attn": mixer}
     if desc.ffn != "none":
         d["ln2"] = nl.rmsnorm_defs(cfg.d_model)
         if desc.ffn == "moe":
@@ -91,9 +104,16 @@ def sub_defs(cfg: ModelConfig, desc: Sub, d_ff: Optional[int] = None) -> Dict:
 def sub_cache(cfg: ModelConfig, desc: Sub, batch: int, capacity: int,
               dtype=torch.bfloat16, device="cuda") -> Dict:
     """Contiguous decode state of one sublayer: its (B, S) latent cache
-    (MLA) or KV cache.  A windowed layer's capacity is min(capacity,
-    cfg.max_seq), as in the reference."""
+    (MLA) or KV cache, or a recurrent layer's state (no capacity axis;
+    Mamba's conv state in ``dtype``, the rest f32).  A windowed layer's
+    capacity is min(capacity, cfg.max_seq), as in the reference."""
     _check_mixer(desc)
+    if desc.mixer == "mamba":
+        return mambalib.mamba_state_init(cfg, batch, dtype, device)
+    if desc.mixer == "mlstm":
+        return xlstmlib.mlstm_state_init(cfg, batch, device)
+    if desc.mixer == "slstm":
+        return xlstmlib.slstm_state_init(cfg, batch, device)
     if cfg.attn_kind == "mla":
         return cachelib.latent_cache(batch, capacity, cfg.kv_lora_rank,
                                      cfg.qk_rope_dim, dtype, device)
@@ -123,11 +143,9 @@ AUX_KEYS = ("balance", "z_loss", "dropped_frac")
 
 
 def _check_seq_impl(ctx: Ctx) -> None:
-    if ctx.impl not in ("ref", "kernel"):
+    if ctx.impl not in IMPLS:
         raise NotImplementedError(
-            f"{ctx.mode} impl {ctx.impl!r}: the port runs 'ref' or "
-            f"'kernel'; 'chunked' comes with core/chunked_attention.py "
-            f"(ROADMAP.md queue 1, item 17)")
+            f"{ctx.mode} impl {ctx.impl!r}: the port runs {IMPLS}")
 
 
 def _flash(q, k, v, desc: Sub, softmax_scale=None):
@@ -145,7 +163,6 @@ def _gqa_seq(params, cfg: ModelConfig, desc: Sub, x, ctx: Ctx):
     normalized input.  Returns (out, cache): in 'prefill' mode a KV cache
     of ``ctx.capacity`` (or L) positions holding the L entries, else
     None."""
-    _check_seq_impl(ctx)
     B, L, _ = x.shape
     q = torch.einsum("bld,dhk->blhk", x, params["w_q"].to(x.dtype))
     k = torch.einsum("bld,dhk->blhk", x, params["w_k"].to(x.dtype))
@@ -154,6 +171,9 @@ def _gqa_seq(params, cfg: ModelConfig, desc: Sub, x, ctx: Ctx):
     k = nl.apply_rope(k, ctx.positions, desc.rope_base)
     if ctx.impl == "kernel":
         o = _flash(q, k, v, desc)
+    elif ctx.impl == "chunked":
+        o = chunked_attention_pairs(q, k, v, desc.causal, desc.window, 0,
+                                    None)
     else:
         o = gqa_attention(q, k, v, causal=desc.causal, window=desc.window,
                           q_positions=ctx.positions[0],
@@ -187,11 +207,14 @@ def _mla_seq(params, cfg: ModelConfig, desc: Sub, x, ctx: Ctx):
     x: (B, L, D) normalized input.  Returns (out, cache): in 'prefill'
     mode a contiguous latent cache of ``ctx.capacity`` (or L) positions
     holding the L entries, else None."""
-    _check_seq_impl(ctx)
     attn_fn = None
     if ctx.impl == "kernel":
         def attn_fn(q, k, v, softmax_scale):
             return _flash(q, k, v, desc, softmax_scale)
+    elif ctx.impl == "chunked":
+        def attn_fn(q, k, v, softmax_scale):
+            return chunked_attention_pairs(q, k, v, desc.causal,
+                                           desc.window, 0, softmax_scale)
     mcfg = cfg.mla_config()
     prefill = ctx.mode == "prefill"
     out, entries = mlalib.mla_prefill(params, mcfg, x, ctx.positions,
@@ -222,17 +245,30 @@ def _mla_mixer(params, cfg: ModelConfig, desc: Sub, h, ctx: Ctx):
         impl=_MLA_IMPL[ctx.impl])
 
 
+def _recurrent_mixer(params, cfg: ModelConfig, desc: Sub, h, ctx: Ctx):
+    """A Mamba / mLSTM / sLSTM mixer: the sequence forward (returning the
+    decode state in 'prefill' mode) or one decode step, whose new state
+    overwrites ``ctx.cache`` in place."""
+    _, forward, step = _RECURRENT[desc.mixer]
+    if ctx.mode == "decode":
+        a, new = step(params, cfg, h, ctx.cache)
+        return a, cachelib.update_state(ctx.cache, new)
+    return forward(params, cfg, h, return_state=ctx.mode == "prefill")
+
+
 def sub_apply(params, cfg: ModelConfig, desc: Sub, x, ctx: Ctx):
     """x: (B, D) for decode, (B, C, D) for prefill_chunk, (B, L, D) for
     train and prefill.  Returns (x, cache, aux) — aux holds f32 scalars
-    (zeros without a router); cache is the new contiguous cache in
-    prefill mode, the updated cache or pool in the decode modes, None in
-    train mode."""
+    (zeros without a router); cache is the new contiguous cache or state
+    in prefill mode, the updated cache, state or pool in the decode
+    modes, None in train mode."""
     _check_mixer(desc)
     if ctx.mode not in MODES:
         raise NotImplementedError(
             f"mode {ctx.mode!r}: the port runs {MODES} only (ROADMAP.md)")
-    mla = cfg.attn_kind == "mla"
+    if ctx.mode in ("train", "prefill"):
+        _check_seq_impl(ctx)
+    mla = desc.mixer == "attn" and cfg.attn_kind == "mla"
     if ctx.mode == "prefill_chunk" and not mla:
         raise NotImplementedError(
             "chunked paged prefill requires MLA attention sublayers")
@@ -242,6 +278,8 @@ def sub_apply(params, cfg: ModelConfig, desc: Sub, x, ctx: Ctx):
     h = nl.rmsnorm(params["ln1"], x, cfg.norm_eps)
     if mla:
         a, pool = _mla_mixer(params["attn"], cfg, desc, h, ctx)
+    elif desc.mixer != "attn":
+        a, pool = _recurrent_mixer(params["attn"], cfg, desc, h, ctx)
     else:
         fn = _gqa_step if ctx.mode == "decode" else _gqa_seq
         a, pool = fn(params["attn"], cfg, desc, h, ctx)

@@ -154,3 +154,17 @@ class ModelConfig:
         if n_periods <= 1:
             return prefix + rest, [], 0, []
         return prefix, period, n_periods, suffix
+
+
+def chunk_len(L: int, chunk: int) -> int:
+    """The reference's chunking of a recurrent scan over L positions:
+    n = max(1, L // chunk) chunks of c = L // n positions.  Where n * c
+    != L the reference's reshape fails (ROADMAP.md queue 3); raise there
+    as it does instead of padding.  Returns c."""
+    n = max(1, L // chunk)
+    c = L // n
+    if n * c != L:
+        raise ValueError(f"a scan over {L} positions does not split into "
+                         f"{n} chunks of {c} (chunk {chunk}): the "
+                         f"reference cannot reshape it either")
+    return c

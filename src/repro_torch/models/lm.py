@@ -1,6 +1,8 @@
 """Decoder-only LM for serving and training (port of
-``repro.models.lm``): MLA models and the attention families (dense GQA /
-MQA / MHA, MoE over GQA, a VLM's patch prefix).
+``repro.models.lm``): MLA models, the attention families (dense GQA /
+MQA / MHA, MoE over GQA, a VLM's patch prefix) and the recurrent ones
+(Jamba's periods of Mamba and GQA layers with dense and MoE FFNs, xLSTM's
+mLSTM / sLSTM stack).
 
 Layer stack = prefix + periods + suffix of ``ModelConfig.layer_plan``.
 The JAX package scans each period over stacked weights; the port keeps one
@@ -193,9 +195,11 @@ def prefill(params, cfg: ModelConfig, tokens, *, embeds=None,
     tokens: (B, L_text); embeds: (B, P, D) modality prefix or None, so L
     = P + L_text positions are cached.  Runs the whole prompt (MLA in
     MHA mode; the attention dense under 'ref', in the flash-attention
-    forward kernel under 'kernel') and returns (last-token logits (B,
-    V), a contiguous cache tree of ``capacity`` (default L) positions
-    holding the L entries: latent caches for MLA, KV caches otherwise),
+    forward kernel under 'kernel', block pair by block pair under
+    'chunked') and returns (last-token logits (B, V), a contiguous cache
+    tree of ``capacity`` (default L) positions holding the L entries:
+    latent caches for MLA, KV caches for the other attention layers, and
+    each recurrent layer's state after the L positions),
     for :func:`decode_step_contiguous`, whose ``index`` then counts the
     P cached patches too.  ``scheme`` matters at MLA decode only."""
     x = _embed(params, cfg, tokens, compute_dtype, embeds)
@@ -295,7 +299,8 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int,
                dtype=torch.bfloat16, device="cuda") -> Dict:
     """Contiguous cache tree laid out like the layers of :func:`lm_defs`:
     one (batch, capacity, .) latent cache per MLA layer, one KV cache per
-    other attention layer (a windowed layer's capped at cfg.max_seq)."""
+    other attention layer (a windowed layer's capped at cfg.max_seq), one
+    state without a capacity axis per recurrent layer."""
     return _layout(cfg, lambda d: sub_cache(cfg, d, batch, capacity, dtype,
                                             device))
 

@@ -1,5 +1,5 @@
-"""Base layers: dense, RMS norm, embedding, RoPE, MLPs (port of
-``repro.nn.layers``).
+"""Base layers: dense, RMS norm, embedding, RoPE, MLPs, the causal
+depthwise conv of Mamba (port of ``repro.nn.layers``).
 
 Every layer is a (defs, apply) pair of plain functions; params are the
 nested dicts produced by ``module.init_params``.  Layouts are the JAX
@@ -115,3 +115,38 @@ def mlp(params, x, kind: str = "swiglu"):
     h = dense(params["wi"], x)
     h = F.gelu(h, approximate="tanh")
     return dense(params["wo"], h)
+
+
+# -------------------------------------------------- causal depthwise conv ---
+
+
+def causal_conv1d_defs(channels: int, width: int):
+    return {"w": P((width, channels), (None, "mlp"), init="fan_in"),
+            "b": P((channels,), ("mlp",), init="zeros")}
+
+
+def causal_conv1d(params, x):
+    """x: (B, L, C) -> (B, L, C), causal depthwise conv in x's dtype: the
+    taps are added one by one, oldest first, as the reference does."""
+    w, b = params["w"], params["b"]
+    width, L = w.shape[0], x.shape[1]
+    pad = F.pad(x, (0, 0, width - 1, 0))
+    out = torch.zeros_like(x)
+    for k in range(width):
+        out = out + w[k].to(x.dtype) * pad[:, k:k + L]
+    return out + b.to(x.dtype)
+
+
+def causal_conv1d_step(params, x_t, conv_state):
+    """One decode step.  x_t: (B, C); conv_state: (B, width - 1, C), the
+    last inputs.  The window's f32 products are summed oldest first, each
+    add a fused multiply-add (one rounding a tap), as the reference's
+    einsum accumulates; the sum rounds to x_t's dtype.  Returns (out (B,
+    C), the new conv state)."""
+    w, b = params["w"], params["b"]
+    window = torch.cat([conv_state, x_t[:, None, :]], dim=1)  # (B, W, C)
+    out = window[:, 0].float() * w[0].float()
+    for k in range(1, w.shape[0]):
+        # an f32 x f32 product is exact in f64: the add rounds once
+        out = (out.double() + window[:, k].double() * w[k].double()).float()
+    return out.to(x_t.dtype) + b.to(x_t.dtype), window[:, 1:, :]

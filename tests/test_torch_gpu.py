@@ -21,7 +21,8 @@ and without graphs, their K1 / K2 launches counted through replays.
 K4 (and K5 / K6) run at the attention families' shapes (G = 9, head dim
 96, MQA at head dim 256 with a 512-position window), and GQA smoke
 models give the same greedy tokens and gradients on the kernel path as
-on the dense one.
+on the dense one; so does the Jamba smoke model (Mamba, GQA, MoE), and
+the 'chunked' impl's block-pair walk agrees with the flash kernels.
 
 Every test here is marked ``gpu`` and skips without a CUDA device (the
 kernels have no CPU mode); on a machine with one:
@@ -1332,3 +1333,79 @@ def test_gqa_smoke_train_step_kernel_matches_ref_on_card(arch):
     _, _, m = step(params, optim.adamw_init(params, opt),
                    {"tokens": toks, "labels": labels})
     assert np.isfinite(float(m["loss"]))
+
+
+# ------------------------------------------------ the recurrent families --
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chunked_attention_matches_kernel_on_card(dtype):
+    """``core.chunked_attention``'s block-pair walk (plain PyTorch on the
+    card) against the flash Function (K4 forward, K5 / K6 backward) at a
+    small width: GQA over 2 kv heads, causal with a window and without,
+    a ragged length, blocks of 32; out and the q / k / v gradients held
+    row by row (f32 1e-4; bf16 ``FLASH_ROW_TOL``: both round P to bf16,
+    in other places)."""
+    from repro_torch.core.chunked_attention import chunked_attention_pairs
+    from repro_torch.kernels import ops as kops
+
+    dev = _cuda()
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    tol = FLASH_ROW_TOL[dtype]
+    for window in (None, 40):
+        q, k, v, do = (torch.randn((2, 100, h, 64), generator=g,
+                                   device=dev).to(dtype)
+                       for h in (6, 2, 2, 6))
+        outs = []
+        for fn in ("chunked", "kernel"):
+            qq, kk, vv = (t.clone().requires_grad_(True) for t in (q, k, v))
+            if fn == "chunked":
+                o = chunked_attention_pairs(qq, kk, vv, True, window, 0,
+                                            None, block_q=32, block_k=32)
+            else:
+                o = kops.attention(
+                    qq.transpose(1, 2), kk.transpose(1, 2),
+                    vv.transpose(1, 2), impl="kernel", causal=True,
+                    window=window).transpose(1, 2)
+            outs.append([o.detach()] + list(torch.autograd.grad(
+                o, (qq, kk, vv), do)))
+        for got, want in zip(*outs):
+            _row_close(got, want, tol)
+
+
+def test_jamba_smoke_kernel_matches_ref_on_card():
+    """The Jamba smoke model (16 layers: mamba, two GQA attention layers,
+    MoE at drop-free capacity), f32: the contiguous serve's greedy tokens
+    under 'kernel' and 'chunked' equal 'ref''s, K4 launched once an
+    attention layer; one train step's loss within 1e-5 and every leaf's
+    gradient within 1e-4 relative L2 of 'ref''s, K4 / K5 / K6 once an
+    attention layer.  Seed 5: the load's smallest top-1 / top-2 logit
+    margin is 3.3e-3 (CPU)."""
+    from repro_torch.launch.serve import serve_contiguous
+
+    cfg, params = _gqa_smoke("jamba-1.5-large-398b", 5)
+    n_attn = 2
+    toks = {}
+    for impl in ("ref", "chunked", "kernel"):
+        before = tfa.flash_fwd_kernel.launches
+        toks[impl] = serve_contiguous(
+            cfg, params, batch=4, prompt_len=48, gen=12, impl=impl, seed=5,
+            compute_dtype=torch.float32, device="cuda",
+            log=lambda _: None)["tokens"]
+        assert tfa.flash_fwd_kernel.launches - before == \
+            (n_attn if impl == "kernel" else 0)
+    np.testing.assert_array_equal(toks["kernel"], toks["ref"])
+    np.testing.assert_array_equal(toks["chunked"], toks["ref"])
+    rng = np.random.default_rng(3)
+    tk = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 256))).cuda()
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 256))).cuda()
+    kernels = (tfa.flash_fwd_kernel, tfa.flash_bwd_dq_kernel,
+               tfa.flash_bwd_dkv_kernel)
+    before = [kern.launches for kern in kernels]
+    out = _kernel_vs_ref_grads(cfg, params, tk, labels, torch.float32)
+    assert [kern.launches - b for kern, b in zip(kernels, before)] == \
+        [n_attn] * 3
+    assert out["kernel"][0] == pytest.approx(out["ref"][0], rel=1e-5)
+    for a, b in zip(out["kernel"][1], out["ref"][1]):
+        assert torch.isfinite(a).all() and _rel_l2(a, b) <= 1e-4

@@ -31,6 +31,7 @@ import repro.models as jmodels
 from repro.core import attention as jattn
 from repro.core import cache as jcache
 from repro.models import blocks as jblocks
+from repro.nn import module as jnnm
 from repro.runtime import lm_loss as jlm_loss
 import repro_torch.configs as tconfigs
 import repro_torch.models as tmodels
@@ -39,6 +40,7 @@ from repro_torch.core import cache as tcache
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import train as tlaunch
 from repro_torch.models import blocks as tblocks
+from repro_torch.nn import module as tnnm
 from repro_torch.optim import adamw as tadamw
 from repro_torch.runtime import lm_loss, make_prefill_step, make_serve_step
 from repro_torch.runtime import prng
@@ -134,10 +136,12 @@ def test_shapes_and_registry_match_jax():
         == {k: dataclasses.asdict(v) for k, v in jconfigs.SHAPES.items()}
     for arch in ("deepseek-v2-236b", "deepseek-v3-671b"):
         assert tconfigs.skip_shapes(arch) == jconfigs.skip_shapes(arch)
-    # the recurrent and encoder-decoder families stay unregistered
-    for arch in ("jamba-1.5-large-398b", "xlstm-350m", "whisper-medium"):
-        with pytest.raises(KeyError):
-            tconfigs.full(arch)
+    # the encoder-decoder family stays unregistered; the recurrent ones
+    # are registered (tests/test_torch_recurrent.py)
+    with pytest.raises(KeyError):
+        tconfigs.full("whisper-medium")
+    for arch in ("jamba-1.5-large-398b", "xlstm-350m"):
+        assert tconfigs.skip_shapes(arch) == jconfigs.skip_shapes(arch)
 
 
 # ------------------------------------------------------------ KV cache ---
@@ -244,9 +248,9 @@ def test_gqa_sublayer_refuses_what_the_port_does_not_run():
     p = tp["period"][0]["s0"]
     x = torch.zeros((1, 4, tcfg.d_model))
     pos = torch.arange(4)[None]
-    with pytest.raises(NotImplementedError, match="chunked"):
+    with pytest.raises(NotImplementedError, match="'pallas'"):
         tblocks.sub_apply(p, tcfg, desc, x, tblocks.Ctx(
-            mode="train", positions=pos, impl="chunked"))
+            mode="train", positions=pos, impl="pallas"))
     with pytest.raises(NotImplementedError,
                        match="chunked paged prefill requires MLA"):
         tblocks.sub_apply(p, tcfg, desc, x, tblocks.Ctx(mode="prefill_chunk"))
@@ -257,9 +261,19 @@ def test_gqa_sublayer_refuses_what_the_port_does_not_run():
 
 @pytest.mark.parametrize("mixer", ["mamba", "mlstm", "slstm"])
 def test_recurrent_mixers_point_at_the_roadmap(mixer):
-    cfg = tconfigs.smoke("phi3-mini-3.8b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tblocks.sub_defs(cfg, tmodels.Sub(mixer=mixer))
+    """The recurrent mixers are ported (ROADMAP.md queue 1, item 17;
+    their parity: tests/test_torch_recurrent.py): a sublayer of each
+    built on an attention family's config has the JAX package's
+    parameter definitions, leaf for leaf; a mixer neither package has
+    raises."""
+    jcfg = jconfigs.smoke("phi3-mini-3.8b")
+    tcfg = tconfigs.smoke("phi3-mini-3.8b")
+    desc = tmodels.Sub(mixer=mixer)
+    kind = lambda _, p: (p.shape, p.axes, p.init, p.scale)
+    assert tnnm.map_defs(kind, tblocks.sub_defs(tcfg, desc)) == \
+        jnnm.map_defs(kind, jblocks.sub_defs(jcfg, desc))
+    with pytest.raises(ValueError, match="gru"):
+        tblocks.sub_defs(tcfg, tmodels.Sub(mixer="gru"))
 
 
 def test_windowed_layer_cache_capacity_is_capped_at_max_seq():
