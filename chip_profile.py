@@ -10,7 +10,9 @@ one CUDA card:
     python3 chip_profile.py contiguous    # contiguous serving
     python3 chip_profile.py contiguous phi3-mini-3.8b   # ... of phase 10's
     python3 chip_profile.py contiguous gemma3-1b        # baseline families
+    python3 chip_profile.py contiguous whisper-medium   # phase 12's serve
     python3 chip_profile.py train         # training
+    python3 chip_profile.py train whisper-medium        # phase 12's
     python3 chip_profile.py flash         # K4-K6's time, by ablation
 
 Builds the same model (DeepSeek-V2 widths, 4 layers, random bf16 weights,
@@ -36,7 +38,11 @@ then one under ``torch.profiler`` with a span around the prefill step
 registered arch of the attention families (``phi3-mini-3.8b``,
 ``gemma3-1b``: phase 10's, at full width and full depth, random bf16
 weights), it runs the same load on that model, with a span around each
-layer's ``gqa_decode`` call (``gqa_decode``) as well.
+layer's ``gqa_decode`` call (``gqa_decode``) as well.  With
+``whisper-medium`` (full width and depth) it runs phase 12's load
+instead (batch 8 x 256 prompt tokens over 1,500 frames, 64 generated):
+the ``prefill`` span holds the encoder, and each decode step's
+``gqa_decode`` spans both the self- and the cross-attention.
 
 ``train`` builds phase 6's model (DeepSeek-V2 widths cut to 2 layers,
 bf16 params, f32 Adam moments, batch 2 x 4096, the config's MoE
@@ -45,7 +51,9 @@ an untraced step, then one step under ``torch.profiler`` with spans
 around the loss forward (``lm_loss``) and the optimizer
 (``adamw_update``); the backward runs on autograd's own threads, outside
 any span.  Prints the device busy share of the traced step and device
-time by kernel.
+time by kernel.  ``train whisper-medium`` profiles phase 12's training
+step instead (full width and depth, batch 2 x 448 tokens over 1,500
+frames, dense loss).
 
 Every mode ends with the port's kernels summed by name
 (``KERNEL_GROUPS``): MLA decode (K1 / K3) and MLA prefill (K2), each with
@@ -336,7 +344,7 @@ def report(torch, prof, wall, spans) -> int:
     return 0
 
 
-def train_profile() -> int:
+def train_profile(arch: str = "deepseek-v2-236b") -> int:
     import dataclasses
 
     import torch
@@ -345,6 +353,7 @@ def train_profile() -> int:
     import chip_smoke
     from repro_torch import configs, models
     from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.train import batch_maker
     from repro_torch.nn import module as nnm
     from repro_torch.optim import AdamWConfig, adamw_init, cosine
     from repro_torch.runtime import TrainStepConfig, make_train_step
@@ -352,14 +361,19 @@ def train_profile() -> int:
 
     print(f"[card] {chip_smoke.card_line()}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = dataclasses.replace(configs.full("deepseek-v2-236b"),
-                              n_layers=chip_smoke.TRAIN_LAYERS)
+    cfg = configs.full(arch)
+    if cfg.family == "encdec":         # phase 12's training load
+        batch_size, seq, loss_chunk = chip_smoke.WTB, chip_smoke.WTL, 0
+    else:                              # phase 6's
+        cfg = dataclasses.replace(cfg, n_layers=chip_smoke.TRAIN_LAYERS)
+        batch_size, seq, loss_chunk = chip_smoke.TB, chip_smoke.TL, 1024
     params = nnm.init_params(models.model_defs(cfg), seed=0,
                              dtype=torch.bfloat16, device="cuda")
     opt_cfg = AdamWConfig(lr=cosine(3e-4, warmup=20, total=100))
     opt = adamw_init(params, opt_cfg)
-    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=chip_smoke.TL,
-                                  global_batch=chip_smoke.TB, seed=0))
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                  global_batch=batch_size, seed=0))
+    make_batch = batch_maker(cfg, "cuda", torch.bfloat16)
 
     def spanned(name, fn):
         def call(*args, **kw):
@@ -371,12 +385,10 @@ def train_profile() -> int:
     steps_mod.lm_loss = spanned("lm_loss", plain[0])
     steps_mod.adamw_update = spanned("adamw_update", plain[1])
     step = make_train_step(cfg, opt_cfg, TrainStepConfig(
-        compute_dtype=torch.bfloat16, impl="kernel", loss_chunk=1024))
+        compute_dtype=torch.bfloat16, impl="kernel", loss_chunk=loss_chunk))
 
     def run():
-        toks, labels = data.next_batch()
-        batch = {"tokens": torch.as_tensor(toks, device="cuda"),
-                 "labels": torch.as_tensor(labels, device="cuda")}
+        batch = make_batch(*data.next_batch())
         nonlocal params, opt
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -387,8 +399,8 @@ def train_profile() -> int:
     try:
         run()                                 # warm-up
         loss, wall = run()
-        print(f"[untraced] step {wall * 1e3:.1f} ms, loss {loss:.4f}, "
-              f"{chip_smoke.TB * chip_smoke.TL / wall:.0f} tokens/s",
+        print(f"[untraced] {cfg.name}, step {wall * 1e3:.1f} ms, loss "
+              f"{loss:.4f}, {batch_size * seq / wall:.0f} tokens/s",
               flush=True)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -409,7 +421,7 @@ def contiguous_profile(arch: str = "deepseek-v2-236b") -> int:
     import chip_smoke
     from repro_torch import configs, models
     from repro_torch.launch import serve as serve_mod
-    from repro_torch.models import blocks
+    from repro_torch.models import blocks, whisper
     from repro_torch.nn import module as nnm
 
     print(f"[card] {chip_smoke.card_line()}", flush=True)
@@ -419,10 +431,13 @@ def contiguous_profile(arch: str = "deepseek-v2-236b") -> int:
     print(f"[model] {cfg.name}, {cfg.n_layers} layers", flush=True)
     params = nnm.init_params(models.model_defs(cfg), seed=0,
                              dtype=torch.bfloat16, device="cuda")
-    kw = dict(batch=chip_smoke.B, prompt_len=chip_smoke.PROMPT,
-              gen=chip_smoke.GEN, scheme="auto", platform="h100",
-              impl="kernel", compute_dtype=torch.bfloat16, device="cuda",
-              log=lambda _: None)
+    if cfg.family == "encdec":       # phase 12's load
+        batch, prompt, gen = chip_smoke.WB, chip_smoke.WPROMPT, chip_smoke.WGEN
+    else:
+        batch, prompt, gen = chip_smoke.B, chip_smoke.PROMPT, chip_smoke.GEN
+    kw = dict(batch=batch, prompt_len=prompt, gen=gen, scheme="auto",
+              platform="h100", impl="kernel", compute_dtype=torch.bfloat16,
+              device="cuda", log=lambda _: None)
 
     def run():
         t0 = time.perf_counter()
@@ -444,7 +459,7 @@ def contiguous_profile(arch: str = "deepseek-v2-236b") -> int:
     steps = res["decode_steps"]
     print(f"[untraced] scheme '{res['scheme']}', prefill "
           f"{res['prefill_s'] * 1e3:.1f} ms, decode "
-          f"{steps * chip_smoke.B / res['decode_s']:.1f} tokens/s "
+          f"{steps * batch / res['decode_s']:.1f} tokens/s "
           f"({res['decode_s'] * 1e3 / steps:.2f} ms a step), whole run "
           f"{wall:.3f} s", flush=True)
     plain = (serve_mod.make_prefill_step, serve_mod.make_serve_step,
@@ -455,7 +470,7 @@ def contiguous_profile(arch: str = "deepseek-v2-236b") -> int:
     def gqa_decode(*a, **k):
         with record_function("gqa_decode"):
             return plain[2](*a, **k)
-    blocks.gqa_decode = gqa_decode
+    blocks.gqa_decode = whisper.gqa_decode = gqa_decode
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -464,6 +479,7 @@ def contiguous_profile(arch: str = "deepseek-v2-236b") -> int:
     finally:
         (serve_mod.make_prefill_step, serve_mod.make_serve_step,
          blocks.gqa_decode) = plain
+        whisper.gqa_decode = plain[2]
     print(f"[traced] whole run {traced:.3f} s (tracing cost "
           f"{traced - wall:+.3f} s), prefill {res['prefill_s'] * 1e3:.1f} ms, "
           f"decode {res['decode_s'] * 1e3 / steps:.2f} ms a step",
@@ -481,8 +497,8 @@ def main() -> int:
         print("chip_profile: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.join(HERE, "src"))
-    if sys.argv[1:] == ["train"]:
-        return train_profile()
+    if sys.argv[1:2] == ["train"] and len(sys.argv) <= 3:
+        return train_profile(*sys.argv[2:])
     if sys.argv[1:2] == ["contiguous"] and len(sys.argv) <= 3:
         return contiguous_profile(*sys.argv[2:])
     if sys.argv[1:] == ["flash"]:

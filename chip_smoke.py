@@ -167,7 +167,7 @@ Phases, each printing its own lines; any failure exits non-zero:
      contiguous serve, ``impl='kernel'`` identical to ``'ref'``, and one
      train step's loss and per-leaf gradients kernel against ref (f32,
      within ``GQA_GRAD_REL``);
- 11. the recurrent families (run last): (a) jamba-1.5-large-398b at full
+ 11. the recurrent families: (a) jamba-1.5-large-398b at full
      width cut to its first 4 layers (mamba + dense, mamba + MoE, mamba +
      dense, attention + MoE; ~23 B params) and (b) xlstm-350m at full
      width and depth (21 mLSTM + 3 sLSTM), random bf16 weights, served as
@@ -187,13 +187,37 @@ Phases, each printing its own lines; any failure exits non-zero:
      within ``GQA_GRAD_REL`` (xLSTM at 64 positions); (d) phi3-mini-3.8b
      at full width, phase 4's load: the prefill under 'kernel', 'chunked'
      and 'ref' (time, peak memory), 'chunked' within LOGITS_REL_L2 of
-     'kernel' per row.
+     'kernel' per row;
+ 12. whisper-medium, the encoder-decoder (run last; 24 encoder + 24
+     decoder layers, d_model 1,024, 16 heads of 64, 1,500 frames, vocab
+     51,865, random bf16 weights): (a) K4 without a mask at the
+     encoder's self-attention shape (8, 16, 1,500, 64) and the
+     cross-attention shape (256 queries over 1,500 frames), K4 causal at
+     the decoder's self-attention shape, K5 and K6 without a mask at the
+     encoder's shape, and K4, K5 and K6 at the training step's cross
+     (448 queries over 1,500 frames, no mask) and decoder self (448,
+     causal) shapes at batch 2, each on route 'tc', held row by row
+     against its plain version and timed beside it, SDPA and its
+     bound; (b) the
+     contiguous serve, batch 8 x 256 prompt tokens over 1,500 frames, 64
+     generated, ``impl='kernel'``, after a warm-up: prefill ms (encode +
+     prompt), decode tokens/s, K4 once an attention call of the prefill
+     (24 + 2 x 24), on route 'tc'; the bf16 prefill logits against
+     'ref' per row; at full width cut to 4 + 4 layers in f32, the same
+     load's greedy tokens under 'kernel' identical to 'ref'; (c) three
+     full-width training steps (batch 2 x 448 tokens over 1,500 frames,
+     bf16 params, f32 moments, remat): losses finite, ms a step, K4
+     twice an attention call (the backward recomputes each layer), K5 /
+     K6 once, the plan of every launch on route 'tc'; at 4 + 4 layers in f32, one step's loss
+     and per-leaf gradients 'kernel' against 'ref' within
+     ``GQA_GRAD_REL``.
 
 The line before the last is the kernel table as JSON (``launches`` sums
 the main paths that ran a kernel, ``launches_by_path`` splits them;
 ``plan`` is the plan each wrapper recorded at the timed launch; K2's row
 holds its verify-width timing under ``verify``, K4's its phase 10 rows
-under ``baseline`` and its phase 11 row under ``jamba``); the
+under ``baseline`` and its phase 11 row under ``jamba``, K4's, K5's and
+K6's their phase 12 rows under ``whisper``); the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or outside a checkout of the repository, it exits non-zero and prints no
 result.
@@ -903,6 +927,24 @@ def flash_pairs(Lq, Lk, q_offset=0):
     return sum(max(0, min(Lk, q_offset + i + 1)) for i in range(Lq))
 
 
+def flash_work(B_, H_, Lq, Lk, Dqk, Dv, causal):
+    """{kernel: (bytes, operations)} of K4, K5 and K6 over (B_, H_, Lq,
+    Dqk) queries, (B_, H_, Lk, Dqk) keys and (B_, H_, Lk, Dv) values,
+    bf16: each input read once, each output written once (lse and delta
+    f32); operations over the pairs the mask admits (no window)."""
+    pairs = B_ * H_ * (flash_pairs(Lq, Lk) if causal else Lq * Lk)
+    q_b, k_b = 2 * B_ * H_ * Lq * Dqk, 2 * B_ * H_ * Lk * Dqk
+    o_b, v_b = 2 * B_ * H_ * Lq * Dv, 2 * B_ * H_ * Lk * Dv
+    rows_b = 4 * B_ * H_ * Lq
+    return {"flash_attention_fwd": (q_b + k_b + v_b + o_b + rows_b,
+                                    2 * (Dqk + Dv) * pairs),
+            "flash_attention_bwd_dq": (q_b + k_b + v_b + o_b + 2 * rows_b
+                                       + q_b, 2 * (2 * Dqk + Dv) * pairs),
+            "flash_attention_bwd_dkv": (q_b + k_b + v_b + o_b + 2 * rows_b
+                                        + k_b + v_b,
+                                        2 * (2 * Dqk + 2 * Dv) * pairs)}
+
+
 def check_flash(torch):
     from repro_torch.kernels import flash_attention as fa
 
@@ -941,18 +983,7 @@ def check_flash(torch):
     kw = dict(causal=True, window=None, q_offset=0, scale=TDQK ** -0.5)
     out, lse = fa.flash_fwd_kernel(q, k, v, **kw)
     delta = (do.float() * out.float()).sum(-1).contiguous()
-    es, n_rows = 2, TB * TH * TL
-    pairs = TB * TH * flash_pairs(TL, TL)
-    qk_b, v_b = n_rows * TDQK * es, n_rows * TDV * es
-    rows_b = n_rows * 4
-    work = {   # name: (bytes each input read once, output written once; ops)
-        "flash_attention_fwd": (2 * qk_b + v_b + v_b + rows_b,
-                                2 * (TDQK + TDV) * pairs),
-        "flash_attention_bwd_dq": (2 * qk_b + 2 * v_b + 2 * rows_b + qk_b,
-                                   2 * (2 * TDQK + TDV) * pairs),
-        "flash_attention_bwd_dkv": (2 * qk_b + 2 * v_b + 2 * rows_b + qk_b
-                                    + v_b, 2 * (2 * TDQK + 2 * TDV) * pairs),
-    }
+    work = flash_work(TB, TH, TL, TL, TDQK, TDV, True)
     calls = {   # name: (wrapper, its call, the plain version's call)
         "flash_attention_fwd": (
             fa.flash_fwd_kernel,
@@ -1286,14 +1317,14 @@ def check_verify_kernel(torch):
     return row
 
 
-def sdpa_calls(torch, q, k, v, do):
+def sdpa_calls(torch, q, k, v, do, causal=True, scale=TDQK ** -0.5):
     """``scaled_dot_product_attention`` forward, and its backward alone,
     on the same tensors (timed only; the port never calls it), and the
     name of the device kernel that ran the forward."""
     import torch.nn.functional as F
     from torch.profiler import ProfilerActivity, profile
 
-    kw = dict(is_causal=True, scale=TDQK ** -0.5)
+    kw = dict(is_causal=causal, scale=scale)
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
     out = F.scaled_dot_product_attention(qg, kg, vg, **kw)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2982,21 +3013,32 @@ GQA_GRAD_REL = 1e-3
 MEASURED = {}
 
 
-def record_k4_plans(plans):
+def record_k4_plans(plans, bwd_plans=None):
     """Wrap the flash Function's forward so that ``plans`` gets K4's plan
-    at every launch a model makes; returns a function that restores it."""
+    at every launch a model makes and, given ``bwd_plans``, its backward
+    so that ``bwd_plans`` gets K5's and K6's, a pair a backward; returns
+    a function that restores them."""
     from repro_torch.kernels import flash_attention as fa
 
-    real = fa._FlashAttention.forward
+    real, real_bwd = fa._FlashAttention.forward, fa._FlashAttention.backward
 
     def forward(ctx, *args):
         out = real(ctx, *args)
         plans.append(fa.flash_fwd_kernel.last_plan)
         return out
+
+    def backward(ctx, *args):
+        grads = real_bwd(ctx, *args)
+        bwd_plans.append((fa.flash_bwd_dq_kernel.last_plan,
+                          fa.flash_bwd_dkv_kernel.last_plan))
+        return grads
     fa._FlashAttention.forward = staticmethod(forward)
+    if bwd_plans is not None:
+        fa._FlashAttention.backward = staticmethod(backward)
 
     def restore():
         fa._FlashAttention.forward = staticmethod(real)
+        fa._FlashAttention.backward = staticmethod(real_bwd)
     return restore
 
 
@@ -3789,6 +3831,447 @@ def recurrent_families(torch, np):
     return k4, by_path
 
 
+# ----------------------------- phase 12: whisper-medium, the encoder-decoder --
+
+
+WHISPER = "whisper-medium"
+# (b): a contiguous serve of batch 8, 256 prompt tokens, 64 generated
+# (inside whisper's 448 trained decoder positions), over 1,500 frames
+WB, WPROMPT, WGEN = 8, 256, 64
+# (c): training at batch 2 x 448 tokens over 1,500 frames
+WTB, WTL = 2, 448
+# the f32 parity checks of (b) and (c) run full width cut to this many
+# encoder and decoder layers: the dense reference attention holds (B, 16,
+# 1,500, 1,500) f32 scores an encoder layer
+WHISPER_CUT = 4
+WHISPER_SEED = 5
+
+
+def whisper_kernels(torch, cfg):
+    """(a): K4 without a mask at the encoder's self-attention shape and at
+    the serve's cross-attention shape (256 decoder queries over 1,500
+    frames), K4 causal at the serve's decoder self-attention shape, K5
+    and K6 without a mask at the encoder's shape; K4, K5 and K6 at the
+    training step's cross (448 queries over 1,500 frames, no mask) and
+    decoder self-attention (448 causal) shapes, batch 2.  bf16 (B, L, H,
+    D) views as whisper hands them over, each output held row by row
+    against its plain version (lse within LSE_ATOL), every launch on
+    route 'tc', and each timed beside its plain version, SDPA (its
+    backward computes dQ, dK and dV in one call) and its bound.  Returns
+    {kernel: {label: row}}."""
+    from repro_torch.kernels import flash_attention as fa
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    Hh, D, F_ = cfg.n_heads, cfg.resolved_head_dim, cfg.n_frames
+    scale = D ** -0.5
+    g = torch.Generator(device="cuda")
+    g.manual_seed(12)
+
+    def rn(b, n):
+        return torch.randn((b, n, Hh, D), generator=g, device="cuda").to(
+            torch.bfloat16).transpose(1, 2)
+
+    rows = {name: {} for name in ("flash_attention_fwd",
+                                  "flash_attention_bwd_dq",
+                                  "flash_attention_bwd_dkv")}
+    # (label, batch, Lq, Lk, causal, backward)
+    cases = (("encoder self, no mask", WB, F_, F_, False, True),
+             ("cross, no mask", WB, WPROMPT, F_, False, False),
+             ("decoder self, causal", WB, WPROMPT, WPROMPT, True, False),
+             ("training cross, no mask", WTB, WTL, F_, False, True),
+             ("training decoder self, causal", WTB, WTL, WTL, True, True))
+    for label, Bq, Lq, Lk, causal, backward in cases:
+        q, k, v, do = rn(Bq, Lq), rn(Bq, Lk), rn(Bq, Lk), rn(Bq, Lq)
+        kw = dict(causal=causal, window=None, q_offset=0, scale=scale)
+        out, lse = fa.flash_fwd_kernel(q, k, v, **kw)
+        torch.cuda.synchronize()
+        out_p, lse_p = fa.flash_fwd_plain(q, k, v, **kw)
+        delta = (do.float() * out_p.float()).sum(-1).contiguous()
+        checks = {"flash_attention_fwd": (
+            fa.flash_fwd_kernel, [(out, out_p)],
+            lambda: fa.flash_fwd_kernel(q, k, v, **kw),
+            lambda: fa.flash_fwd_plain(q, k, v, **kw))}
+        lse_err = (lse - lse_p).abs().max().item()
+        if backward:
+            dq = fa.flash_bwd_dq_kernel(q, k, v, do, lse_p, delta, **kw)
+            dk, dv = fa.flash_bwd_dkv_kernel(q, k, v, do, lse_p, delta, **kw)
+            torch.cuda.synchronize()
+            checks["flash_attention_bwd_dq"] = (
+                fa.flash_bwd_dq_kernel,
+                [(dq, fa.flash_bwd_dq_plain(q, k, v, do, lse_p, delta,
+                                            **kw))],
+                lambda: fa.flash_bwd_dq_kernel(q, k, v, do, lse_p, delta,
+                                               **kw),
+                lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse_p, delta,
+                                              **kw))
+            checks["flash_attention_bwd_dkv"] = (
+                fa.flash_bwd_dkv_kernel,
+                list(zip((dk, dv), fa.flash_bwd_dkv_plain(
+                    q, k, v, do, lse_p, delta, **kw))),
+                lambda: fa.flash_bwd_dkv_kernel(q, k, v, do, lse_p, delta,
+                                                **kw),
+                lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse_p, delta,
+                                               **kw))
+        plans = {name: launched_plan(c[0]) for name, c in checks.items()}
+        sdpa_fwd, sdpa_bwd, backend = sdpa_calls(torch, q, k, v, do,
+                                                 causal=causal, scale=scale)
+        sdpa_err = row_rel(torch, sdpa_fwd(), out)
+        lib = {"flash_attention_fwd": time_ms(torch, sdpa_fwd, flush,
+                                              reps=7)}
+        if backward:
+            lib["flash_attention_bwd_dq"] = \
+                lib["flash_attention_bwd_dkv"] = time_ms(torch, sdpa_bwd,
+                                                         flush, reps=7)
+        work = flash_work(Bq, Hh, Lq, Lk, D, D, causal)
+        for name, (_, pairs, kern, plain) in checks.items():
+            row_err = max(row_rel(torch, a, b) for a, b in pairs)
+            max_abs = max((a.float() - b.float()).abs().max().item()
+                          for a, b in pairs)
+            if not (row_err <= FLASH_ROW_TOL["bfloat16"]
+                    and lse_err <= LSE_ATOL and sdpa_err <= LOGITS_REL_L2):
+                raise AssertionError(
+                    f"{name} at whisper's {label}: a row's |kernel - "
+                    f"plain| / |plain| {row_err:.3g}, lse {lse_err:.3g}, "
+                    f"SDPA against the kernel {sdpa_err:.3g}")
+            n_bytes, n_ops = work[name]
+            b_ms, b_by = bound(n_bytes, n_ops)
+            r = rows[name][label] = dict(
+                max_abs_err=max_abs, row_rel=row_err,
+                ms=time_ms(torch, kern, flush, reps=7),
+                plain_ms=time_ms(torch, plain, flush, reps=3),
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib[name],
+                library=backend, plan=plans[name],
+                shapes=dict(q=list(q.shape), kv=list(k.shape),
+                            causal=causal))
+            log(f"[whisper] {name} at the {label} shape: q "
+                f"{tuple(q.shape)}, k/v {tuple(k.shape)}, bf16: time "
+                f"{r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, SDPA "
+                f"{r['library_ms']:.4f} ms ({backend}), kernel / SDPA "
+                f"{r['ms'] / r['library_ms']:.2f}, bound {b_ms:.4f} ms "
+                f"({b_by}: {n_bytes / 1e9:.4f} GB, {n_ops / 1e9:.2f} "
+                f"GFLOP; {b_ms / r['ms']:.4f} of it reached), "
+                f"{plan_text(plans[name])}; per-row error {row_err:.4f}, "
+                f"lse {lse_err:.2e}, SDPA vs kernel {sdpa_err:.4f}")
+        del q, k, v, do, out, lse, out_p, lse_p, delta, checks
+        torch.cuda.empty_cache()
+    return rows
+
+
+def serve_whisper(torch, np, cfg, params):
+    """(b): the contiguous launcher's path, batch 8 x 256 prompt tokens
+    over 1,500 frames, 64 generated, ``impl='kernel'``, after a warm-up
+    at the same shapes: K4 launched once an attention call of the
+    prefill (encoder self, decoder self and cross: n_enc_layers + 2 x
+    n_layers), every launch on route 'tc', K3 never.  Returns
+    (launches, the numbers)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mla_decode
+    from repro_torch.launch.serve import serve_contiguous
+
+    kw = dict(batch=WB, prompt_len=WPROMPT, gen=WGEN, scheme="auto",
+              platform="h100", impl="kernel", compute_dtype=torch.bfloat16,
+              device="cuda")
+    t0 = time.perf_counter()
+    serve_contiguous(cfg, params, log=lambda _: None, **kw)
+    log(f"[whisper] warm-up at the same shapes: "
+        f"{time.perf_counter() - t0:.2f}s")
+    torch.cuda.reset_peak_memory_stats()
+    fa.flash_fwd_kernel.launches = 0
+    mla_decode.mla_decode_kernel.launches = 0
+    plans = []
+    restore = record_k4_plans(plans)
+    try:
+        res = serve_contiguous(cfg, params, log=log, **kw)
+    finally:
+        restore()
+    launches = {"flash_attention_fwd": fa.flash_fwd_kernel.launches}
+    steps = res["decode_steps"]
+    out = dict(tokens_per_s=steps * WB / res["decode_s"],
+               step_ms=res["decode_s"] * 1e3 / steps,
+               prefill_ms=res["prefill_s"] * 1e3,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    routes = sorted({p["route"] for p in plans})
+    n_attn = cfg.n_enc_layers + 2 * cfg.n_layers
+    log(f"[whisper] {cfg.name}, batch {WB} x {WPROMPT} prompt tokens over "
+        f"{cfg.n_frames} frames, {WGEN} generated: prefill (encode + "
+        f"prompt) {out['prefill_ms']:.1f} ms, decode "
+        f"{out['tokens_per_s']:.1f} tokens/s, step {out['step_ms']:.2f} ms "
+        f"mean, peak memory {out['peak_gib']:.2f} GiB, launches "
+        f"{launches}, K4 routes {routes}")
+    tokens = res["tokens"]
+    if tokens.shape != (WB, WGEN) or tokens.min() < 0 \
+            or tokens.max() >= cfg.vocab \
+            or not bool(torch.isfinite(res["last_logits"]).all()):
+        raise AssertionError(f"{cfg.name}: the contiguous serve returned "
+                             f"bad tokens or logits")
+    if launches["flash_attention_fwd"] != n_attn or len(plans) != n_attn \
+            or mla_decode.mla_decode_kernel.launches:
+        raise AssertionError(f"{cfg.name}: K4 launches {launches} "
+                             f"(recorded {len(plans)}), K3 "
+                             f"{mla_decode.mla_decode_kernel.launches}; want "
+                             f"K4 = {n_attn}, K3 none")
+    if routes != ["tc"]:
+        raise AssertionError(f"{cfg.name}: a bf16 K4 launch left its "
+                             f"tensor-core route: {plans}")
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def compare_whisper(torch, np, cfg, params):
+    """(b), bf16 at full depth: the prefill's last-token logits,
+    ``impl='kernel'`` against ``impl='ref'`` per row within
+    LOGITS_REL_L2, on the serve's prompts and frames."""
+    from repro_torch.launch.serve import stub_embeds
+    from repro_torch.runtime import make_prefill_step
+
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (WB, WPROMPT)), device="cuda")
+    frames = stub_embeds(cfg, WB, 1, "cuda")
+    logits = {impl: make_prefill_step(
+        cfg, capacity=WPROMPT + WGEN + 1, compute_dtype=torch.bfloat16,
+        impl=impl)(params, toks, frames)[0] for impl in ("kernel", "ref")}
+    rel = _row_rel(torch, logits["kernel"], logits["ref"])
+    log(f"[whisper] {cfg.name} bf16 prefill logits kernel vs ref, per-row "
+        f"|a-b|/|b| max {max(rel):.4f} (bound {LOGITS_REL_L2})")
+    if max(rel) > LOGITS_REL_L2:
+        raise AssertionError(f"{cfg.name}: kernel-path logits disagree "
+                             f"with the reference path")
+    torch.cuda.empty_cache()
+
+
+def whisper_cut(torch):
+    """Full width cut to WHISPER_CUT encoder and decoder layers, f32
+    weights from WHISPER_SEED."""
+    from repro_torch import configs, models
+    from repro_torch.nn import module as nnm
+
+    cfg = dataclasses.replace(configs.full(WHISPER), n_layers=WHISPER_CUT,
+                              n_enc_layers=WHISPER_CUT)
+    return cfg, nnm.init_params(models.model_defs(cfg), seed=WHISPER_SEED,
+                                dtype=torch.float32, device="cuda")
+
+
+def whisper_token_parity(torch, np):
+    """(b), f32 at full width cut to WHISPER_CUT + WHISPER_CUT layers: the
+    greedy tokens of the contiguous serve's load, ``impl='kernel'`` (K4 on
+    its f32 route) identical to ``impl='ref'``.  Returns the K4 launches
+    of the kernel path."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import serve_contiguous
+
+    cfg, params = whisper_cut(torch)
+    toks, last = {}, {}
+    for impl in ("ref", "kernel"):
+        before = fa.flash_fwd_kernel.launches
+        res = serve_contiguous(
+            cfg, params, batch=WB, prompt_len=WPROMPT, gen=WGEN,
+            scheme="auto", impl=impl, seed=WHISPER_SEED,
+            compute_dtype=torch.float32, device="cuda", log=lambda _: None)
+        toks[impl], last[impl] = res["tokens"], res["last_logits"]
+        n = fa.flash_fwd_kernel.launches - before
+        if n != (3 * WHISPER_CUT if impl == "kernel" else 0):
+            raise AssertionError(f"whisper cut serve, impl {impl}: {n} K4 "
+                                 f"launches")
+    same = np.array_equal(toks["kernel"], toks["ref"])
+    top2 = torch.topk(last["ref"].float(), 2, dim=-1).values
+    log(f"[whisper] f32, {WHISPER_CUT} + {WHISPER_CUT} layers at full "
+        f"width, batch {WB} x {WPROMPT} over {cfg.n_frames} frames, "
+        f"{WGEN} generated: greedy tokens kernel vs ref "
+        f"{'identical' if same else 'DIFFERENT'}; last step's logits "
+        f"per-row |a-b|/|b| max "
+        f"{max(_row_rel(torch, last['kernel'], last['ref'])):.2e}, smallest "
+        f"top-1 / top-2 margin {(top2[:, 0] - top2[:, 1]).min().item():.3e}")
+    if not same:
+        raise AssertionError(f"whisper: f32 kernel-path tokens differ from "
+                             f"the reference path's: {toks}")
+    del params
+    torch.cuda.empty_cache()
+    return {"flash_attention_fwd": 3 * WHISPER_CUT}
+
+
+def train_whisper(torch, cfg):
+    """(c): full-width training, bf16 params and f32 moments, batch 2 x
+    448 tokens over 1,500 frames (drawn as the training launcher draws
+    them), ``impl='kernel'``, one warm-up and three timed steps: losses
+    finite, K4 once an attention call (twice under the config's remat: the
+    backward recomputes each layer's forward), K5 and K6 once, the plan
+    of every launch recorded and on route 'tc'.  Returns the timed
+    steps' launches and ms a step."""
+    from repro_torch import models
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.train import batch_maker
+    from repro_torch.nn import module as nnm
+    from repro_torch.optim import AdamWConfig, adamw_init, cosine
+    from repro_torch.runtime import TrainStepConfig, make_train_step
+
+    kernels = (fa.flash_fwd_kernel, fa.flash_bwd_dq_kernel,
+               fa.flash_bwd_dkv_kernel)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = nnm.init_params(models.model_defs(cfg), seed=0,
+                             dtype=torch.bfloat16, device="cuda")
+    opt_cfg = AdamWConfig(lr=cosine(3e-4, warmup=20, total=100))
+    opt = adamw_init(params, opt_cfg)
+    step = make_train_step(cfg, opt_cfg, TrainStepConfig(
+        compute_dtype=torch.bfloat16, impl="kernel"))
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=WTL,
+                                  global_batch=WTB, seed=0))
+    make = batch_maker(cfg, "cuda", torch.bfloat16)
+    warm, timed, times = 1, 3, []
+    plans, bwd_plans = [], []
+    restore = record_k4_plans(plans, bwd_plans)
+    try:
+        for i in range(warm + timed):
+            b = make(*data.next_batch())
+            if i == warm:
+                for kern in kernels:
+                    kern.launches = 0
+                plans.clear()
+                bwd_plans.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, b)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            loss = float(m["loss"])
+            log(f"[whisper] train step {i + 1}"
+                f"{' (warm-up)' if i < warm else ''}: loss {loss:.4f}, grad "
+                f"norm {float(m['grad_norm']):.4f}, {dt * 1e3:.1f} ms")
+            if not math.isfinite(loss):
+                raise AssertionError(f"whisper step {i + 1}: loss {loss} is "
+                                     f"not finite")
+            if i >= warm:
+                times.append(dt)
+    finally:
+        restore()
+    names = ("flash_attention_fwd", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv")
+    launches = {n: kern.launches for n, kern in zip(names, kernels)}
+    n_attn = cfg.n_enc_layers + 2 * cfg.n_layers
+    want = {n: timed * n_attn * (2 if cfg.remat and n == names[0] else 1)
+            for n in names}
+    ms = 1e3 * sum(times) / len(times)
+    log(f"[whisper] {timed} timed training steps, batch {WTB} x {WTL} over "
+        f"{cfg.n_frames} frames: {ms:.1f} ms/step mean "
+        f"({', '.join(f'{t * 1e3:.1f}' for t in times)}), "
+        f"{WTB * WTL / (ms / 1e3):.0f} decoder tokens/s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
+        f"{launches}")
+    if launches != want:
+        raise AssertionError(f"whisper training launches {launches} != "
+                             f"{want}")
+    seen = {names[0]: plans, names[1]: [p for p, _ in bwd_plans],
+            names[2]: [p for _, p in bwd_plans]}
+    for n, ps in seen.items():
+        off = [p for p in ps if p["route"] != "tc"]
+        if len(ps) != launches[n] or off:
+            raise AssertionError(f"whisper training {n}: {len(ps)} plans "
+                                 f"recorded of {launches[n]} launches, "
+                                 f"{len(off)} off route 'tc': {off[:2]}")
+    del params, opt, step, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, ms
+
+
+def whisper_grad_check(torch, np):
+    """(c), f32 at full width cut to WHISPER_CUT + WHISPER_CUT layers, one
+    batch of 2 x 448 tokens over 1,500 frames: the loss and each leaf's
+    gradient, ``impl='kernel'`` against ``impl='ref'``, within
+    GQA_GRAD_REL per leaf.  Returns the kernel path's launches."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.train import batch_maker
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime import lm_loss
+
+    cfg, params = whisper_cut(torch)
+    kernels = (fa.flash_fwd_kernel, fa.flash_bwd_dq_kernel,
+               fa.flash_bwd_dkv_kernel)
+    data = np.random.default_rng(WHISPER_SEED).integers(0, cfg.vocab,
+                                                        (WTB, WTL + 1))
+    batch = batch_maker(cfg, "cuda", torch.float32)(data[:, :-1],
+                                                    data[:, 1:])
+    leaves = list(tree_leaves(params))
+    out, n_kernel = {}, None
+    for impl in ("ref", "kernel"):
+        before = [kern.launches for kern in kernels]
+        for t in leaves:
+            t.requires_grad_(True)
+        loss, _ = lm_loss(params, cfg, batch["tokens"], batch["labels"],
+                          embeds=batch["embeds"],
+                          compute_dtype=torch.float32, impl=impl)
+        out[impl] = (loss.item(), torch.autograd.grad(loss, leaves))
+        for t in leaves:
+            t.requires_grad_(False)
+        n = [kern.launches - b for kern, b in zip(kernels, before)]
+        want = 3 * WHISPER_CUT if impl == "kernel" else 0
+        if n != [want * (2 if cfg.remat else 1), want, want]:
+            raise AssertionError(f"whisper cut train step, impl {impl}: K4 "
+                                 f"/ K5 / K6 launches {n}")
+        if impl == "kernel":
+            n_kernel = dict(zip(("flash_attention_fwd",
+                                 "flash_attention_bwd_dq",
+                                 "flash_attention_bwd_dkv"), n))
+    rel = [((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+           for a, b in zip(out["kernel"][1], out["ref"][1])]
+    loss_rel = abs(out["kernel"][0] - out["ref"][0]) / abs(out["ref"][0])
+    log(f"[whisper] f32 train step, {WHISPER_CUT} + {WHISPER_CUT} layers "
+        f"at full width, batch {WTB} x {WTL}: loss {out['kernel'][0]:.6f} vs "
+        f"{out['ref'][0]:.6f} (rel {loss_rel:.2e}), per-leaf gradient "
+        f"|a-b|/|b| max {max(rel):.2e} over {len(rel)} leaves (bound "
+        f"{GQA_GRAD_REL})")
+    if max(rel) > GQA_GRAD_REL or loss_rel > GQA_GRAD_REL:
+        raise AssertionError("whisper: kernel-path gradients disagree with "
+                             "the reference path")
+    del params, leaves, out
+    torch.cuda.empty_cache()
+    return n_kernel
+
+
+def whisper_family(torch, np):
+    """Phase 12: (a) K4-K6 at whisper's shapes, (b) the full-width serve
+    with its checks, (c) full-width training with its check.  Returns
+    (K4-K6's rows at whisper's shapes, the kernel launches of each
+    path)."""
+    from repro_torch import configs, models
+    from repro_torch.nn import module as nnm
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = configs.full(WHISPER)
+    t0 = time.perf_counter()
+    params = nnm.init_params(models.model_defs(cfg), seed=0,
+                             dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"[whisper] {cfg.name}: {cfg.n_enc_layers} encoder + "
+        f"{cfg.n_layers} decoder layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads of {cfg.resolved_head_dim}, {cfg.n_frames} "
+        f"frames, vocab {cfg.vocab}: {n_params / 1e9:.3f} B params bf16 "
+        f"({n_params * 2 / 1e9:.2f} GB) in {time.perf_counter() - t0:.1f}s")
+    rows = whisper_kernels(torch, cfg)
+    serve_n, numbers = serve_whisper(torch, np, cfg, params)
+    compare_whisper(torch, np, cfg, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_n, numbers["train_ms"] = train_whisper(torch, cfg)
+    cross = 2 * cfg.n_layers * WB * cfg.n_frames * cfg.n_heads \
+        * cfg.resolved_head_dim * 2
+    log(f"[whisper] decode: {numbers['tokens_per_s']:.1f} tokens/s "
+        f"({numbers['step_ms']:.2f} ms a step); every step reads the cross "
+        f"cache of {cross / 1e9:.3f} GB (bf16 K/V of {cfg.n_frames} frames, "
+        f"{cfg.n_layers} layers, batch {WB}) through gqa_decode")
+    parity = {"flash_attention_fwd": whisper_token_parity(torch, np)[
+        "flash_attention_fwd"]}
+    grads = whisper_grad_check(torch, np)
+    parity = {k: parity.get(k, 0) + v for k, v in grads.items()}
+    whisper = {k: serve_n.get(k, 0) + v for k, v in train_n.items()}
+    return rows, {"whisper": whisper, "whisper_cut_parity": parity}
+
+
 
 def main() -> int:
     import numpy as np
@@ -3829,6 +4312,10 @@ def main() -> int:
     rows["flash_attention_fwd"]["jamba"], rec_paths = \
         recurrent_families(torch, np)
     by_path.update(rec_paths)
+    whisper_rows, whisper_paths = whisper_family(torch, np)
+    for name, r in whisper_rows.items():
+        rows[name]["whisper"] = r
+    by_path.update(whisper_paths)
 
     csrc = "src/repro_torch/kernels/csrc/"
     meta = {"mla_decode_paged": (csrc + "mla_decode_paged.cu",

@@ -9,11 +9,12 @@ package restores in the other:
 
 ``done`` is written last: a crash mid-save leaves a directory without it,
 which ``steps`` skips.  A list in the tree (the port's per-layer
-``period`` list) is stored stacked along a new leading axis, which is
-the JAX package's scanned-period layout.  numpy has no bfloat16 (the
-reference relies on ml_dtypes): the JAX package's ``np.savez`` of its
-ml_dtypes bf16 leaves stores them as 2-byte voids (``|V2``), and so does
-the port — the leaves' bit patterns viewed as ``V2`` — so a bf16
+``period`` list, whisper's ``encoder`` and ``decoder``) is stored
+stacked along a new leading axis, which is the JAX package's scanned
+layout.  numpy has no bfloat16 (the reference relies on ml_dtypes): the
+JAX package's ``np.savez`` of its ml_dtypes bf16 leaves stores them as
+2-byte voids (``|V2``), and so does the port — the leaves' bit patterns
+viewed as ``V2`` — so a bf16
 checkpoint written by either package restores in the other with the
 same dtype and bytes.  The bf16 keys are also listed under ``bf16`` in
 meta.json; a leaf read back as ``|V2``, or listed there (older

@@ -1,12 +1,11 @@
 """Config registry: ``full(arch)`` / ``smoke(arch)`` -> ``ModelConfig``,
 ``skip_shapes(arch)`` -> {shape name: reason}.
 
-Port of ``repro.configs``.  Only the architectures the port can run are
-registered: MLA (DeepSeek), the attention families (dense GQA / MQA /
-MHA with sliding windows, MoE over GQA, a VLM patch prefix) and the
-recurrent ones (Jamba's hybrid Mamba / GQA / MoE stack, xLSTM).  The
-encoder-decoder config comes with its model code (ROADMAP.md queue 1,
-item 17).
+Port of ``repro.configs``, every architecture it registers: MLA
+(DeepSeek), the attention families (dense GQA / MQA / MHA with sliding
+windows, MoE over GQA, a VLM patch prefix), the recurrent ones (Jamba's
+hybrid Mamba / GQA / MoE stack, xLSTM) and the encoder-decoder
+(whisper-medium, ``models.whisper``).
 """
 from __future__ import annotations
 
@@ -25,6 +24,7 @@ _MODULES: Dict[str, str] = {
     "deepseek-v2-236b": "deepseek_v2_236b",
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
     "xlstm-350m": "xlstm_350m",
+    "whisper-medium": "whisper_medium",
     "internvl2-26b": "internvl2_26b",
     "deepseek-v3-671b": "deepseek_v3_671b",     # the paper's Table 1
 }

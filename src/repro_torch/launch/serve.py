@@ -26,13 +26,19 @@ its choice; for the attention families (``--arch phi3-mini-3.8b``,
 recurrent ones (``jamba-1.5-large-398b``, Mamba / GQA / MoE;
 ``xlstm-350m``, mLSTM / sLSTM: their decode state is O(1) a request) it
 resolves to 'seq'.  A VLM (``internvl2-26b``) gets random patch
-embeddings, drawn as the reference draws them: ``runtime.prng``'s normal
-* 0.02 under the second key of split(PRNGKey(seed + 1)).
+embeddings, and the encoder-decoder (``whisper-medium``) random frames
+(B, n_frames, d_model), drawn as the reference draws them:
+``runtime.prng``'s normal * 0.02 under the second key of
+split(PRNGKey(seed + 1)).  Whisper encodes the frames, fills each
+layer's cross-attention cache with their K/V, and decodes at index
+prompt_len + i: its self-attention cache holds decoder tokens only.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \
         --smoke --impl kernel --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch jamba-1.5-large-398b --smoke --impl chunked --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium \
+        --smoke --impl kernel --device cpu
 
 ``--paged`` (MLA models only; another arch raises ``NotImplementedError:
 PagedMLAEngine requires an MLA model``) serves the batch as a request
@@ -254,7 +260,8 @@ def serve_contiguous(cfg, params, *, batch: int, prompt_len: int, gen: int,
                      compute_dtype=torch.float32, device="cuda",
                      log=print) -> dict:
     """Prefill ``batch`` random prompts of ``prompt_len`` tokens together
-    (after ``vlm_embeds``' patches for a VLM), then decode ``gen - 1``
+    (after ``stub_embeds``' patches for a VLM; over its frames for an
+    encoder-decoder, which encodes them first), then decode ``gen - 1``
     greedy steps over contiguous caches; log a report and return {scheme,
     tokens (B, gen), prefill_s, decode_s, decode_steps, last_logits},
     times from the host clock around work that ends in a device
@@ -270,8 +277,10 @@ def serve_contiguous(cfg, params, *, batch: int, prompt_len: int, gen: int,
         scheme = "seq"
     if cfg.attn_kind == "mla":
         params = _prepare_mla(params, cfg, scheme)
-    embeds = vlm_embeds(cfg, batch, seed, device)
-    n_pre = 0 if embeds is None else embeds.shape[1]
+    embeds = stub_embeds(cfg, batch, seed, device)
+    # cached prefix positions: a VLM's patches; an encoder-decoder's
+    # frames go to its cross cache, so its index counts decoder tokens
+    n_pre = 0 if cfg.family == "encdec" else cfg.stub_rows
     prefill = make_prefill_step(cfg, capacity=n_pre + prompt_len + gen + 1,
                                 compute_dtype=compute_dtype, impl=impl,
                                 scheme=scheme)
@@ -290,6 +299,8 @@ def serve_contiguous(cfg, params, *, batch: int, prompt_len: int, gen: int,
     prefill_s = time.perf_counter() - t0
     log(f"[serve] prefill {batch}x{prompt_len}"
         + (f" after {n_pre} patches" if n_pre else "")
+        + (f" over {embeds.shape[1]} frames" if cfg.family == "encdec"
+           else "")
         + f": {prefill_s:.2f}s")
     t0 = time.perf_counter()
     for i in range(gen - 1):
@@ -308,15 +319,17 @@ def serve_contiguous(cfg, params, *, batch: int, prompt_len: int, gen: int,
             "last_logits": logits}
 
 
-def vlm_embeds(cfg, batch: int, seed: int = 0, device="cuda"):
-    """A VLM's stub patch prefix (B, n_patches, d_model) f32, drawn as the
-    reference launcher draws it: normal * 0.02 under the second key of
-    split(PRNGKey(seed + 1)) (the reference draws its prompts under the
-    first); None for other families."""
-    if cfg.family != "vlm":
+def stub_embeds(cfg, batch: int, seed: int = 0, device="cuda"):
+    """A VLM's stub patch prefix (B, n_patches, d_model) or an
+    encoder-decoder's stub frames (B, n_frames, d_model), f32, drawn as
+    the reference launcher draws them: normal * 0.02 under the second key
+    of split(PRNGKey(seed + 1)) (the reference draws its prompts under
+    the first); None for other families."""
+    n = cfg.stub_rows
+    if not n:
         return None
     emb_key = prng.split(prng.PRNGKey(seed + 1, device))[1]
-    return prng.normal(emb_key, (batch, cfg.n_patches, cfg.d_model)) * 0.02
+    return prng.normal(emb_key, (batch, n, cfg.d_model)) * 0.02
 
 
 def _prepare_mla(params, cfg, scheme: str):

@@ -7,6 +7,8 @@
         --smoke --steps 20 --impl kernel --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-350m \\
         --smoke --steps 20 --seq 64 --impl chunked --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-medium \\
+        --smoke --steps 20 --impl kernel --device cpu
 
   --arch / --smoke    model config (``--smoke``: the tiny CI config); any
                       registered config (``repro_torch.configs.ARCHS``)
@@ -29,7 +31,8 @@
 
 Weights are random (``--seed``); the data is the synthetic stream of
 ``repro_torch.data``.  A VLM's batch also carries its stub patch prefix,
-as in the reference: normal * 0.02 (f32, then the compute dtype) under
+and an encoder-decoder's (``whisper-medium``) its stub frames, as in the
+reference: normal * 0.02 (f32, then the compute dtype) under
 PRNGKey(the batch's first token), through ``runtime.prng``.  Params and
 compute are bf16 on the card (the reference launcher's choice on an
 accelerator mesh) and f32 on the CPU (its choice without a mesh); Adam
@@ -55,16 +58,17 @@ from ..runtime import (LoopConfig, TrainLoop, TrainStepConfig,
 
 def batch_maker(cfg, device, dtype):
     """(tokens, labels) numpy -> the step's batch dict; a VLM's carries
-    ``embeds`` (B, n_patches, d_model), drawn as the reference launcher
-    draws them."""
+    ``embeds`` (B, n_patches, d_model), an encoder-decoder's (B, n_frames,
+    d_model), drawn as the reference launcher draws them."""
+    n_pre = cfg.stub_rows
+
     def make_batch(toks, labels):
         b = {"tokens": torch.as_tensor(toks, device=device),
              "labels": torch.as_tensor(labels, device=device)}
-        if cfg.family == "vlm":
+        if n_pre:
             key = prng.PRNGKey(int(toks[0, 0]), device)
             b["embeds"] = (prng.normal(
-                key, (toks.shape[0], cfg.n_patches, cfg.d_model))
-                * 0.02).to(dtype)
+                key, (toks.shape[0], n_pre, cfg.d_model)) * 0.02).to(dtype)
         return b
     return make_batch
 

@@ -85,6 +85,14 @@ class ModelConfig:
         return self.head_dim or self.d_model // self.n_heads
 
     @property
+    def stub_rows(self) -> int:
+        """Rows of the stub prefix ``embeds`` (B, rows, d_model) a batch
+        carries: a VLM's patches, an encoder-decoder's frames; 0 for the
+        other families."""
+        return {"vlm": self.n_patches,
+                "encdec": self.n_frames}.get(self.family, 0)
+
+    @property
     def d_inner(self) -> int:
         return self.expand * self.d_model
 

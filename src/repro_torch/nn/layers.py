@@ -1,5 +1,5 @@
-"""Base layers: dense, RMS norm, embedding, RoPE, MLPs, the causal
-depthwise conv of Mamba (port of ``repro.nn.layers``).
+"""Base layers: dense, RMS and layer norms, embedding, RoPE, MLPs, the
+causal depthwise conv of Mamba (port of ``repro.nn.layers``).
 
 Every layer is a (defs, apply) pair of plain functions; params are the
 nested dicts produced by ``module.init_params``.  Layouts are the JAX
@@ -51,6 +51,21 @@ def rmsnorm(params, x, eps: float = 1e-6):
     var = torch.mean(x * x, dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
     return (x * params["scale"].float()).to(dtype)
+
+
+def layernorm_defs(dim: int, ax: Optional[str] = None):
+    return {"scale": P((dim,), (ax,), init="ones"),
+            "bias": P((dim,), (ax,), init="zeros")}
+
+
+def layernorm(params, x, eps: float = 1e-5):
+    """Layer norm with the statistics, the scale and the bias in f32."""
+    dtype = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * params["scale"].float() + params["bias"].float()).to(dtype)
 
 
 # ------------------------------------------------------------- embedding ---

@@ -123,7 +123,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     """Returns step(params, opt_state, batch) -> (params, opt_state,
     metrics); batch is {tokens, labels} (B, L) integer tensors on the
     params' device, and for a VLM ``embeds`` (B, P, D), its patch
-    prefix.  ``microbatches`` > 1 splits the batch, sums f32
+    prefix, for an encoder-decoder ``embeds`` (B, n_frames, D), its stub
+    frames.  ``microbatches`` > 1 splits the batch, sums f32
     gradients and averages them, as the reference's scan does."""
 
     def grads_of(params, batch):
@@ -177,9 +178,11 @@ def make_prefill_step(cfg: ModelConfig, *, capacity: int,
     """Returns fn(params, tokens (B, L), embeds=None) -> (last-token
     logits (B, V), a contiguous cache tree of ``capacity`` positions
     holding the P + L entries, P the length of the modality prefix
-    ``embeds`` (B, P, D), a VLM's patches).  ``impl`` 'kernel' attends in
-    the flash-attention forward kernel (MLA in MHA mode, and every other
-    attention family)."""
+    ``embeds`` (B, P, D), a VLM's patches).  An encoder-decoder's
+    ``embeds`` (B, n_frames, D) are its stub frames: its self cache holds
+    the L decoder positions, its cross cache the n_frames encoded ones.
+    ``impl`` 'kernel' attends in the flash-attention forward kernel (MLA
+    in MHA mode, and every other attention family)."""
 
     def run(params, tokens, embeds=None):
         with torch.inference_mode():
@@ -196,7 +199,8 @@ def make_serve_step(cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
     """Returns fn(params, token (B,), cache, index) -> (logits (B, V),
     cache): one decode step over contiguous caches, the new token written
     at the host int ``index`` (the positions cached, a VLM's patches
-    included), the cache updated in place.  ``impl`` 'kernel' attends in
+    included; an encoder-decoder's decoder tokens alone), the cache
+    updated in place.  ``impl`` 'kernel' attends in
     kernel K3 for MLA; the other families decode in
     ``core.attention.gqa_decode``, as the reference does."""
 

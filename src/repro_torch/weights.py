@@ -1,11 +1,13 @@
 """Move a ``repro`` (JAX) parameter tree into the port.
 
 The JAX package stacks the weights of each repeating period of
-``layer_plan`` along a leading axis (its layer scan); the port keeps one
-dict per layer.  :func:`from_jax_params` walks the port's own parameter
-definitions, takes each leaf from the JAX tree (given as numpy arrays,
-``jax.device_get`` of the params), unstacks the period leaves per layer,
-checks every shape, and puts the result on ``device``.  With it the two
+``layer_plan`` along a leading axis (its layer scan), and so the layers
+of whisper's encoder and decoder; the port keeps one dict per layer, in
+a list (``period``, ``encoder``, ``decoder``).  :func:`from_jax_params`
+walks the port's own parameter definitions, takes each leaf from the JAX
+tree (given as numpy arrays, ``jax.device_get`` of the params), unstacks
+each list's leaves per layer, checks every shape, and puts the result on
+``device``.  With it the two
 packages compute the same function in the parity tests.
 :func:`opt_state_from_jax` carries a JAX AdamW state {step, mu, nu}
 across the same way.
@@ -51,12 +53,13 @@ def from_jax_params(tree: Dict[str, Any], cfg: ModelConfig, *,
     """The port's parameter tree for ``cfg`` holding the values of the JAX
     tree ``tree`` (numpy leaves), on ``device``, cast to ``dtype`` if
     given."""
-    defs = model_defs(cfg)
-    out = {k: _take(defs[k], tree[k], k, dtype, device)
-           for k in ("embed", "ln_f", "prefix", "suffix")}
-    out["period"] = [_take(layer, tree["period"], f"period[{p}]", dtype,
-                           device, period=p)
-                     for p, layer in enumerate(defs["period"])]
+    out = {}
+    for k, d in model_defs(cfg).items():
+        if isinstance(d, list):          # stacked on a leading axis there
+            out[k] = [_take(layer, tree[k], f"{k}[{i}]", dtype, device,
+                            period=i) for i, layer in enumerate(d)]
+        else:
+            out[k] = _take(d, tree[k], k, dtype, device)
     return out
 
 

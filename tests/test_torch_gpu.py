@@ -23,6 +23,10 @@ K4 (and K5 / K6) run at the attention families' shapes (G = 9, head dim
 models give the same greedy tokens and gradients on the kernel path as
 on the dense one; so does the Jamba smoke model (Mamba, GQA, MoE), and
 the 'chunked' impl's block-pair walk agrees with the flash kernels.
+K4, K5 and K6 run without a mask at whisper's lengths (1,500 keys, 23
+tiles of 64 and 28 more, against off-tile query lengths), and the
+whisper smoke model gives the same greedy tokens and gradients on the
+kernel path as on the dense one.
 
 Every test here is marked ``gpu`` and skips without a CUDA device (the
 kernels have no CPU mode); on a machine with one:
@@ -1406,6 +1410,127 @@ def test_jamba_smoke_kernel_matches_ref_on_card():
     out = _kernel_vs_ref_grads(cfg, params, tk, labels, torch.float32)
     assert [kern.launches - b for kern, b in zip(kernels, before)] == \
         [n_attn] * 3
+    assert out["kernel"][0] == pytest.approx(out["ref"][0], rel=1e-5)
+    for a, b in zip(out["kernel"][1], out["ref"][1]):
+        assert torch.isfinite(a).all() and _rel_l2(a, b) <= 1e-4
+
+
+# ---------------------------------------------- the encoder-decoder --
+
+
+# whisper's attention (no mask; head dims 64): Lk = 1,500 = 23 x 64 + 28
+# keys against query lengths off the 128-row and 64-query tiles (130,
+# 257), more queries than keys (200 over 100), the encoder's 1,500 x
+# 1,500, and GQA over the same lengths (K6's head loop)
+FLASH_NO_MASK_CASES = [
+    (1, 4, 4, 130, 1500, 64, 64),
+    (2, 4, 4, 200, 100, 64, 64),
+    (1, 2, 2, 1500, 1500, 64, 64),
+    (1, 4, 2, 257, 1500, 64, 64),
+]
+
+
+@pytest.mark.parametrize("layout", ["bhld", "blhd"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", FLASH_NO_MASK_CASES)
+def test_flash_kernels_without_a_mask_on_card(case, dtype, layout):
+    """K4, K5 and K6 with ``causal=False`` at Lq != Lk and Lk off the
+    64-key tile: bf16 on the tensor-core walks (``last_plan`` route 'tc'
+    with its tiles and grid), f32 on the WMMA kernels; out, dQ, dK and dV
+    held row by row against the plain versions, lse within 1e-4, every
+    gradient finite."""
+    dev = _cuda()
+    B, H, Hkv, Lq, Lk, D, Dv = case
+    g = torch.Generator(device=dev)
+    g.manual_seed(Lq + 3 * Lk)
+
+    def rn(b, h, n, d):
+        if layout == "bhld":
+            return torch.randn((b, h, n, d), generator=g, device=dev).to(dtype)
+        return torch.randn((b, n, h, d), generator=g, device=dev).to(
+            dtype).transpose(1, 2)
+
+    q, k, v, do = rn(B, H, Lq, D), rn(B, Hkv, Lk, D), rn(B, Hkv, Lk, Dv), \
+        rn(B, H, Lq, Dv)
+    kw = dict(causal=False, window=None, q_offset=0, scale=D ** -0.5)
+    out, lse = tfa.flash_fwd_kernel(q, k, v, **kw)
+    out_p, lse_p = tfa.flash_fwd_plain(q, k, v, **kw)
+    delta = (do.float() * out_p.float()).sum(-1).contiguous()
+    dq = tfa.flash_bwd_dq_kernel(q, k, v, do, lse_p, delta, **kw)
+    dk, dv = tfa.flash_bwd_dkv_kernel(q, k, v, do, lse_p, delta, **kw)
+    torch.cuda.synchronize()
+    plans = (tfa.flash_fwd_kernel.last_plan,
+             tfa.flash_bwd_dq_kernel.last_plan,
+             tfa.flash_bwd_dkv_kernel.last_plan)
+    if dtype == torch.bfloat16:
+        assert plans == (
+            dict(route="tc", tiles=(128, 64), grid=(-(-Lq // 128), B * H)),
+            dict(route="tc", tiles=(128, 64), grid=(-(-Lq // 128), B * H)),
+            dict(route="tc", tiles=(64, 64), grid=(-(-Lk // 64), B * Hkv))), \
+            plans
+    else:
+        assert [p["route"] for p in plans] == ["wmma"] * 3, plans
+    tol = FLASH_ROW_TOL[dtype]
+    _row_close(out, out_p, tol)
+    _close(lse, lse_p, 1e-4)
+    _row_close(dq, tfa.flash_bwd_dq_plain(q, k, v, do, lse_p, delta, **kw),
+               tol)
+    dk_p, dv_p = tfa.flash_bwd_dkv_plain(q, k, v, do, lse_p, delta, **kw)
+    _row_close(dk, dk_p, tol)
+    _row_close(dv, dv_p, tol)
+    for grad in (dq, dk, dv):
+        assert torch.isfinite(grad).all()
+
+
+def test_whisper_smoke_kernel_matches_ref_on_card():
+    """The whisper smoke model (2 encoder + 3 decoder layers, 16 frames),
+    f32: the contiguous serve's greedy tokens under 'kernel' and
+    'chunked' equal 'ref''s, K4 launched once an attention call of the
+    prefill (encoder self, decoder self, cross); one train step's loss
+    within 1e-5 and every leaf's gradient within 1e-4 relative L2 of
+    'ref''s, K4 / K5 / K6 once an attention call.  Seed 5: the load's
+    smallest top-1 / top-2 logit margin is 9.4e-3 (CPU)."""
+    from repro_torch import configs, models
+    from repro_torch.launch.serve import serve_contiguous
+    from repro_torch.launch.train import batch_maker
+    from repro_torch.nn import module as nnm
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime import lm_loss
+
+    cfg = configs.smoke("whisper-medium")
+    params = nnm.init_params(models.model_defs(cfg), seed=5,
+                             dtype=torch.float32, device=_cuda())
+    n_attn = cfg.n_enc_layers + 2 * cfg.n_layers
+    toks = {}
+    for impl in ("ref", "chunked", "kernel"):
+        before = tfa.flash_fwd_kernel.launches
+        toks[impl] = serve_contiguous(
+            cfg, params, batch=4, prompt_len=48, gen=12, impl=impl, seed=5,
+            compute_dtype=torch.float32, device="cuda",
+            log=lambda _: None)["tokens"]
+        assert tfa.flash_fwd_kernel.launches - before == \
+            (n_attn if impl == "kernel" else 0)
+    np.testing.assert_array_equal(toks["kernel"], toks["ref"])
+    np.testing.assert_array_equal(toks["chunked"], toks["ref"])
+    data = np.random.default_rng(3).integers(0, cfg.vocab, (2, 65))
+    batch = batch_maker(cfg, "cuda", torch.float32)(data[:, :-1],
+                                                    data[:, 1:])
+    kernels = (tfa.flash_fwd_kernel, tfa.flash_bwd_dq_kernel,
+               tfa.flash_bwd_dkv_kernel)
+    leaves = list(tree_leaves(params))
+    out = {}
+    for impl in ("ref", "kernel"):
+        before = [kern.launches for kern in kernels]
+        for t in leaves:
+            t.requires_grad_(True)
+        loss, _ = lm_loss(params, cfg, batch["tokens"], batch["labels"],
+                          embeds=batch["embeds"], impl=impl,
+                          compute_dtype=torch.float32)
+        out[impl] = (loss.item(), torch.autograd.grad(loss, leaves))
+        for t in leaves:
+            t.requires_grad_(False)
+        assert [kern.launches - b for kern, b in zip(kernels, before)] == \
+            [n_attn if impl == "kernel" else 0] * 3
     assert out["kernel"][0] == pytest.approx(out["ref"][0], rel=1e-5)
     for a, b in zip(out["kernel"][1], out["ref"][1]):
         assert torch.isfinite(a).all() and _rel_l2(a, b) <= 1e-4

@@ -136,11 +136,12 @@ def test_shapes_and_registry_match_jax():
         == {k: dataclasses.asdict(v) for k, v in jconfigs.SHAPES.items()}
     for arch in ("deepseek-v2-236b", "deepseek-v3-671b"):
         assert tconfigs.skip_shapes(arch) == jconfigs.skip_shapes(arch)
-    # the encoder-decoder family stays unregistered; the recurrent ones
-    # are registered (tests/test_torch_recurrent.py)
-    with pytest.raises(KeyError):
-        tconfigs.full("whisper-medium")
-    for arch in ("jamba-1.5-large-398b", "xlstm-350m"):
+    # the recurrent families and the encoder-decoder are registered
+    # (tests/test_torch_recurrent.py, tests/test_torch_whisper.py)
+    for part in ("full", "smoke"):
+        assert dataclasses.asdict(getattr(tconfigs, part)("whisper-medium")) \
+            == dataclasses.asdict(getattr(jconfigs, part)("whisper-medium"))
+    for arch in ("jamba-1.5-large-398b", "xlstm-350m", "whisper-medium"):
         assert tconfigs.skip_shapes(arch) == jconfigs.skip_shapes(arch)
 
 
@@ -457,10 +458,10 @@ def test_prng_normal_matches_jax(seed):
     got = prng.normal(prng.split(prng.PRNGKey(seed + 1))[1], shape).numpy()
     ulps = np.abs(got - want) / np.spacing(np.abs(want))
     assert ulps.max() <= 32
-    emb = tserve.vlm_embeds(tconfigs.smoke("internvl2-26b"), 2, seed, "cpu")
+    emb = tserve.stub_embeds(tconfigs.smoke("internvl2-26b"), 2, seed, "cpu")
     _close(emb[:, :, :64].numpy() / 0.02, want[:, :, :64], 1e-5)
-    assert tserve.vlm_embeds(tconfigs.smoke("gemma3-1b"), 2, seed,
-                             "cpu") is None
+    assert tserve.stub_embeds(tconfigs.smoke("gemma3-1b"), 2, seed,
+                              "cpu") is None
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -91,12 +91,13 @@ def test_layer_plan_matches_every_jax_config(arch):
 
 
 def test_deepseek_configs_match():
-    assert dataclasses.asdict(tconfigs.full(ARCH)) == \
-        dataclasses.asdict(jconfigs.full(ARCH))
-    assert dataclasses.asdict(tconfigs.smoke(ARCH)) == \
-        dataclasses.asdict(jconfigs.smoke(ARCH))
-    with pytest.raises(KeyError):
-        tconfigs.full("whisper-medium")
+    """DeepSeek-V2's configs, and whisper's, now registered
+    (tests/test_torch_whisper.py), field for field."""
+    for arch in (ARCH, "whisper-medium"):
+        assert dataclasses.asdict(tconfigs.full(arch)) == \
+            dataclasses.asdict(jconfigs.full(arch))
+        assert dataclasses.asdict(tconfigs.smoke(arch)) == \
+            dataclasses.asdict(jconfigs.smoke(arch))
 
 
 def test_param_defs_and_count_match_jax():
@@ -417,21 +418,31 @@ def test_model_logits_match_jax(impl):
 @pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "xlstm-350m",
                                   "whisper-medium"])
 def test_unported_mixers_raise(arch):
-    """Encoder-decoder is not ported yet: whisper refuses to build, with
-    a pointer to ROADMAP.md.  The recurrent families are ported (their
-    parity: tests/test_torch_recurrent.py): each layer's parameter
-    definitions have the JAX package's shapes and inits, and a mixer
+    """The recurrent families and the encoder-decoder are ported (their
+    parity: tests/test_torch_recurrent.py, tests/test_torch_whisper.py):
+    the parameter definitions have the JAX package's shapes, inits and
+    count (whisper's per-layer encoder and decoder dicts those of the
+    reference's stacked leaves, less the layer axis), and a mixer
     neither package has still raises."""
     jcfg = jconfigs.smoke(arch)
     cfg = tcommon.ModelConfig(**dataclasses.asdict(jcfg))
-    if arch == "whisper-medium":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tmodels.model_defs(cfg)
-        return
     kind = lambda _, p: (p.shape, p.init)
     defs = tmodels.model_defs(cfg)
-    assert tnnm.count_params(defs) == \
-        jnnm.count_params(jmodels.model_defs(jcfg))
+    jdefs = jmodels.model_defs(jcfg)
+    assert tnnm.count_params(defs) == jnnm.count_params(jdefs)
+    if arch == "whisper-medium":
+        assert set(defs) == set(jdefs)
+        for name, node in defs.items():
+            if isinstance(node, list):       # stacked on 'layers' there
+                want = jnnm.map_defs(lambda _, p: (p.shape[1:], p.init),
+                                     jdefs[name])
+                assert len(node) == jnnm.map_defs(
+                    lambda _, p: p.shape[0], jdefs[name])["ln1"]["scale"]
+                assert all(tnnm.map_defs(kind, n) == want for n in node)
+            else:
+                assert tnnm.map_defs(kind, node) == \
+                    jnnm.map_defs(kind, jdefs[name])
+        return
     for desc, node in tmodels.lm.layers(cfg, defs):
         assert tnnm.map_defs(kind, node) == \
             jnnm.map_defs(kind, jblocks.sub_defs(jcfg, desc))
