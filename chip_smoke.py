@@ -210,14 +210,40 @@ Phases, each printing its own lines; any failure exits non-zero:
      twice an attention call (the backward recomputes each layer), K5 /
      K6 once, the plan of every launch on route 'tc'; at 4 + 4 layers in f32, one step's loss
      and per-leaf gradients 'kernel' against 'ref' within
-     ``GQA_GRAD_REL``.
+     ``GQA_GRAD_REL``;
+ 13. the rest of the single-device surface (run inside phase 3's
+     full-width model's life, after phase 9): (a) a conversation tree
+     (8 conversations open with one 500-token system prompt ending 4
+     tokens into block 31, 100-token user messages, 48-token replies,
+     12-token user suffixes, 3 turns; conversation 0 arrives alone, the
+     others after its prefill) on the sync engine on graphs, bf16 pool,
+     ``impl='kernel'``, drop-free MoE capacity, warm (the defaults) and
+     cold (``decode_block_reuse=False, partial_match=False,
+     admission='fcfs'``) in turns warm, cold, cold, warm: prefill tokens
+     and median TTFT per turn, prefix hits, partial hits and
+     decode-inserted blocks, decode tokens/s, K1 / K2 = layers x ticks /
+     chunks; warm partial hits and decode-inserted blocks > 0, cold 0 of
+     both, warm prefill tokens below cold's in turns 2 and 3, tokens
+     equal but for counted near ties; (b) ``impl='chunked'`` on the
+     paged engines: the f32 smoke config (phase 5's seed and load), sync
+     and async, chunked and per-request prefill, greedy tokens identical
+     to 'ref' and 'kernel' with no K1, K2 or K4 launch under 'chunked';
+     then phase 3's load at full width under 'chunked', its tokens/s
+     beside phase 3's; (c) ``optim.compress`` on the card against the
+     CPU bit for bit: the f32 smoke config's whole gradient tree over 3
+     carried steps, then a full-width expert ``down`` leaf (160 x 1,536
+     x 5,120) and the embedding leaf (102,400 x 5,120) one at a time,
+     ms a leaf on the card and ``compression_ratio``; (d) the port's
+     three examples at their defaults on cuda, each printing its OK
+     line.
 
 The line before the last is the kernel table as JSON (``launches`` sums
 the main paths that ran a kernel, ``launches_by_path`` splits them;
 ``plan`` is the plan each wrapper recorded at the timed launch; K2's row
 holds its verify-width timing under ``verify``, K4's its phase 10 rows
 under ``baseline`` and its phase 11 row under ``jamba``, K4's, K5's and
-K6's their phase 12 rows under ``whisper``); the
+K6's their phase 12 rows under ``whisper``; phase 13's K1 / K2 launches
+are its ``conversations_*`` paths, its 'chunked' paths count 0); the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or outside a checkout of the repository, it exits non-zero and prints no
 result.
@@ -1369,11 +1395,12 @@ def requests_full(cfg, np, Request, SamplingParams, gen: int):
 
 
 def full_width(torch, np):
-    """Phases 3, 4, 7, 8 and 9, on one full-width model: paged serving
-    on a bf16 and on an fp8 pool, contiguous serving, sampled serving
-    with telemetry, the engines in turns and the frontend, then
-    speculative decoding (9(a) on the f32 smoke config).  Returns the
-    kernel launch counts of each path."""
+    """Phases 3, 4, 7, 8, 9 and 13, on one full-width model: paged
+    serving on a bf16 and on an fp8 pool, contiguous serving, sampled
+    serving with telemetry, the engines in turns and the frontend,
+    speculative decoding (9(a) on the f32 smoke config), then the
+    cold-cache options, 'chunked', compression and the examples.
+    Returns the kernel launch counts of each path."""
     from repro_torch import configs, models
     from repro_torch.nn import module as nnm
 
@@ -1407,11 +1434,12 @@ def full_width(torch, np):
     by_path.update(phase8_frontend(torch, np, cfg, params))
     spec_smoke_parity(torch, np)
     by_path.update(spec_full_width(torch, np, cfg, params))
+    by_path.update(phase13(torch, np, cfg, params, tps["bf16"]))
     del params
     gc.collect()
     torch.cuda.empty_cache()
     # every engine and its graphs are gone: what stays allocated leaked
-    log(f"[e2e] after phases 3, 4, 7, 8 and 9: "
+    log(f"[e2e] after phases 3, 4, 7, 8, 9 and 13: "
         f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB still allocated, "
         f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved")
     return by_path
@@ -4270,6 +4298,375 @@ def whisper_family(torch, np):
     parity = {k: parity.get(k, 0) + v for k, v in grads.items()}
     whisper = {k: serve_n.get(k, 0) + v for k, v in train_n.items()}
     return rows, {"whisper": whisper, "whisper_cut_parity": parity}
+
+# ------------------ phase 13: cold-cache options, 'chunked', compression ---
+
+
+# 13(a): a conversation tree.  Every conversation opens with one system
+# prompt of CONV_SYSTEM tokens (it ends 4 tokens into block 31 at block
+# size 16) and its own user message; each turn appends the reply and a
+# user suffix.  Turn 1's conversation 0 arrives alone, the others once its
+# prefill has finished, so they hit its blocks, the last one partially.
+CONV_N, CONV_SYSTEM, CONV_USER = 8, 500, 100
+CONV_REPLY, CONV_SUFFIX, CONV_TURNS = 48, 12, 3
+CONV_MAX_LEN = CONV_SYSTEM + CONV_USER \
+    + (CONV_TURNS - 1) * (CONV_REPLY + CONV_SUFFIX) + CONV_REPLY
+# the serving benchmark's cold-cache emulation
+COLD = dict(decode_block_reuse=False, partial_match=False, admission="fcfs")
+PHASE13_RUNS = (("warm", {}), ("cold", COLD), ("cold", COLD), ("warm", {}))
+# 13(c): error-feedback top-k at its default fraction, 0.01
+COMPRESS_STEPS = 3
+COMPRESS_REPS = 3
+
+
+def conversation_openers(cfg, np):
+    """The first turn's prompts and every later turn's user suffixes."""
+    rng = np.random.default_rng(13)
+    system = rng.integers(0, cfg.vocab, CONV_SYSTEM)
+    prompts = [np.concatenate([system, rng.integers(0, cfg.vocab, CONV_USER)])
+               .astype(np.int32) for _ in range(CONV_N)]
+    suffixes = [[rng.integers(0, cfg.vocab, CONV_SUFFIX).astype(np.int32)
+                 for _ in range(CONV_N)] for _ in range(CONV_TURNS - 1)]
+    return prompts, suffixes
+
+
+def serve_conversations(engine, cfg, np, replies=None):
+    """Serve the conversation tree on ``engine`` turn by turn (request rid
+    100 t + i is conversation i's turn t + 1).  The next turn's prompts
+    append ``replies`` (the first run's outputs by rid, so every run
+    serves the same prompts) or, None, this run's own.  Returns the
+    outputs by rid and, a turn, the prefill tokens and the median TTFT
+    (ms, host clock: submit to first token)."""
+    from repro_torch.runtime import Request, SamplingParams
+
+    prompts, suffixes = conversation_openers(cfg, np)
+    outs, turns = {}, []
+    for t in range(CONV_TURNS):
+        start, pre = engine.stats.steps, engine.stats.prefill_tokens
+        reqs = [Request(rid=100 * t + i, prompt=p,
+                        arrival=start + (1 if t == 0 and i else 0),
+                        sampling=SamplingParams(max_tokens=CONV_REPLY))
+                for i, p in enumerate(prompts)]
+        todo = list(reqs)
+        while todo or not engine.idle:
+            while todo and todo[0].arrival <= engine.stats.steps:
+                engine.submit(todo.pop(0))
+            engine.step()
+            if engine.stats.steps > start + 1000:
+                raise AssertionError(f"turn {t + 1} did not drain")
+        for r in reqs:
+            if len(r.output) != CONV_REPLY:
+                raise AssertionError(f"request {r.rid} ended with "
+                                     f"{len(r.output)} tokens")
+            outs[r.rid] = [int(x) for x in r.output]
+        turns.append({"prefill_tokens": engine.stats.prefill_tokens - pre,
+                      "ttft_ms": statistics.median(
+                          (r.first_tok_t - r.submit_t) * 1e3 for r in reqs)})
+        src = outs if replies is None else replies
+        if t + 1 < CONV_TURNS:
+            prompts = [np.concatenate([p, np.asarray(src[100 * t + i],
+                                                     np.int32),
+                                       suffixes[t][i]])
+                       for i, p in enumerate(prompts)]
+    return outs, turns
+
+
+def phase13_conversations(torch, np, cfg, params):
+    """Phase 13(a): the conversation tree on the sync engine on graphs,
+    bf16 pool, ``impl='kernel'``, at drop-free MoE capacity, warm (the
+    defaults) and cold (``COLD``) in turns warm, cold, cold, warm.
+    Returns the launch counts by run."""
+    from repro_torch.kernels import mla_decode, mla_prefill
+    from repro_torch.launch.serve import build_engine
+
+    cfg = drop_free(cfg)
+    kw = dict(batch=CONV_N, max_len=CONV_MAX_LEN, gen=CONV_REPLY,
+              block_size=BS, impl="kernel", scheme="auto", platform="h100",
+              prefill_chunk=C, compute_dtype=torch.bfloat16, device="cuda")
+    k1, k2 = mla_decode.mla_decode_paged_kernel, \
+        mla_prefill.mla_prefill_paged_kernel
+    margins, base = {}, None
+
+    def warm_margins():
+        # a warm serve recording the margin of every token it sampled;
+        # run only when a run's tokens differ from the first run's
+        if not margins:
+            eng = build_engine(cfg, params, **kw)
+            record_margins(torch, eng, margins)
+            serve_conversations(eng, cfg, np, base)
+            eng.close()
+        return {"store": margins, "temperature": 1.0}
+
+    by_path, runs = {}, []
+    for i, (label, opts) in enumerate(PHASE13_RUNS):
+        engine = build_engine(cfg, params, **kw, **opts)
+        capture_s = engine.warm_up()
+        k1.launches = k2.launches = 0
+        outs, turns = serve_conversations(engine, cfg, np, base)
+        s = engine.summary()
+        launches = {"mla_decode_paged": k1.launches,
+                    "mla_prefill_paged": k2.launches}
+        ticks = sum(s["schemes_used"].values())
+        want = {"mla_decode_paged": cfg.n_layers * ticks,
+                "mla_prefill_paged": cfg.n_layers * s["prefill_chunks"]}
+        if launches != want:
+            raise AssertionError(f"{label}: kernel launches {launches} != "
+                                 f"{want}")
+        check_graph_plans(engine)
+        if base is None:
+            base = outs
+        ties = tie_count(base, outs, warm_margins, f"13(a) {label} {i + 1}")
+        hits = {k: s[k] for k in ("prefix_hit_tokens", "prefix_partial_hits",
+                                  "prefix_decode_inserted_blocks")}
+        warm = label == "warm"
+        if warm and not (hits["prefix_partial_hits"] > 0
+                         and hits["prefix_decode_inserted_blocks"] > 0):
+            raise AssertionError(f"warm run {i + 1} made no partial hit or "
+                                 f"cached no decode block: {hits}")
+        if not warm and (hits["prefix_partial_hits"]
+                         or hits["prefix_decode_inserted_blocks"]):
+            raise AssertionError(f"cold run {i + 1} hit partially or cached "
+                                 f"a decode block: {hits}")
+        runs.append((label, turns))
+        by_path[f"conversations_{label}_{i + 1}"] = launches
+        log(f"[cold] {i + 1} {label}: prefill tokens by turn "
+            f"{[t['prefill_tokens'] for t in turns]}, median TTFT by turn "
+            f"{[round(t['ttft_ms'], 2) for t in turns]} ms, {hits}, "
+            f"{s['tokens_per_s']:.1f} decode tokens/s, step "
+            f"{engine.stats.wall * 1e3 / engine.stats.steps:.2f} ms mean, "
+            f"capture {capture_s:.3f}s, launches {launches} = layers x "
+            f"{ticks} ticks / {s['prefill_chunks']:.0f} chunks, "
+            f"{ties} requests on near ties")
+        engine.close()
+        del engine
+        torch.cuda.empty_cache()
+    for t in range(1, CONV_TURNS):
+        warm = [r[1][t]["prefill_tokens"] for r in runs if r[0] == "warm"]
+        cold = [r[1][t]["prefill_tokens"] for r in runs if r[0] == "cold"]
+        if max(warm) >= min(cold):
+            raise AssertionError(f"turn {t + 1}: warm prefill tokens {warm} "
+                                 f"not below cold {cold}")
+    return by_path
+
+
+def phase13_chunked_smoke(torch, np):
+    """Phase 13(b), smoke: ``impl='chunked'`` on the paged engines (sync
+    and async; chunked and per-request prefill) on the f32 smoke config
+    (phase 5's seed and load), on graphs: greedy tokens identical to
+    'ref' and 'kernel', and under 'chunked' no launch of K1, K2 or K4.
+    Returns the launch counts of the 'chunked' runs."""
+    from repro_torch import configs, models
+    from repro_torch.kernels import flash_attention, mla_decode, mla_prefill
+    from repro_torch.launch.serve import (build_engine, serve_paged,
+                                          synthetic_requests)
+    from repro_torch.nn import module as nnm
+
+    cfg = drop_free(configs.smoke("deepseek-v2-236b"))
+    params = nnm.init_params(models.model_defs(cfg), seed=4,
+                             dtype=torch.float32, device="cuda")
+    counters = {"mla_decode_paged": mla_decode.mla_decode_paged_kernel,
+                "mla_prefill_paged": mla_prefill.mla_prefill_paged_kernel,
+                "flash_attention_fwd": flash_attention.flash_fwd_kernel}
+    by_path, want = {}, None
+    for kind in ("sync", "async"):
+        for chunk in (8, 0):
+            for impl in ("ref", "chunked", "kernel"):
+                engine = build_engine(
+                    cfg, params, batch=4, max_len=48 + 12, gen=12, impl=impl,
+                    scheme="auto", platform="h100", prefill_chunk=chunk,
+                    compute_dtype=torch.float32, device="cuda", engine=kind)
+                engine.warm_up()
+                for k in counters.values():
+                    k.launches = 0
+                serve_paged(engine, synthetic_requests(
+                    cfg, batch=4, prompt_len=48, gen=12, seed=4),
+                    log=lambda *_: None)
+                got = {r.rid: list(r.output) for r in engine.sched.finished}
+                n = {name: k.launches for name, k in counters.items()}
+                engine.close()
+                if want is None:
+                    want = got
+                mode = "chunked" if chunk else "per_request"
+                if got != want or len(got) != 4:
+                    raise AssertionError(f"{kind} {mode} {impl}: tokens "
+                                         f"{got} != {want}")
+                if impl == "chunked":
+                    if any(n.values()):
+                        raise AssertionError(f"impl='chunked' launched "
+                                             f"kernels: {n}")
+                    by_path[f"chunked_smoke_{kind}_{mode}"] = n
+    log("[chunked] f32 smoke, sync and async engines, chunked and "
+        "per-request prefill: greedy tokens identical under 'ref', "
+        "'chunked' and 'kernel'; 'chunked' launched no K1, K2 or K4")
+    return by_path
+
+
+def phase13_chunked_full(torch, np, cfg, params, phase3_tps):
+    """Phase 13(b), full width: phase 3's load (bf16 pool, the config's
+    MoE capacity, graphs) under ``impl='chunked'``: every request
+    finishes, no K1 / K2 launch; tokens/s beside phase 3's."""
+    from repro_torch.kernels import mla_decode, mla_prefill
+    from repro_torch.launch.serve import build_engine, serve_paged
+    from repro_torch.runtime import Request, SamplingParams
+
+    gen = 32
+    reqs = requests_full(cfg, np, Request, SamplingParams, gen)
+    engine = build_engine(cfg, params, batch=8, max_len=1024 + gen, gen=gen,
+                          block_size=BS, impl="chunked", scheme="auto",
+                          platform="h100", prefill_chunk=C,
+                          compute_dtype=torch.bfloat16, device="cuda")
+    capture_s = engine.warm_up()
+    k1, k2 = mla_decode.mla_decode_paged_kernel, \
+        mla_prefill.mla_prefill_paged_kernel
+    k1.launches = k2.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    summary = serve_paged(engine, reqs, log=lambda *_: None, log_every=0)
+    launches = {"mla_decode_paged": k1.launches,
+                "mla_prefill_paged": k2.launches}
+    done = engine.sched.finished
+    if len(done) != len(reqs) or any(len(r.output) != gen for r in done):
+        raise AssertionError("'chunked': not every request finished")
+    if any(launches.values()):
+        raise AssertionError(f"impl='chunked' launched {launches}")
+    log(f"[chunked] phase 3's load under impl='chunked' (graphs, captured "
+        f"in {capture_s:.3f}s): {summary['tokens_per_s']:.1f} tokens/s "
+        f"against phase 3's bf16 {', '.join(f'{t:.1f}' for t in phase3_tps)}"
+        f" (impl='kernel', this run), step "
+        f"{engine.stats.wall * 1e3 / engine.stats.steps:.2f} ms mean, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
+        f"{launches}")
+    engine.close()
+    del engine
+    torch.cuda.empty_cache()
+    return {"chunked_full_width": launches}
+
+
+def _same_bits(torch, a, b) -> bool:
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def phase13_compression(torch, np, cfg, params):
+    """Phase 13(c): ``optim.compress`` on the card against the CPU, bit
+    for bit (sent and error): the f32 smoke config's whole gradient tree
+    over COMPRESS_STEPS carried steps, then a full-width expert ``down``
+    leaf and the embedding leaf one at a time (a drawn gradient and a
+    drawn carried error); ms a leaf on the card, and the ratio."""
+    from repro_torch import configs, models
+    from repro_torch.nn import module as nnm
+    from repro_torch.optim import (TopKConfig, compress, compression_ratio,
+                                   init_error)
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+
+    topk = TopKConfig()
+    smoke = nnm.init_params(models.model_defs(configs.smoke(
+        "deepseek-v2-236b")), seed=0, dtype=torch.float32, device="cpu")
+    rng = np.random.default_rng(13)
+    err_c, err_g = init_error(smoke), init_error(tree_map(
+        lambda p: p.cuda(), smoke))
+    for step in range(COMPRESS_STEPS):
+        g = tree_map(lambda p: torch.from_numpy(rng.standard_normal(
+            tuple(p.shape)).astype(np.float32)), smoke)
+        sent_c, err_c = compress(topk, g, err_c)
+        sent_g, err_g = compress(topk, tree_map(lambda t: t.cuda(), g),
+                                 err_g)
+        for what, a, b in (("sent", sent_g, sent_c), ("error", err_g, err_c)):
+            for i, (x, y) in enumerate(zip(tree_leaves(a), tree_leaves(b))):
+                if not _same_bits(torch, x.cpu(), y):
+                    raise AssertionError(f"compress step {step}: {what} "
+                                         f"leaf {i} differs card vs CPU")
+    n_leaves = len(list(tree_leaves(smoke)))
+    log(f"[compress] f32 smoke tree ({n_leaves} leaves), {COMPRESS_STEPS} "
+        f"carried steps: sent and error bitwise equal on the card and the "
+        f"CPU; compression_ratio {compression_ratio(topk, smoke):.4f}")
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    shapes = {"moe down": (cfg.n_experts, cfg.moe_d_ff, cfg.d_model),
+              "embed": (cfg.vocab, cfg.d_model)}
+    for name, shape in shapes.items():
+        g = torch.randn(shape, generator=gen, device="cuda")
+        e = torch.randn(shape, generator=gen, device="cuda").mul_(0.1)
+        times, sent, err = [], None, None
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(COMPRESS_REPS):
+            sent = err = None
+            torch.cuda.synchronize()
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            sent, err = compress(topk, [g], [e])
+            t1.record()
+            t1.synchronize()
+            times.append(t0.elapsed_time(t1))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        g_c, e_c = g.cpu(), e.cpu()
+        del g, e
+        t_cpu = time.perf_counter()
+        sent_c, err_c = compress(topk, [g_c], [e_c])
+        t_cpu = time.perf_counter() - t_cpu
+        same = _same_bits(torch, sent[0].cpu(), sent_c[0]) and \
+            _same_bits(torch, err[0].cpu(), err_c[0])
+        kept = int((sent_c[0] != 0).sum())
+        n = sent_c[0].numel()
+        del sent, err, sent_c, err_c, g_c, e_c
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[compress] {name} {shape} ({n / 1e9:.3f} G f32 elements): "
+            f"card {statistics.median(times):.3f} ms median of "
+            f"{[round(t, 3) for t in times]}, CPU {t_cpu:.2f} s; "
+            f"{'bitwise equal' if same else 'DIFFERENT'}; kept {kept} "
+            f"(k = {max(1, int(n * topk.fraction))}), ratio "
+            f"{compression_ratio(topk, [torch.empty(shape, device="meta")]):.4f}; peak "
+            f"{peak:.2f} GiB")
+        if not same:
+            raise AssertionError(f"compress {name}: card and CPU differ")
+    log(f"[compress] compression_ratio of the {cfg.n_layers}-layer "
+        f"full-width params: {compression_ratio(topk, params):.4f}")
+
+
+def phase13_examples(torch):
+    """Phase 13(d): the port's three examples at their defaults on cuda
+    (``train_mla`` in a fresh checkpoint directory): each prints its OK
+    line; wall time each."""
+    import contextlib
+    import io
+    import tempfile
+
+    from repro_torch.examples import quickstart, serve_mla, train_mla
+
+    with tempfile.TemporaryDirectory() as d:
+        runs = (("quickstart", quickstart, []),
+                ("train_mla", train_mla, ["--ckpt-dir", d]),
+                ("serve_mla", serve_mla, []))
+        for name, mod, argv in runs:
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                mod.main(argv)
+            wall = time.perf_counter() - t0
+            lines = out.getvalue().splitlines()
+            ok = [x for x in lines if x.startswith("OK")]
+            if not ok:
+                raise AssertionError(f"{name} printed no OK line: "
+                                     f"{lines[-5:]}")
+            tail = [x for x in lines if x.startswith(("final loss",
+                                                      "served "))]
+            log(f"[examples] {name} on cuda: {wall:.1f}s, "
+                f"{' '.join(tail)} {ok[-1]!r}")
+
+
+def phase13(torch, np, cfg, params, phase3_tps):
+    """Phase 13 (after phase 9, on its full-width model).  Returns the
+    launch counts of each path."""
+    t0 = time.perf_counter()
+    by_path = phase13_conversations(torch, np, cfg, params)
+    by_path.update(phase13_chunked_smoke(torch, np))
+    by_path.update(phase13_chunked_full(torch, np, cfg, params, phase3_tps))
+    phase13_compression(torch, np, cfg, params)
+    phase13_examples(torch)
+    log(f"[phase 13] {time.perf_counter() - t0:.1f}s")
+    return by_path
 
 
 

@@ -57,8 +57,9 @@ before the first request.
   --scheme S          auto | naive | seq | rc | ru
   --platform P        hwmodel platform auto_dispatch prices against
   --impl I            attention: 'ref' (dense / gathered view), 'chunked'
-                      (the contiguous prefill in core.chunked_attention's
-                      block-pair walk; the paged engines refuse it) or
+                      (a contiguous or per-request prefill in
+                      core.chunked_attention's block-pair walk; paged
+                      decode and chunks gather, as under 'ref') or
                       'kernel' (the CUDA kernels; their plain versions on
                       CPU)
   --seed N            weight init and prompts
@@ -159,14 +160,17 @@ def build_engine(cfg, params, *, batch: int, max_len: int, n: int = 1,
                  compute_dtype=torch.float32, device="cuda",
                  engine: str = "sync", prefill_impl: Optional[str] = None,
                  cuda_graphs: Optional[bool] = None, spec_k: int = 0,
-                 draft: str = "") -> PagedMLAEngine:
+                 draft: str = "", decode_block_reuse: bool = True,
+                 partial_match: bool = True) -> PagedMLAEngine:
     """A paged engine (``engine`` 'sync': ``PagedMLAEngine``, 'async':
     ``AsyncPagedMLAEngine``) sized for ``batch`` request groups of up to
     ``max_len`` tokens (prompt + generation), each forked ``n`` ways.
     ``prefill_chunk`` 0 prefills per request (``prefill_mode=
     'per_request'``).  ``cuda_graphs`` None: graphs on a CUDA device.
     ``spec_k`` > 0 decodes speculatively with the draft ``draft`` names
-    (``runtime.spec.parse_draft_spec``: 'self' | 'shallow:N')."""
+    (``runtime.spec.parse_draft_spec``: 'self' | 'shallow:N').
+    ``decode_block_reuse`` / ``partial_match`` False (with ``admission=
+    'fcfs'``) build the cold-cache baseline."""
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; expected {ENGINES}")
     draft_cfg = draft_params = None
@@ -188,7 +192,8 @@ def build_engine(cfg, params, *, batch: int, max_len: int, n: int = 1,
         temperature=temperature, top_k=top_k, sample_seed=sample_seed,
         telemetry=telemetry, device=device, prefill_impl=prefill_impl,
         cuda_graphs=cuda_graphs, spec_k=spec_k, draft_cfg=draft_cfg,
-        draft_params=draft_params)
+        draft_params=draft_params, decode_block_reuse=decode_block_reuse,
+        partial_match=partial_match)
 
 
 def synthetic_requests(cfg, *, batch: int, prompt_len: int, gen: int,

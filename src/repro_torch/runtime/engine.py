@@ -23,7 +23,10 @@ block tables, copy-on-write, preemption) to the device steps of
 
 ``impl='kernel'`` runs the paged attention in the CUDA kernels (K1 for
 decode, K2 for prefill chunks; their plain versions on CPU tensors);
-``impl='ref'`` on the gathered block-table view; ``prefill_impl``
+``impl='ref'`` on the gathered block-table view, and so does
+``impl='chunked'`` (the reference's engine does the same: its decode and
+chunk steps gather under 'chunked'), whose per-request prefill attends
+through ``core.chunked_attention``'s block-pair walk; ``prefill_impl``
 ('gather' | 'kernel', or the reference's name 'pallas' for 'kernel')
 overrides the chunk attention alone.  The pool is updated in place, in
 the compute dtype (``cache_dtype='bf16'``) or quantized (``'int8'`` /
@@ -33,6 +36,10 @@ prefill and the decode step, dequantized in the kernels' registers).
 through the contiguous MHA-mode prefill (``steps.make_prefill_step``) and
 scatters its cache into the pool in whole blocks; it turns the prefix
 cache off and refuses a quantized pool, as the reference does.
+``partial_match=False`` (prefix hits end on a block boundary) and
+``decode_block_reuse=False`` (no decode-completed block is cached) pass
+to the scheduler: with ``admission='fcfs'`` they are the cold-cache
+baseline of the serving benchmark.
 
 ``spec_k > 0`` with a draft (``runtime.spec``: 'self' or 'shallow:N')
 turns each decode tick into a speculative round (:meth:`PagedMLAEngine.
@@ -92,6 +99,7 @@ from ..core import mla as mlalib
 from ..core.schemes import PlatformPoint, auto_dispatch
 from ..kernels.mla_decode import mla_decode_paged_kernel
 from ..kernels.mla_prefill import mla_prefill_paged_kernel
+from ..models.blocks import IMPLS
 from ..models.common import ModelConfig
 from ..obs import OFF_TELEMETRY, Telemetry
 from ..obs.trace import PID_ENGINE
@@ -192,6 +200,8 @@ class PagedMLAEngine:
                  cache_dtype: str = "bf16",
                  admission: str = "cache_aware",
                  admission_age_bound: int = 64,
+                 decode_block_reuse: bool = True,
+                 partial_match: bool = True,
                  telemetry: Optional[Telemetry] = None, device="cuda",
                  cuda_graphs: Optional[bool] = None):
         if cfg.attn_kind != "mla":
@@ -200,9 +210,9 @@ class PagedMLAEngine:
             raise ValueError("scheme='auto' needs a PlatformPoint")
         if scheme not in ("auto",) + mlalib.SCHEMES:
             raise ValueError(f"unknown scheme {scheme!r}")
-        if impl not in ("ref", "kernel"):
-            raise ValueError(f"unknown impl {impl!r}; expected 'ref' | "
-                             f"'kernel'")
+        if impl not in IMPLS:
+            raise ValueError(f"unknown impl {impl!r}; expected one of "
+                             f"{IMPLS}")
         if prefill_mode not in ("chunked", "per_request"):
             raise ValueError(f"unknown prefill_mode {prefill_mode!r}")
         if prefill_impl in ("auto", ""):
@@ -283,7 +293,9 @@ class PagedMLAEngine:
             enable_prefix_cache=enable_prefix_cache,
             decode_window=spec_k + 1,
             admission=admission,
-            admission_age_bound=admission_age_bound)
+            admission_age_bound=admission_age_bound,
+            decode_block_reuse=decode_block_reuse,
+            partial_match=partial_match)
         self.pool = models.init_paged_cache(cfg, num_blocks, block_size,
                                             compute_dtype, self.device,
                                             cache_dtype)
@@ -396,8 +408,9 @@ class PagedMLAEngine:
         return self._inputs["chunk" if kind == "draft_chunk" else kind]
 
     def _chunk_impl(self) -> str:
-        """Chunk-attention impl: ``prefill_impl`` when set, else
-        ``impl``."""
+        """Chunk-attention impl of the prefill, verify and draft chunk
+        steps: ``prefill_impl`` when set, else ``impl`` (the models
+        gather under 'chunked', as under 'ref')."""
         return {"gather": "ref", "kernel": "kernel",
                 None: self.impl}[self.prefill_impl]
 

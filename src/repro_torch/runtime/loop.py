@@ -16,9 +16,9 @@ Training-loop behaviours, as in the reference:
     queue 3).
 
 Step times end in ``torch.cuda.synchronize()`` on a CUDA device (the
-reference's ``block_until_ready``).  ``TrainLoop``'s ``log`` is a bare
-callable taking one string; ``drive``'s may also be an
-``obs.StructLogger``.
+reference's ``block_until_ready``).  ``log`` is a bare callable taking
+one string, an ``obs.StructLogger`` or None (silent); ``TrainLoop``
+writes the reference's records through ``as_logger(log, "loop")``.
 """
 from __future__ import annotations
 
@@ -93,7 +93,11 @@ class TrainLoop:
         self.cfg = cfg
         self.step_fn = step_fn
         self.data = data
+        # ``log`` keeps its bare-callable contract; every line goes
+        # through the structured logger, so it can be silenced or
+        # JSON-formatted as the engine's
         self.log = log
+        self.slog = as_logger(log, "loop")
         self.store = CheckpointStore(cfg.ckpt_dir, keep=cfg.keep)
         self.params, self.opt_state = params, opt_state
         self.device = next(tree_leaves(params)).device
@@ -118,7 +122,7 @@ class TrainLoop:
             tree_map(lambda live, new: live.copy_(new), tree, restored)
         self.data.load_state_dict(meta["data_state"])
         self.step = meta["step"]
-        self.log(f"[loop] resumed from checkpoint step={self.step}")
+        self.slog.info("resumed from checkpoint", step=self.step)
 
     def _deadline(self) -> Optional[float]:
         if len(self.step_times) < self.cfg.straggler_warmup:
@@ -140,8 +144,8 @@ class TrainLoop:
         if deadline is not None and dt > deadline:
             self.straggler_events.append(
                 {"step": self.step, "time": dt, "deadline": deadline})
-            self.log(f"[loop] straggler re-dispatched step={self.step} "
-                     f"time_s={dt:.4f} deadline_s={deadline:.4f}")
+            self.slog.warning("straggler re-dispatched", step=self.step,
+                              time_s=dt, deadline_s=deadline)
             metrics, dt = self._timed_step(batch)
         self.step_times.append(dt)
         return metrics
@@ -153,9 +157,9 @@ class TrainLoop:
             last_metrics = self._run_step(self.make_batch(toks, labels))
             self.step += 1
             if self.cfg.log_every and self.step % self.cfg.log_every == 0:
-                self.log(f"[loop] step={self.step} "
-                         f"loss={float(last_metrics['loss']):.4f} "
-                         f"ms={self.step_times[-1] * 1e3:.1f}")
+                self.slog.info("step", step=self.step,
+                               loss=float(last_metrics["loss"]),
+                               ms=self.step_times[-1] * 1e3)
             if self.step % self.cfg.ckpt_every == 0 or \
                     self.step == self.cfg.total_steps:
                 self.store.save(

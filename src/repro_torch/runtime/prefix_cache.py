@@ -147,10 +147,14 @@ class PrefixCache:
     carries one code path.
     """
 
-    def __init__(self, allocator, block_size: int, *, enabled: bool = True):
+    def __init__(self, allocator, block_size: int, *, enabled: bool = True,
+                 partial: bool = True):
         self.allocator = allocator
         self.block_size = block_size
         self.enabled = enabled
+        # token-granular partial-block matching; False matches whole
+        # blocks only (the cold-cache baseline)
+        self.partial = partial
         self.root = _Node(None, None, None)
         self._node_of: Dict[int, _Node] = {}     # registered block -> node
         self._evictable: Dict[int, _Node] = {}   # refcount-0 cached blocks
@@ -169,7 +173,7 @@ class PrefixCache:
 
     def match(self, tokens: Sequence[int]) -> MatchResult:
         """Longest cached prefix of ``tokens``: full blocks as the list
-        content, plus a token-granular tail —
+        content, plus (``partial=True``) a token-granular tail —
         ``partial_len`` tokens into one more cached block whose content
         extends the prefix (``MatchResult``).  Every returned block,
         including the partial source, is ``fork``ed (refcount +1) on
@@ -196,13 +200,14 @@ class PrefixCache:
             blocks.append(child.block)
             node = child
         partial_src, partial_len = None, 0
-        tail = self._partial_child(node, tokens, len(blocks), budget)
-        if tail is not None:
-            child, partial_len = tail
-            self.allocator.fork([child.block])
-            self._evictable.pop(child.block, None)
-            child.last_used = self._tick()
-            partial_src = child.block
+        if self.partial:
+            tail = self._partial_child(node, tokens, len(blocks), budget)
+            if tail is not None:
+                child, partial_len = tail
+                self.allocator.fork([child.block])
+                self._evictable.pop(child.block, None)
+                child.last_used = self._tick()
+                partial_src = child.block
         if blocks or partial_len:
             self.stats.hits += 1
             self.stats.hit_tokens += len(blocks) * self.block_size \
@@ -246,9 +251,10 @@ class PrefixCache:
             n_full += 1
             node = child
         n = n_full * self.block_size
-        tail = self._partial_child(node, tokens, n_full, budget)
-        if tail is not None:
-            n += tail[1]
+        if self.partial:
+            tail = self._partial_child(node, tokens, n_full, budget)
+            if tail is not None:
+                n += tail[1]
         return n
 
     def cancel_match(self, tokens: Sequence[int],

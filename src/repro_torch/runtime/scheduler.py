@@ -25,7 +25,7 @@ numpy, between device steps:
     (longest-cached-prefix first with an ``admission_age_bound``
     starvation bound).  Each decode step lazily allocates one more block
     for any request crossing a block boundary — and registers the block
-    just completed in the trie, so a follow-up
+    just completed in the trie (``decode_block_reuse``), so a follow-up
     conversation turn re-hits its own generation; finished requests
     release their blocks — trie-registered ones stay resident as
     LRU-evictable prefix cache, the rest return to the free list
@@ -51,10 +51,11 @@ A decode tick writes ``decode_window`` cache positions per request: 1
 for plain decode, ``spec_k + 1`` under speculative decoding (the verify
 step writes the fed token and up to k drafts), clipped to the request's
 remaining budget; admission and block growth reserve that window, and
-``advance_multi`` accounts a round's accepted tokens.  The JAX package's
-block-granular prefix matching and its switch for decode-block
-registration serve features the port does not run yet (ROADMAP.md,
-queue 1).  With telemetry on, ``fork_group`` puts a ``fork_group``
+``advance_multi`` accounts a round's accepted tokens.  ``partial_match=
+False`` matches whole blocks only and ``decode_block_reuse=False``
+registers no decode-completed block: with ``admission='fcfs'`` the
+two give the cold-cache baseline the serving benchmark compares the
+defaults with.  With telemetry on, ``fork_group`` puts a ``fork_group``
 instant on the trace (through ``prefix.tel``, as in the reference).
 """
 from __future__ import annotations
@@ -267,7 +268,9 @@ class ContinuousScheduler:
                  enable_prefix_cache: bool = True,
                  decode_window: int = 1,
                  admission: str = "fcfs",
-                 admission_age_bound: int = 64):
+                 admission_age_bound: int = 64,
+                 decode_block_reuse: bool = True,
+                 partial_match: bool = True):
         if decode_window < 1:
             raise ValueError(f"decode_window must be >= 1, {decode_window}")
         if admission not in ("fcfs", "cache_aware"):
@@ -280,8 +283,10 @@ class ContinuousScheduler:
         self.decode_window = decode_window
         self.admission = admission
         self.admission_age_bound = admission_age_bound
+        self.decode_block_reuse = decode_block_reuse
         self.prefix = PrefixCache(self.allocator, block_size,
-                                  enabled=enable_prefix_cache)
+                                  enabled=enable_prefix_cache,
+                                  partial=partial_match)
         self.max_batch = max_batch
         self.max_blocks = max_blocks_per_req or (num_blocks - 1)
         self.block_table = np.full((max_batch, self.max_blocks), NULL_BLOCK,
@@ -531,7 +536,7 @@ class ContinuousScheduler:
         rewind: only blocks fully below ``lengths`` are offered, and
         ``lengths`` advances over ACCEPTED tokens only, so rejected-draft
         latents always sit past the registered range."""
-        if not self.prefix.enabled:
+        if not self.decode_block_reuse or not self.prefix.enabled:
             return 0
         req = self.slots[slot]
         n_full = int(self.lengths[slot]) // self.block_size

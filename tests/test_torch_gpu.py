@@ -931,9 +931,10 @@ def _smoke_engine(cfg, params, engine="sync", dtype=torch.float32, **kw):
     from repro_torch.runtime import AsyncPagedMLAEngine, PagedMLAEngine
     cls = AsyncPagedMLAEngine if engine == "async" else PagedMLAEngine
     kw.setdefault("num_blocks", 64)
+    kw.setdefault("impl", "kernel")
+    kw.setdefault("prefill_chunk", 8)
     return cls(cfg, params, block_size=4, max_batch=4, max_blocks_per_req=12,
-               scheme="seq", impl="kernel", prefill_chunk=8,
-               compute_dtype=dtype, device="cuda", **kw)
+               scheme="seq", compute_dtype=dtype, device="cuda", **kw)
 
 
 COUNTERS = ("steps", "decode_tokens", "prefill_tokens", "prompt_tokens",
@@ -1534,3 +1535,92 @@ def test_whisper_smoke_kernel_matches_ref_on_card():
     assert out["kernel"][0] == pytest.approx(out["ref"][0], rel=1e-5)
     for a, b in zip(out["kernel"][1], out["ref"][1]):
         assert torch.isfinite(a).all() and _rel_l2(a, b) <= 1e-4
+
+
+# ------------- the cold-cache options, 'chunked', compression, examples ---
+
+
+@pytest.mark.parametrize("engine", ["sync", "async"])
+@pytest.mark.parametrize("prefill_chunk", [4, 0], ids=["chunked",
+                                                       "per_request"])
+def test_chunked_impl_launches_no_kernel_on_card(engine, prefill_chunk):
+    """``impl='chunked'`` on the paged engines (graphs): the greedy
+    tokens of 'ref' and 'kernel', and no launch of K1, K2 or K4."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mla_decode, mla_prefill
+    cfg, params = _smoke_model()
+    kernels = (mla_decode.mla_decode_paged_kernel,
+               mla_prefill.mla_prefill_paged_kernel, fa.flash_fwd_kernel)
+    mode = "chunked" if prefill_chunk else "per_request"
+    runs = {}
+    for impl in ("ref", "chunked", "kernel"):
+        eng = _smoke_engine(cfg, params, engine, impl=impl,
+                            prefill_mode=mode,
+                            prefill_chunk=prefill_chunk or 32)
+        eng.warm_up()
+        for k in kernels:
+            k.launches = 0
+        runs[impl] = _serve(eng, _smoke_requests(cfg.vocab))[0]
+        if impl == "chunked":
+            assert [k.launches for k in kernels] == [0, 0, 0]
+        eng.close()
+    assert runs["chunked"] == runs["ref"] == runs["kernel"]
+
+
+def test_cold_cache_options_on_card():
+    """The cold-cache options on the card: no partial hit, no decode
+    block cached, more prefill tokens than the defaults on a second
+    identical prompt, the same greedy tokens."""
+    from repro_torch.runtime import Request, SamplingParams
+    cfg, params = _smoke_model()
+    prompt = np.random.default_rng(7).integers(0, cfg.vocab, 11)
+    got = {}
+    for label, kw in (("warm", {}), ("cold", dict(
+            decode_block_reuse=False, partial_match=False,
+            admission="fcfs"))):
+        eng = _smoke_engine(cfg, params, **kw)
+        s = eng.run([Request(rid=i, prompt=prompt.copy(), arrival=6 * i,
+                             sampling=SamplingParams(max_tokens=3))
+                     for i in range(2)])
+        got[label] = ({r.rid: list(r.output) for r in eng.sched.finished},
+                      s["prefix_partial_hits"],
+                      s["prefix_decode_inserted_blocks"], s["prefill_tokens"])
+        eng.close()
+    assert got["warm"][0] == got["cold"][0]
+    assert got["warm"][1] > 0 and got["warm"][2] > 0
+    assert got["cold"][1] == got["cold"][2] == 0
+    assert got["warm"][3] < got["cold"][3]
+
+
+@pytest.mark.parametrize("shape", [(3, 40, 50), (4096, 513)])
+def test_compress_on_card_equals_the_cpus(shape):
+    """``optim.compress`` on the card (the threshold from topk) against
+    the CPU's (from kthvalue), three carried steps: sent and error bit
+    for bit, ties included."""
+    from repro_torch.optim import TopKConfig, compress, init_error
+    dev = _cuda()
+    rng = np.random.default_rng(2)
+    cfg = TopKConfig(fraction=0.02)
+    tree = {"w": torch.zeros(shape)}
+    err_c, err_g = init_error(tree), init_error({"w": tree["w"].to(dev)})
+    for step in range(3):
+        g = torch.from_numpy((rng.integers(-6, 7, shape) * 0.5 + (
+            rng.standard_normal(shape) if step else 0)).astype(np.float32))
+        sent_c, err_c = compress(cfg, {"w": g}, err_c)
+        sent_g, err_g = compress(cfg, {"w": g.to(dev)}, err_g)
+        for a, b in ((sent_g, sent_c), (err_g, err_c)):
+            assert torch.equal(a["w"].cpu().view(torch.int32),
+                               b["w"].view(torch.int32)), step
+
+
+@pytest.mark.parametrize("name", ["quickstart", "train_mla", "serve_mla"])
+def test_example_prints_ok_on_card(name, tmp_path, capsys):
+    """The port's examples at their defaults on the card (``--device``
+    defaults to cuda): each ends with its OK line."""
+    from repro_torch.examples import quickstart, serve_mla, train_mla
+    _cuda()
+    mod = {"quickstart": quickstart, "train_mla": train_mla,
+           "serve_mla": serve_mla}[name]
+    mod.main(["--ckpt-dir", str(tmp_path)] if name == "train_mla" else [])
+    assert [x for x in capsys.readouterr().out.splitlines()
+            if x.startswith("OK")]

@@ -360,6 +360,45 @@ def test_train_step_matches_jax(impl):
             _close(got, _flat(want[key])[path], 1e-4, f"{key}{path}")
 
 
+def test_dropped_frac_trajectory_matches_jax_at_the_full_expert_ratio():
+    """Five training steps of both packages from the same weights and
+    batches on the smoke config given the full config's 160 experts, top
+    6, at its capacity 1.25, in f32 (the full-width run's schedule,
+    cosine(3e-4, 20, 100)): loss and ``dropped_frac`` step by step.
+    Tolerances: loss 1e-4 relative (five steps of f32 noise through
+    AdamW); ``dropped_frac`` (the MoE layers' fractions summed) one
+    routed slot (1 / (tokens x top_k)): a near tie of two experts' gates
+    may route one assignment apart."""
+    jcfg = dataclasses.replace(jconfigs.smoke(ARCH), n_experts=160, top_k=6)
+    tcfg = dataclasses.replace(tconfigs.smoke(ARCH), n_experts=160, top_k=6)
+    assert tcfg.capacity_factor == jcfg.capacity_factor == 1.25
+    host = np_params(jmodels.model_defs(jcfg), 3)
+    jp, tp = to_jax(host), from_jax_params(host, tcfg, device="cpu")
+    lr = (3e-4, 20, 100)
+    jopt = joptim.AdamWConfig(lr=joptim.cosine(*lr))
+    topt = toptim.AdamWConfig(lr=toptim.cosine(*lr))
+    jstep, _ = jmake_train_step(jcfg, None, jopt, JTrainStepConfig(
+        compute_dtype=jnp.float32))
+    tstep = make_train_step(tcfg, topt, TrainStepConfig(
+        compute_dtype=torch.float32))
+    js, ts = joptim.adamw_init(jp, jopt), toptim.adamw_init(tp, topt)
+    data = SyntheticLM(DataConfig(vocab=tcfg.vocab, seq_len=32,
+                                  global_batch=8, seed=0))
+    one_slot = 1.0 / (8 * 32 * tcfg.top_k)
+    traj = []
+    for _ in range(5):
+        toks, labels = data.next_batch()
+        jp, js, jm = jstep(jp, js, {"tokens": jnp.asarray(toks),
+                                    "labels": jnp.asarray(labels)})
+        tp, ts, tm = tstep(tp, ts, _t_batch(toks, labels))
+        traj.append((float(jm["loss"]), float(tm["loss"]),
+                     float(jm["dropped_frac"]), float(tm["dropped_frac"])))
+    for i, (jl, tl, jd, td) in enumerate(traj):
+        assert tl == pytest.approx(jl, rel=1e-4), (i, traj)
+        assert abs(td - jd) <= one_slot + 1e-7, (i, traj)
+    assert all(d > 0 for _, _, d, _ in traj)
+
+
 def test_train_step_bf16_moments_match_jax():
     jp, tp = _params()
     toks, labels = _batch()
@@ -653,6 +692,85 @@ def test_straggler_redispatch_applies_the_batch_twice_in_both(tmp_path):
         assert len(loop.straggler_events) >= 1
         assert calls["n"] == 14 + len(loop.straggler_events)
         assert w == 14 + len(loop.straggler_events)     # applied twice
+
+
+def _masked(line):
+    """A loop line with its measured times (``ms``, ``time_s``,
+    ``deadline_s``) blanked: text lines field by field, JSON lines by
+    key."""
+    if line.startswith("{"):
+        rec = json.loads(line)
+        for k in ("ms", "time_s", "deadline_s"):
+            rec.pop(k, None)
+        return rec
+    return " ".join(f.split("=")[0] + "=*"
+                    if f.split("=")[0] in ("ms", "time_s", "deadline_s")
+                    else f for f in line.split())
+
+
+def _both_loops(tmp_path, tag, jlog, tlog, total=6):
+    """Run the JAX and the port's ``TrainLoop`` on a step that adds 1 to
+    ``w`` and reports ``w / 3`` as the loss (log every 2 steps, a
+    checkpoint every 3), the given loggers each."""
+    kw = dict(total_steps=total, ckpt_every=3, log_every=2,
+              async_save=False, straggler_warmup=10_000)
+
+    def jstep(params, opt, batch):
+        w = params["w"] + 1.0
+        return {"w": w}, opt, {"loss": w / 3.0}
+
+    def tstep(params, opt, batch):
+        params["w"].add_(1.0)
+        return params, opt, {"loss": params["w"] / 3.0}
+
+    jloop = JTrainLoop(JLoopConfig(ckpt_dir=str(tmp_path / f"j{tag}"), **kw),
+                       jstep, {"w": jnp.zeros(())}, {"step": jnp.int32(0)},
+                       JSyntheticLM(JDataConfig(vocab=16, seq_len=4,
+                                                global_batch=2)), log=jlog)
+    jloop.run()
+    tloop = TrainLoop(LoopConfig(ckpt_dir=str(tmp_path / f"t{tag}"), **kw),
+                      tstep, {"w": torch.zeros(())},
+                      {"step": torch.tensor(0, dtype=torch.int32)},
+                      SyntheticLM(DataConfig(vocab=16, seq_len=4,
+                                             global_batch=2)), log=tlog)
+    tloop.run()
+
+
+def test_train_loop_logs_the_reference_records(tmp_path, capsys):
+    """``TrainLoop`` writes the reference's records through
+    ``as_logger(log, "loop")``: with the same bare sink both loops give
+    the same lines (``ms`` masked), a resumed loop its ``resumed from
+    checkpoint`` record, a JSON ``StructLogger`` the same JSON records
+    and honours its level, and ``log=None`` prints nothing."""
+    from repro.obs import StructLogger as JStructLogger
+    from repro_torch.obs import StructLogger
+
+    jlines, tlines = [], []
+    _both_loops(tmp_path, "a", jlines.append, tlines.append, total=3)
+    _both_loops(tmp_path, "a", jlines.append, tlines.append)
+    assert jlines[0] == "[loop] step step=2 loss=0.6667 ms=" + \
+        jlines[0].split("ms=")[1]
+    assert "[loop] resumed from checkpoint step=3" in tlines
+    assert [_masked(x) for x in tlines] == [_masked(x) for x in jlines]
+    assert len(tlines) == 4
+
+    jjson, tjson = [], []
+    _both_loops(tmp_path, "b",
+                JStructLogger("loop", sink=jjson.append, json_mode=True),
+                StructLogger("loop", sink=tjson.append, json_mode=True))
+    assert [_masked(x) for x in tjson] == [_masked(x) for x in jjson]
+    assert _masked(tjson[0]) == {"logger": "loop", "level": "info",
+                                 "msg": "step", "step": 2,
+                                 "loss": pytest.approx(2 / 3)}
+    assert len(tjson) == 3
+
+    quiet = []
+    _both_loops(tmp_path, "c",
+                JStructLogger("loop", sink=quiet.append, level="warning"),
+                StructLogger("loop", sink=quiet.append, level="warning"))
+    capsys.readouterr()
+    _both_loops(tmp_path, "d", None, None)
+    assert quiet == [] and capsys.readouterr().out == ""
 
 
 def test_train_cli_runs_on_cpu_and_loss_falls(tmp_path, capsys):

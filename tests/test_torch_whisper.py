@@ -604,7 +604,7 @@ def test_train_cli_equals_a_direct_train_step_run(tmp_path, capsys):
         batch = make(*data.next_batch())
         for _ in range(2 if s in twice else 1):
             params, opt, m = step(params, opt, batch)
-    assert logged == [f"{float(m['loss']):.4f}"]
+    assert logged == [f"{float(m['loss']):.4g}"]
     saved, _ = TStore(str(tmp_path)).restore(10, {"params": params,
                                                  "opt": opt})
     want = _flat(params)
@@ -615,7 +615,7 @@ def test_train_cli_equals_a_direct_train_step_run(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "[loop] resumed from checkpoint step=10" in out
     assert [line for line in out.splitlines()
-            if line.startswith("[loop] step=20 ")]
+            if line.startswith("[loop] step step=20 ")]
 
 
 # ---------------------------- K4-K6 without a mask, at whisper's lengths ---
