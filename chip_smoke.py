@@ -237,14 +237,45 @@ Phases, each printing its own lines; any failure exits non-zero:
      three examples at their defaults on cuda, each printing its OK
      line.
 
+ 14. the mesh (run after phase 13, once phase 3's model is freed; its
+     single-card reference, the eager engine on phase 3's load at
+     drop-free capacity, runs on that model first): a (2, 2) mesh of four
+     ranks sharing the card (``launch.mesh.launch``: gloo, since NCCL
+     takes one rank a card; the collectives hand CUDA tensors to gloo,
+     checked first), (a) the f32 smoke config (phase 5's load, n = 2)
+     under every policy ('serve', 'serve_2dtp', 'dp', 'tp') x impl
+     'kernel' / 'ref': greedy tokens identical to the single card's on
+     every rank, pool replicas bitwise equal, K1 / K2 = layers x ticks /
+     chunks a rank, every launch's plan recorded (f32: n_split 0); (b)
+     phase 3's full-width DeepSeek-V2 (4 layers, bf16, drop-free MoE
+     capacity) under 'tp' (each rank draws its ~12.8 GB of shards from
+     the seed leaf by leaf, one rank at a time), eager, phase 3's load:
+     prefill ms, tokens/s, ms a tick, peak memory, collective bytes a
+     tick and a chunk and the time inside the collectives per rank
+     ("ranks sharing one card": no multi-GPU speed), tokens equal to the
+     single card's but for counted near ties, every decode tick's
+     logits rows with the single card's inputs within LOGITS_REL_L2,
+     every launch on the tensor-core walk, pool replicas bitwise equal;
+     then on each rank K1 and K2 on the operands its path gave them
+     (the first layer of the tick and of the chunk with the most live
+     rows on the rank: q of its 64 heads and its DP shard's 4 rows, its
+     tables, lengths and pool replica), 'kernel' against 'ref' row by
+     row within TOL bf16, each launch's plan recorded (K1 split in more
+     than one part).
+     To run it alone: ``chip_smoke.mesh_alone(torch, np)`` after
+     ``build.build_all()``, from a script under ``build/`` (the ranks
+     re-import the script's main module: guard it).
+
 The line before the last is the kernel table as JSON (``launches`` sums
 the main paths that ran a kernel, ``launches_by_path`` splits them;
 ``plan`` is the plan each wrapper recorded at the timed launch; K2's row
 holds its verify-width timing under ``verify``, K4's its phase 10 rows
 under ``baseline`` and its phase 11 row under ``jamba``, K4's, K5's and
 K6's their phase 12 rows under ``whisper``; phase 13's K1 / K2 launches
-are its ``conversations_*`` paths, its 'chunked' paths count 0); the
-last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
+are its ``conversations_*`` paths, its 'chunked' paths count 0; phase
+14's are rank 0's, ``mesh_smoke`` and ``mesh_tp``, and K1's and K2's
+rows hold rank 0's check at the mesh path's shapes under ``mesh_tp``);
+the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or outside a checkout of the repository, it exits non-zero and prints no
 result.
 """
@@ -1399,8 +1430,9 @@ def full_width(torch, np):
     serving on a bf16 and on an fp8 pool, contiguous serving, sampled
     serving with telemetry, the engines in turns and the frontend,
     speculative decoding (9(a) on the f32 smoke config), then the
-    cold-cache options, 'chunked', compression and the examples.
-    Returns the kernel launch counts of each path."""
+    cold-cache options, 'chunked', compression and the examples; then
+    phase 14's single-card reference on it, and phase 14 once it is
+    freed.  Returns the kernel launch counts of each path."""
     from repro_torch import configs, models
     from repro_torch.nn import module as nnm
 
@@ -1435,6 +1467,7 @@ def full_width(torch, np):
     spec_smoke_parity(torch, np)
     by_path.update(spec_full_width(torch, np, cfg, params))
     by_path.update(phase13(torch, np, cfg, params, tps["bf16"]))
+    mesh_ref = phase14_reference(torch, np, cfg, params)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -1442,6 +1475,8 @@ def full_width(torch, np):
     log(f"[e2e] after phases 3, 4, 7, 8, 9 and 13: "
         f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB still allocated, "
         f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved")
+    # the mesh's ranks draw their own shards: phase 3's model is freed
+    by_path.update(phase14(torch, np, mesh_ref))
     return by_path
 
 
@@ -4670,6 +4705,494 @@ def phase13(torch, np, cfg, params, phase3_tps):
 
 
 
+# ------------------------------------------------------ phase 14: the mesh --
+
+MESH = (2, 2)
+MESH_POLICIES = ("serve", "serve_2dtp", "dp", "tp")
+# phase 5's f32 smoke load (seed 4: smallest top-1 / top-2 margin 7e-3)
+MESH_SMOKE = dict(batch=4, prompt_len=48, gen=12, n=2, seed=4)
+MESH_GEN = 32                     # phase 3's load
+
+
+def mesh_smoke_run(torch, cfg, params, impl, device, mesh=None,
+                   policy="serve"):
+    """Phase 5's load on the f32 smoke config: returns the engine (its
+    summary in ``engine.summary()``) and the K1 / K2 launches and plans
+    of the serve."""
+    from repro_torch.kernels import mla_decode, mla_prefill
+    from repro_torch.launch.serve import (build_engine, serve_paged,
+                                          synthetic_requests)
+
+    s = MESH_SMOKE
+    engine = build_engine(cfg, params, batch=s["batch"],
+                          max_len=s["prompt_len"] + s["gen"], n=s["n"],
+                          gen=s["gen"], impl=impl, scheme="auto",
+                          platform="h100", prefill_chunk=8,
+                          compute_dtype=torch.float32, device=device,
+                          mesh=mesh, shard_policy=policy)
+    engine.warm_up()
+    plans = {}
+    restore = every_launch_plan(torch, plans)
+    mla_decode.mla_decode_paged_kernel.launches = 0
+    mla_prefill.mla_prefill_paged_kernel.launches = 0
+    try:
+        serve_paged(engine, synthetic_requests(
+            cfg, batch=s["batch"], prompt_len=s["prompt_len"], gen=s["gen"],
+            n=s["n"], seed=s["seed"]), log=lambda *_: None, log_every=0)
+    finally:
+        restore()
+    launches = {"mla_decode_paged": mla_decode.mla_decode_paged_kernel.launches,
+                "mla_prefill_paged":
+                    mla_prefill.mla_prefill_paged_kernel.launches}
+    return engine, launches, plans
+
+
+def pool_digest(torch, pool) -> str:
+    """sha256 of every byte of a pool (null block included)."""
+    import hashlib
+    from repro_torch.core.cache import pool_leaves
+    h = hashlib.sha256()
+    for t in pool_leaves(pool):
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+# the paged entry point of ``kernels.ops`` each engine step kind runs
+STEP_KERNEL = {"decode": "mla_decode_paged", "chunk": "mla_prefill_paged"}
+
+
+def capture_paged_calls(torch, calls):
+    """Wrap the paged MLA entry points of ``kernels.ops`` (``core.mla``
+    calls them through the module).  Returns (arm, unwrap): after
+    ``arm(name)`` the next call of ``name`` keeps a copy of its operands
+    in ``calls[name]`` (in the place of the last)."""
+    from repro_torch.kernels import ops as kops
+
+    def copy(v):
+        return v.clone() if isinstance(v, torch.Tensor) else v
+
+    armed, undo = set(), []
+    for name in STEP_KERNEL.values():
+        real = getattr(kops, f"{name}_attention")
+
+        def call(*a, _real=real, _name=name, **k):
+            if _name in armed:
+                armed.discard(_name)
+                calls[_name] = (tuple(copy(v) for v in a),
+                                {key: copy(v) for key, v in k.items()})
+            return _real(*a, **k)
+        setattr(kops, f"{name}_attention", call)
+        undo.append(lambda n=name, r=real: setattr(kops, f"{n}_attention",
+                                                   r))
+    return armed.add, lambda: [fn() for fn in undo]
+
+
+def hold_captured(torch, calls, live) -> dict:
+    """K1 and K2 on operands a rank's main path gave them (its heads, its
+    DP shard's rows, its pool replica: the first layer of the step with
+    the most live rows on the rank, then the longest prefix; ``live``
+    {name: (rows, prefix)}): 'kernel' against 'ref', row by row
+    (``row_rel``, bound TOL bf16), with the plan each launch recorded
+    (the tensor-core walk; K1 split in more than one part at these
+    shapes).  Returns {name: result}."""
+    from repro_torch.kernels import mla_decode, mla_prefill
+    from repro_torch.kernels import ops as kops
+
+    kerns = {"mla_decode_paged": mla_decode.mla_decode_paged_kernel,
+             "mla_prefill_paged": mla_prefill.mla_prefill_paged_kernel}
+    tol = TOL["bfloat16"]
+    held = {}
+    for name, kern in kerns.items():
+        if name not in calls or live[name][0] == 0:
+            raise AssertionError(f"{name}: no step of the main path had a "
+                                 f"live row on this rank")
+        args, kw = calls[name]
+        fn = getattr(kops, f"{name}_attention")
+        got = fn(*args, **dict(kw, impl="kernel"))
+        torch.cuda.synchronize()
+        plan = launched_plan(kern)
+        want = fn(*args, **dict(kw, impl="ref"))
+        rel = row_rel(torch, got, want)
+        held[name] = dict(q_shape=list(args[0].shape), live_rows=live[name][0],
+                          longest_prefix=live[name][1], row_rel=rel,
+                          max_abs_err=(got.float() - want.float()).abs()
+                          .max().item(), plan=plan)
+        if not rel <= tol:
+            raise AssertionError(f"{name} at the mesh path's shapes "
+                                 f"{tuple(args[0].shape)}: row_rel {rel} > "
+                                 f"{tol}")
+    if held["mla_decode_paged"]["plan"]["n_split"] <= 1:
+        raise AssertionError(f"K1 at the mesh path's shapes ran unsplit: "
+                             f"{held['mla_decode_paged']['plan']}")
+    return held
+
+
+def mesh_full_serve(torch, np, cfg, params, log_fn, mesh=None,
+                    keep_rows=True, capture=False):
+    """Phase 3's load (8 requests of 256-1,024 tokens, 32 generated) on
+    the eager engine, block 16, chunk 32, scheme 'seq', impl 'kernel',
+    after a warm-up serve, on one card or as a rank of ``mesh`` ('tp').
+    Times the prefill walks and every decode tick between device
+    synchronizations, counts the collective bytes of each and times the
+    collectives in them (``dist.all_reduce`` / ``broadcast`` wrapped,
+    the device synchronized before and after each), keeps every decode
+    tick's logits rows by (rid, output index) where ``keep_rows`` and,
+    on one card, the margins of every greedy choice.  With ``capture``
+    it keeps in ``got["captured"]`` the first layer's K1 and K2 operands
+    of the decode tick and the chunk with the most live rows of this
+    rank's DP shard (then the longest prefix), chosen on the host
+    (:func:`capture_paged_calls`), and their counts in ``got["live"]``.
+    Returns what the phase compares and prints."""
+    from repro_torch.kernels import mla_decode, mla_prefill
+    from repro_torch.launch.serve import build_engine, serve_paged
+    from repro_torch.runtime import Request, SamplingParams
+
+    reqs = requests_full(cfg, np, Request, SamplingParams, MESH_GEN)
+    kw = dict(batch=len(reqs), max_len=max(r.plen for r in reqs) + MESH_GEN,
+              gen=MESH_GEN, block_size=BS, impl="kernel", scheme="seq",
+              platform="h100", prefill_chunk=C, cuda_graphs=False,
+              compute_dtype=torch.bfloat16,
+              device="cuda" if mesh is None else mesh.device, mesh=mesh,
+              shard_policy="tp")
+    warm = build_engine(cfg, params, **kw)
+    warm.run(warm_up_requests(cfg, np, Request, SamplingParams))
+    del warm
+    engine = build_engine(cfg, params, **kw)
+    got = {"prefill_s": 0.0, "tick_s": [], "tick_bytes": [],
+           "prefill_bytes": 0, "rows": {} if keep_rows else None,
+           "margins": {}, "prefill_coll_s": 0.0, "tick_coll_s": [],
+           "tick_calls": []}
+    coll = {"s": 0.0, "n": 0}
+    nbytes = (lambda: 0) if mesh is None else \
+        (lambda: mesh.collective_bytes)
+
+    real_prefill, real_step = engine._run_chunked_prefill, engine._run_step
+
+    def prefill(admitted, step_i):
+        torch.cuda.synchronize()
+        t, b, c = time.perf_counter(), nbytes(), coll["s"]
+        real_prefill(admitted, step_i)
+        torch.cuda.synchronize()
+        got["prefill_s"] += time.perf_counter() - t
+        got["prefill_bytes"] += nbytes() - b
+        got["prefill_coll_s"] += coll["s"] - c
+
+    def run_step(kind, scheme, arrays=None):
+        if capture and kind in STEP_KERNEL:
+            lo, hi = engine.shard.rows(len(arrays["lengths"]))
+            if kind == "chunk":
+                live = arrays["n_valid"][lo:hi] > 0
+            else:
+                live = np.isin(np.arange(lo, hi), engine.sched.active_slots)
+            score = (int(live.sum()),
+                     int(arrays["lengths"][lo:hi][live].max(initial=0)))
+            if score > got["live"][STEP_KERNEL[kind]]:
+                got["live"][STEP_KERNEL[kind]] = score
+                arm(STEP_KERNEL[kind])
+        if kind != "decode":
+            return real_step(kind, scheme, arrays)
+        torch.cuda.synchronize()
+        t, b, c, n = time.perf_counter(), nbytes(), coll["s"], coll["n"]
+        logits = real_step(kind, scheme, arrays)
+        torch.cuda.synchronize()
+        got["tick_s"].append(time.perf_counter() - t)
+        got["tick_bytes"].append(nbytes() - b)
+        got["tick_coll_s"].append(coll["s"] - c)
+        got["tick_calls"].append(coll["n"] - n)
+        if keep_rows:
+            active = engine.sched.active_slots
+            host = logits[active].float().cpu()
+            for i, s in enumerate(active):
+                r = engine.sched.slots[s]
+                got["rows"][(r.rid, len(r.output))] = host[i]
+        return logits
+
+    engine._run_chunked_prefill, engine._run_step = prefill, run_step
+    undo = []
+    if mesh is not None:
+        import torch.distributed as dist
+
+        def timed(name):
+            real = getattr(dist, name)
+
+            def call(*a, **k):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = real(*a, **k)
+                torch.cuda.synchronize()
+                coll["s"] += time.perf_counter() - t
+                coll["n"] += 1
+                return out
+            setattr(dist, name, call)
+            undo.append(lambda: setattr(dist, name, real))
+        timed("all_reduce")
+        timed("broadcast")
+    if mesh is None:
+        record_margins(torch, engine, got["margins"])
+    if capture:
+        got["captured"] = {}
+        got["live"] = {name: (0, 0) for name in STEP_KERNEL.values()}
+        arm, unwrap = capture_paged_calls(torch, got["captured"])
+        undo.append(unwrap)
+    plans = {}
+    restore = every_launch_plan(torch, plans)
+    mla_decode.mla_decode_paged_kernel.launches = 0
+    mla_prefill.mla_prefill_paged_kernel.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        summary = serve_paged(engine, reqs, log=log_fn, log_every=0)
+    finally:
+        restore()
+        for fn in undo:
+            fn()
+    launches = {"mla_decode_paged": mla_decode.mla_decode_paged_kernel.launches,
+                "mla_prefill_paged":
+                    mla_prefill.mla_prefill_paged_kernel.launches}
+    ticks = sum(summary["schemes_used"].values())
+    want = {"mla_decode_paged": cfg.n_layers * ticks,
+            "mla_prefill_paged": cfg.n_layers * summary["prefill_chunks"]}
+    if launches != want:
+        raise AssertionError(f"kernel launches {launches} != {want}")
+    for name, seen in plans.items():
+        off = [p for p in seen if p["n_split"] <= 0]
+        if len(seen) != launches[name.replace("_kernel", "")] or off:
+            raise AssertionError(f"{name}: {len(off)} of {len(seen)} "
+                                 f"launches left the tensor-core walk")
+    done = engine.sched.finished
+    if len(done) != len(reqs) or any(len(r.output) != MESH_GEN
+                                     for r in done):
+        raise AssertionError("not every request finished with its tokens")
+    got.update(tokens=outputs(engine), launches=launches, ticks=ticks,
+               chunks=summary["prefill_chunks"],
+               tokens_per_s=summary["tokens_per_s"],
+               wall_s=engine.stats.wall,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               pool=pool_digest(torch, engine.pool))
+    return got
+
+
+def phase14_reference(torch, np, cfg, params):
+    """The single-card side of phase 14(b), on phase 3's model while it
+    lives: the eager engine on phase 3's load at drop-free capacity."""
+    ref = mesh_full_serve(torch, np, drop_free(cfg), params,
+                          lambda *_: None)
+    log(f"[mesh] reference, one card, eager: prefill "
+        f"{ref['prefill_s'] * 1e3:.1f} ms, {ref['tokens_per_s']:.1f} "
+        f"tokens/s, {statistics.median(ref['tick_s']) * 1e3:.2f} ms a tick "
+        f"(median of {ref['ticks']}), peak {ref['peak_gib']:.2f} GiB")
+    return ref
+
+
+def phase14_rank(mesh):
+    """One rank of phase 14 (spawned by ``launch.mesh.launch``): the
+    collectives on CUDA tensors, (a) the f32 smoke config under every
+    policy and impl, (b) full-width DeepSeek-V2 under 'tp'.  Returns its
+    tokens, pool digests, launches and numbers."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.nn import collectives as coll
+    from repro_torch.weights import init_sharded_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    say = log if mesh.rank == 0 else (lambda *_: None)
+    out = {"backend": dist.get_backend(), "device": str(mesh.device)}
+    # the backend takes CUDA tensors for both calls the collectives use
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.full((3,), mesh.rank + 1.0, dtype=dtype, device=mesh.device)
+        if coll.all_reduce_sum(x, mesh, None).tolist() != [10.0] * 3 \
+                or coll.all_gather(x[:1], mesh, "model", 0).tolist() \
+                != [2.0 * mesh.index("data") + 1, 2.0 * mesh.index("data")
+                    + 2]:
+            raise AssertionError(f"all_reduce on {dtype} CUDA tensors")
+    b = torch.full((2,), mesh.rank, dtype=torch.long, device=mesh.device)
+    if coll.broadcast(b, mesh, 0).tolist() != [0, 0]:
+        raise AssertionError("broadcast on CUDA tensors")
+    say(f"[mesh] {out['backend']} takes CUDA tensors for all_reduce (f32, "
+        f"bf16) and broadcast: no staging")
+
+    # (a) the f32 smoke config, every policy x impl
+    cfg = drop_free(configs.smoke("deepseek-v2-236b"))
+    t0 = time.perf_counter()
+    for policy in MESH_POLICIES:
+        params = init_sharded_params(cfg, mesh, policy, seed=4,
+                                     dtype=torch.float32)
+        for impl in ("kernel", "ref"):
+            engine, launches, plans = mesh_smoke_run(
+                torch, cfg, params, impl, mesh.device, mesh, policy)
+            s = engine.stats
+            ticks = sum(s.schemes_used.values())
+            want = {"mla_decode_paged": cfg.n_layers * ticks,
+                    "mla_prefill_paged": cfg.n_layers * s.prefill_chunks} \
+                if impl == "kernel" else {"mla_decode_paged": 0,
+                                          "mla_prefill_paged": 0}
+            if launches != want:
+                raise AssertionError(f"{policy} {impl}: launches "
+                                     f"{launches} != {want}")
+            # f32 q runs the CUDA-core walk: n_split 0 on every plan
+            for name, seen in plans.items():
+                if len(seen) != launches[name.replace("_kernel", "")] \
+                        or any(p["n_split"] != 0 for p in seen):
+                    raise AssertionError(f"{policy} {name}: plans {seen}")
+            key = f"{policy}_{impl}"
+            out[f"smoke_{key}"] = outputs(engine)
+            out[f"pool_smoke_{key}"] = pool_digest(torch, engine.pool)
+            out[f"launches_smoke_{key}"] = launches
+        del params, engine
+    out["smoke_s"] = time.perf_counter() - t0
+
+    # (b) full width under 'tp': each rank draws its shards leaf by leaf,
+    # one rank at a time (one full leaf at a time: at most ~5 GB over the
+    # ranks' shards)
+    cfg = drop_free(dataclasses.replace(configs.full("deepseek-v2-236b"),
+                                        n_layers=4))
+    t0 = time.perf_counter()
+    params = None
+    for r in range(mesh.world):
+        if r == mesh.rank:
+            params = init_sharded_params(cfg, mesh, "tp", seed=0,
+                                         dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        dist.barrier(group=mesh.group(None))
+    out["init_s"] = time.perf_counter() - t0
+    out["param_bytes"] = sum(t.numel() * t.element_size()
+                             for t in _leaves(params))
+    # rank 0's logits rows stand for all; K1 / K2 operands kept for the
+    # check below (all of a DP shard's rows of a chunk may be idle)
+    out["full"] = mesh_full_serve(torch, np, cfg, params, say, mesh,
+                                  keep_rows=mesh.rank == 0, capture=True)
+    # K1 / K2 on this rank's own operands of the path, against 'ref'
+    out["held"] = hold_captured(torch, out["full"].pop("captured"),
+                                out["full"]["live"])
+    return out
+
+
+def phase14(torch, np, full_ref):
+    """Phase 14: (a) and (b) on a (2, 2) mesh of ranks sharing the card,
+    against the single card (phase 5's f32 load here, ``full_ref`` from
+    :func:`phase14_reference`).  Returns the launch counts of rank 0's
+    paths."""
+    from repro_torch import configs, models
+    from repro_torch.launch.mesh import launch
+    from repro_torch.nn import module as nnm
+
+    t0 = time.perf_counter()
+    cfg = drop_free(configs.smoke("deepseek-v2-236b"))
+    params = nnm.init_params(models.model_defs(cfg), seed=4,
+                             dtype=torch.float32, device="cuda")
+    smoke_ref = {impl: outputs(mesh_smoke_run(torch, cfg, params, impl,
+                                              "cuda")[0])
+                 for impl in ("kernel", "ref")}
+    if smoke_ref["kernel"] != smoke_ref["ref"]:
+        raise AssertionError("one card: f32 smoke tokens kernel != ref")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = launch(phase14_rank, MESH, device="cuda", log=log)
+    r0 = ranks[0]
+    log(f"[mesh] {len(ranks)} ranks over {r0['backend']} on "
+        f"{sorted({r['device'] for r in ranks})}, {time.perf_counter() - t0:.1f}s "
+        f"with the launch")
+
+    # (a)
+    for policy in MESH_POLICIES:
+        for impl in ("kernel", "ref"):
+            key = f"{policy}_{impl}"
+            for rank in ranks:
+                if rank[f"smoke_{key}"] != smoke_ref["kernel"]:
+                    raise AssertionError(f"(a) {key}: tokens differ from "
+                                         f"the single card's")
+            if len({rank[f"pool_smoke_{key}"] for rank in ranks}) != 1:
+                raise AssertionError(f"(a) {key}: pool replicas differ")
+    log(f"[mesh] (a) f32 smoke, {MESH[0]}x{MESH[1]}, policies "
+        f"{MESH_POLICIES} x impl kernel / ref: greedy tokens of "
+        f"{len(smoke_ref['kernel'])} requests identical to the single "
+        f"card's on every rank; pool replicas bitwise equal; K1 / K2 = "
+        f"layers x ticks / chunks a rank ({r0['launches_smoke_serve_kernel']}"
+        f" under 'serve'), every launch on its plan (f32: n_split 0); "
+        f"{r0['smoke_s']:.1f}s")
+
+    # (b)
+    full = [r["full"] for r in ranks]
+    if len({f["pool"] for f in full}) != 1:
+        raise AssertionError("(b) pool replicas differ")
+    if any(f["tokens"] != full[0]["tokens"] for f in full):
+        raise AssertionError("(b) ranks' tokens differ")
+    ties = tie_count(full_ref["tokens"], full[0]["tokens"],
+                     lambda: {"store": full_ref["margins"],
+                              "temperature": 1.0}, "(b) mesh vs one card")
+    # every decode tick's rows whose request has so far emitted the
+    # single card's tokens (the same inputs)
+    want_rows, rows = full_ref["rows"], full[0]["rows"]
+    want_toks, toks = full_ref["tokens"], full[0]["tokens"]
+    same = [k for k in want_rows if k in rows
+            and toks[k[0]][:k[1]] == want_toks[k[0]][:k[1]]]
+    if 2 * len(same) < len(want_rows):
+        raise AssertionError(f"(b) {len(same)} of {len(want_rows)} decode "
+                             f"rows have the single card's inputs")
+    rel = _row_rel(torch, torch.stack([rows[k] for k in same]),
+                   torch.stack([want_rows[k] for k in same]))
+    if max(rel) > LOGITS_REL_L2:
+        raise AssertionError(f"(b) decode ticks' logits rows: "
+                             f"{max(rel)} > {LOGITS_REL_L2}")
+    for i, (r, f) in enumerate(zip(ranks, full)):
+        log(f"[mesh] (b) rank {i} ({MESH[0]}x{MESH[1]}, 'tp', ranks sharing "
+            f"one card): prefill {f['prefill_s'] * 1e3:.1f} ms, "
+            f"{f['tokens_per_s']:.1f} tokens/s, "
+            f"{statistics.median(f['tick_s']) * 1e3:.2f} ms a tick (median "
+            f"of {f['ticks']}), peak {f['peak_gib']:.2f} GiB "
+            f"({r['param_bytes'] / 1e9:.2f} GB of weights), collectives "
+            f"{statistics.mean(f['tick_bytes']) / 1e6:.3f} MB a tick and "
+            f"{f['prefill_bytes'] / max(f['chunks'], 1) / 1e6:.3f} MB a "
+            f"chunk, in them {statistics.median(f['tick_coll_s']) * 1e3:.2f}"
+            f" ms a tick (median, {statistics.median(f['tick_calls'])} "
+            f"calls) and {f['prefill_coll_s'] * 1e3:.1f} ms of the prefill "
+            f"(device synchronized around each), K1 / K2 "
+            f"{f['launches']}, shards drawn in {r['init_s']:.1f}s")
+    for name in ("mla_decode_paged", "mla_prefill_paged"):
+        held = [r["held"][name] for r in ranks]
+        log(f"[mesh] (b) {name} on each rank's own operands of the path "
+            f"(q {tuple(held[0]['q_shape'])}: its heads, its DP shard's "
+            f"rows, its pool replica; live rows "
+            f"{[h['live_rows'] for h in held]}, longest prefix "
+            f"{[h['longest_prefix'] for h in held]}), kernel vs ref: "
+            f"largest per-row "
+            f"|kernel - plain| / |plain| {[h['row_rel'] for h in held]} "
+            f"(bound {TOL['bfloat16']}), max|kernel - plain| "
+            f"{[h['max_abs_err'] for h in held]}; "
+            f"{plan_text(held[0]['plan'])}")
+    MEASURED["mesh_held"] = ranks[0]["held"]
+    log(f"[mesh] (b) tokens: {len(full_ref['tokens'])} requests x "
+        f"{MESH_GEN} equal to the single card's eager engine but for "
+        f"{ties} on counted near ties (NEAR_TIE {NEAR_TIE}); decode "
+        f"ticks' logits, {len(same)} of {len(want_rows)} rows, |a-b|/|b| "
+        f"max {max(rel):.4f} (bound {LOGITS_REL_L2}); pool replicas bitwise equal; one card: "
+        f"prefill {full_ref['prefill_s'] * 1e3:.1f} ms, "
+        f"{full_ref['tokens_per_s']:.1f} tokens/s")
+    log(f"[phase 14] {time.perf_counter() - t0:.1f}s")
+    return {"mesh_smoke": r0["launches_smoke_serve_kernel"],
+            "mesh_tp": full[0]["launches"]}
+
+
+def mesh_alone(torch, np):
+    """Phase 14 on its own (after ``build.build_all()``): phase 3's
+    model for the single-card reference, freed, then the mesh."""
+    from repro_torch import configs, models
+    from repro_torch.nn import module as nnm
+
+    cfg = dataclasses.replace(configs.full("deepseek-v2-236b"), n_layers=4)
+    params = nnm.init_params(models.model_defs(cfg), seed=0,
+                             dtype=torch.bfloat16, device="cuda")
+    ref = phase14_reference(torch, np, cfg, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return phase14(torch, np, ref)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4733,6 +5256,8 @@ def main() -> int:
     for name, (src, replaces) in meta.items():
         paths = {p: n[name] for p, n in by_path.items() if name in n}
         # the contract's keys last: a row's own keys never override them
+        if name in MEASURED.get("mesh_held", {}):
+            rows[name]["mesh_tp"] = MEASURED["mesh_held"][name]
         kernels.append({**rows[name], "name": name, "route": "cuda",
                         "source": src, "replaces": replaces,
                         "launches": sum(paths.values()),

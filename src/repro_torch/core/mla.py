@@ -34,6 +34,7 @@ import torch
 
 from ..kernels import ops as kops
 from ..kernels.ref import NEG_INF
+from ..nn import collectives as coll
 from ..nn import layers as nl
 from ..nn.module import P
 from . import cache as cachelib
@@ -111,13 +112,38 @@ def attach_absorbed_tree(params, cfg: MLAConfig):
 # ------------------------------------------------------------- projections -
 
 
-def _q_proj(params, cfg: MLAConfig, x, positions):
-    """x: (B, L, D) -> q_l (B,L,Q), q_nope (B,L,H,dn), q_rope (B,L,H,dr)."""
-    q_l = nl.rmsnorm(params["q_norm"], x @ params["w_dq"].to(x.dtype))
-    q = torch.einsum("blq,qhd->blhd", q_l, params["w_uq"].to(x.dtype))
+def _q_proj(params, cfg: MLAConfig, x, positions, shard=None):
+    """x: (B, L, D) -> q_l (B,L,Q), q_nope (B,L,H,dn), q_rope (B,L,H,dr).
+
+    Under a mesh whose rules put the q lora dim on 'data' ('serve_2dtp':
+    ``w_dq``, ``q_norm`` and ``w_uq`` hold this data rank's part of it,
+    resident) the lora dim is contracted in place: every DP shard's rows
+    are gathered, the down-projection's columns are gathered over 'data'
+    for the norm, and ``w_uq``'s partial products are summed over
+    'data'.  q_l is then this rank's columns of the whole batch's rows
+    (what :func:`_q_latent` contracts); q_nope / q_rope this DP shard's
+    rows."""
+    if shard is None or not shard.spans("q_lora"):
+        q_l = nl.rmsnorm(params["q_norm"], x @ params["w_dq"].to(x.dtype))
+        q = torch.einsum("blq,qhd->blhd", q_l, params["w_uq"].to(x.dtype))
+    else:
+        c = coll.all_gather(shard.gather_rows(x) @ params["w_dq"].to(x.dtype),
+                            shard.mesh, "data", -1)
+        n = params["q_norm"]["scale"].shape[0]
+        q_l = nl.rmsnorm(params["q_norm"], c,
+                         cols=shard.mesh.index("data") * n)
+        q = _lora_sum(shard, "blq,qhd->blhd", q_l,
+                      params["w_uq"].to(x.dtype))
     q_nope, q_rope = q[..., : cfg.qk_nope_dim], q[..., cfg.qk_nope_dim:]
     q_rope = nl.apply_rope(q_rope, positions, cfg.rope_base)
     return q_l, q_nope, q_rope
+
+
+def _lora_sum(shard, eq: str, q_l, w):
+    """einsum(eq, q_l, w) over this rank's part of the q lora dim (q_l
+    holds every DP shard's rows), summed over 'data' and cut to this DP
+    shard's rows."""
+    return shard.local_rows(shard.reduce(torch.einsum(eq, q_l, w), "q_lora"))
 
 
 def _kv_latent(params, cfg: MLAConfig, x, positions):
@@ -133,34 +159,43 @@ def _absorbed(params, cfg: MLAConfig, dtype):
     return absorb_qk(params, cfg).to(dtype)
 
 
-def _q_latent(params, cfg: MLAConfig, q_l, q_nope, scheme: str):
+def _absorbed_q(params, cfg: MLAConfig, q_l, scheme: str, eq: str,
+                shard=None):
+    """'rc' / 'ru': q_l times W_absorb (recomputed from the factors, or
+    the attached one).  Under a mesh that puts the q lora dim on 'data'
+    (see :func:`_q_proj`), this rank's part of the lora dim, summed over
+    'data'."""
+    if scheme == "rc":
+        w = _absorbed(params, cfg, q_l.dtype)
+    elif scheme == "ru":
+        w = params["w_absorb"].to(q_l.dtype)
+    else:
+        raise ValueError(f"unknown scheme {scheme}")
+    if shard is None or not shard.spans("q_lora"):
+        return torch.einsum(eq, q_l, w)
+    if scheme == "ru":      # attached whole over the lora dim
+        n = q_l.shape[-1]
+        w = w.narrow(1, shard.mesh.index("data") * n, n)
+    return _lora_sum(shard, eq, q_l, w)
+
+
+def _q_latent(params, cfg: MLAConfig, q_l, q_nope, scheme: str, shard=None):
     """Map the nope-query into the KV-latent space per execution scheme.
     q_l (B, Q), q_nope (B, H, dn) -> q_eff (B, H, D_kvl)."""
     if scheme == "seq":
         return torch.einsum("bhn,khn->bhk", q_nope,
                             params["w_uk"].to(q_nope.dtype))
-    if scheme == "rc":
-        return torch.einsum("bq,hqk->bhk", q_l,
-                            _absorbed(params, cfg, q_l.dtype))
-    if scheme == "ru":
-        return torch.einsum("bq,hqk->bhk", q_l,
-                            params["w_absorb"].to(q_l.dtype))
-    raise ValueError(f"unknown scheme {scheme}")
+    return _absorbed_q(params, cfg, q_l, scheme, "bq,hqk->bhk", shard)
 
 
-def _q_latent_chunk(params, cfg: MLAConfig, q_l, q_nope, scheme: str):
+def _q_latent_chunk(params, cfg: MLAConfig, q_l, q_nope, scheme: str,
+                    shard=None):
     """Chunk-shaped sibling of :func:`_q_latent`: q_l (B, C, Q), q_nope
     (B, C, H, dn) -> q_eff (B, C, H, D_kvl)."""
     if scheme == "seq":
         return torch.einsum("bchn,khn->bchk", q_nope,
                             params["w_uk"].to(q_nope.dtype))
-    if scheme == "rc":
-        return torch.einsum("bcq,hqk->bchk", q_l,
-                            _absorbed(params, cfg, q_l.dtype))
-    if scheme == "ru":
-        return torch.einsum("bcq,hqk->bchk", q_l,
-                            params["w_absorb"].to(q_l.dtype))
-    raise ValueError(f"unknown scheme {scheme}")
+    return _absorbed_q(params, cfg, q_l, scheme, "bcq,hqk->bchk", shard)
 
 
 def _f32_product(eq: str, a, b):
@@ -216,9 +251,36 @@ def mla_prefill(params, cfg: MLAConfig, x, positions, *, attn_fn=None,
     return out, entries
 
 
+def _sharded_rows(shard, block_table, lengths, n_valid=None):
+    """This DP shard's rows of the batch-wide tables (all of them without
+    a mesh)."""
+    if shard is None:
+        return block_table, lengths, n_valid
+    return (shard.local_rows(block_table), shard.local_rows(lengths),
+            None if n_valid is None else shard.local_rows(n_valid))
+
+
+def _gather_latents(shard, ckv_new, krope_new):
+    """The new latent rows of the whole batch: every model rank computes
+    the same rows of its DP shard (the latent path is replicated), and
+    the DP shards' rows are gathered, so every rank writes every row, in
+    one order, and the pool replicas stay bitwise equal."""
+    if shard is None:
+        return ckv_new, krope_new
+    return shard.gather_rows(ckv_new, krope_new)
+
+
+def _out_proj(o, w_o, eq: str, shard):
+    """The row-parallel output projection: this rank's heads' part,
+    summed over 'model' where the heads are split."""
+    out = torch.einsum(eq, o, w_o)
+    return out if shard is None else shard.reduce(out, "heads")
+
+
 def mla_prefill_chunk_paged(params, cfg: MLAConfig, x, pool: Dict[str, Any],
                             block_table, lengths, n_valid, *,
-                            scheme: str = "seq", impl: str = "gather"):
+                            scheme: str = "seq", impl: str = "gather",
+                            shard=None):
     """One CHUNK of batched prefill, directly into the paged pool.
 
     x: (B, C, D) — row b carries the next ``n_valid[b]`` prompt tokens of
@@ -232,27 +294,39 @@ def mla_prefill_chunk_paged(params, cfg: MLAConfig, x, pool: Dict[str, Any],
     (the reference); 'kernel' runs the paged prefill kernel, which walks
     the block table in place.  'naive' has no kernel path and always takes
     the gathered view.
+
+    Under a mesh (``shard``, an ``nn.sharding.Shard``): x holds this DP
+    shard's rows and ``params`` this rank's heads (the q up-projection,
+    ``w_uk`` / ``w_uv`` and ``w_absorb`` column-parallel, ``w_o``
+    row-parallel, its output summed over 'model'); block_table, lengths
+    and n_valid are the whole batch's.  The latent path is replicated:
+    the new rows of every DP shard are gathered and written by every
+    rank into its replica of the pool.
     """
     _check(scheme, impl)
+    tables, all_lengths, all_valid = block_table, lengths, n_valid
+    block_table, lengths, n_valid = _sharded_rows(shard, block_table,
+                                                  lengths, n_valid)
     C = x.shape[1]
     pos = lengths[:, None] + torch.arange(C, dtype=lengths.dtype,
                                           device=x.device)[None, :]
-    q_l, q_nope, q_rope = _q_proj(params, cfg, x, pos)
+    q_l, q_nope, q_rope = _q_proj(params, cfg, x, pos, shard)
     ckv_new, krope_new = _kv_latent(params, cfg, x, pos)
-    pool = cachelib.update_latent_paged_chunk(pool, block_table, lengths,
-                                              n_valid, ckv_new, krope_new)
+    pool = cachelib.update_latent_paged_chunk(
+        pool, tables, all_lengths, all_valid,
+        *_gather_latents(shard, ckv_new, krope_new))
     scale = cfg.qk_dim ** -0.5
     w_uv = params["w_uv"].to(x.dtype)
     w_o = params["w_o"].to(x.dtype)
 
     if impl == "kernel" and scheme != "naive":
-        q_eff = _q_latent_chunk(params, cfg, q_l, q_nope, scheme)
+        q_eff = _q_latent_chunk(params, cfg, q_l, q_nope, scheme, shard)
         q_full = torch.cat([q_eff, q_rope], dim=-1).contiguous()
         o_lat = kops.mla_prefill_paged_attention(
             q_full, pool["ckv"], pool["krope"], block_table, lengths,
             n_valid, impl="kernel", softmax_scale=scale, **_scales(pool))
         o = torch.einsum("bchk,khv->bchv", o_lat.to(x.dtype), w_uv)
-        return torch.einsum("bchv,hvd->bcd", o, w_o), pool
+        return _out_proj(o, w_o, "bchv,hvd->bcd", shard), pool
 
     ckv_c, krope_c = cachelib.gather_latent_paged(pool, block_table)
     S = ckv_c.shape[1]
@@ -273,7 +347,7 @@ def mla_prefill_chunk_paged(params, cfg: MLAConfig, x, pool: Dict[str, Any],
         o = _f32_product("bchs,bshv->bchv", p.to(v_full.dtype),
                          v_full).to(x.dtype)
     else:
-        q_eff = _q_latent_chunk(params, cfg, q_l, q_nope, scheme)
+        q_eff = _q_latent_chunk(params, cfg, q_l, q_nope, scheme, shard)
         scores = (_f32_product("bchk,bsk->bchs", q_eff.to(ckv_c.dtype), ckv_c)
                   + _f32_product("bchr,bsr->bchs", q_rope.to(krope_c.dtype),
                                  krope_c)) * scale
@@ -282,7 +356,7 @@ def mla_prefill_chunk_paged(params, cfg: MLAConfig, x, pool: Dict[str, Any],
         o_lat = _f32_product("bchs,bsk->bchk", p.to(ckv_c.dtype),
                              ckv_c).to(x.dtype)
         o = torch.einsum("bchk,khv->bchv", o_lat, w_uv)
-    return torch.einsum("bchv,hvd->bcd", o, w_o), pool
+    return _out_proj(o, w_o, "bchv,hvd->bcd", shard), pool
 
 
 # ------------------------------------------------------------------ decode -
@@ -357,7 +431,7 @@ def mla_decode(params, cfg: MLAConfig, x_t, cache: Dict[str, Any],
 
 def mla_decode_paged(params, cfg: MLAConfig, x_t, pool: Dict[str, Any],
                      block_table, lengths, *, scheme: str = "seq",
-                     impl: str = "gather"):
+                     impl: str = "gather", shard=None):
     """One continuous-batching decode step over the paged latent pool.
 
     x_t: (B, D) — one token per batch slot; pool: {ckv (N,bs,Dl), krope
@@ -370,28 +444,32 @@ def mla_decode_paged(params, cfg: MLAConfig, x_t, pool: Dict[str, Any],
     ``impl``: 'gather' (the reference view) or 'kernel' (the paged decode
     kernel); 'naive' always takes the gathered view.  A quantized pool is
     written quantized; the kernel gets its scales, the gathered view is
-    dequantized.
+    dequantized.  Under a mesh (``shard``) as
+    :func:`mla_prefill_chunk_paged`.
     """
     _check(scheme, impl)
+    tables, all_lengths = block_table, lengths
+    block_table, lengths, _ = _sharded_rows(shard, block_table, lengths)
     pos = lengths[:, None]
     x = x_t[:, None, :]
-    q_l, q_nope, q_rope = _q_proj(params, cfg, x, pos)
+    q_l, q_nope, q_rope = _q_proj(params, cfg, x, pos, shard)
     q_l, q_nope, q_rope = q_l[:, 0], q_nope[:, 0], q_rope[:, 0]
     ckv_new, krope_new = _kv_latent(params, cfg, x, pos)
-    pool = cachelib.update_latent_paged(pool, block_table, lengths,
-                                        ckv_new[:, 0], krope_new[:, 0])
+    pool = cachelib.update_latent_paged(
+        pool, tables, all_lengths,
+        *_gather_latents(shard, ckv_new[:, 0], krope_new[:, 0]))
     scale = cfg.qk_dim ** -0.5
     w_uv = params["w_uv"].to(x_t.dtype)
     w_o = params["w_o"].to(x_t.dtype)
 
     if impl == "kernel" and scheme != "naive":
-        q_eff = _q_latent(params, cfg, q_l, q_nope, scheme)
+        q_eff = _q_latent(params, cfg, q_l, q_nope, scheme, shard)
         q_full = torch.cat([q_eff, q_rope], dim=-1).contiguous()
         o_lat = kops.mla_decode_paged_attention(
             q_full, pool["ckv"], pool["krope"], block_table, lengths,
             impl="kernel", softmax_scale=scale, **_scales(pool))
         o = torch.einsum("bhk,khv->bhv", o_lat, w_uv)
-        return torch.einsum("bhv,hvd->bd", o, w_o), pool
+        return _out_proj(o, w_o, "bhv,hvd->bd", shard), pool
 
     ckv_c, krope_c = cachelib.gather_latent_paged(pool, block_table)
     S = ckv_c.shape[1]
@@ -404,7 +482,7 @@ def mla_decode_paged(params, cfg: MLAConfig, x_t, pool: Dict[str, Any],
         o = _f32_product("bhs,bshv->bhv", p.to(v_full.dtype),
                          v_full).to(x_t.dtype)
     else:
-        q_eff = _q_latent(params, cfg, q_l, q_nope, scheme)
+        q_eff = _q_latent(params, cfg, q_l, q_nope, scheme, shard)
         scores = (_f32_product("bhk,bsk->bhs", q_eff.to(ckv_c.dtype), ckv_c)
                   + _f32_product("bhr,bsr->bhs", q_rope.to(krope_c.dtype),
                                  krope_c)) * scale
@@ -413,4 +491,4 @@ def mla_decode_paged(params, cfg: MLAConfig, x_t, pool: Dict[str, Any],
         o_lat = _f32_product("bhs,bsk->bhk", p.to(ckv_c.dtype),
                              ckv_c).to(x_t.dtype)
         o = torch.einsum("bhk,khv->bhv", o_lat, w_uv)
-    return torch.einsum("bhv,hvd->bd", o, w_o), pool
+    return _out_proj(o, w_o, "bhv,hvd->bd", shard), pool

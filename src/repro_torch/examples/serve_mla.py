@@ -50,8 +50,14 @@ Flags (all compose):
   --top-k           0         the request id and absolute position, so
                               recompute-preemption replay is
                               deterministic); top-k filter when sampling
-  --mesh            ''        'DPxMP' sharded serving: not ported yet,
-                              raises NotImplementedError
+  --mesh            ''        'DPxMP' sharded serving: DP x MP ranks
+                              spawned here (launch.mesh.launch), batch
+                              rows over 'data', heads / vocab / experts
+                              over 'model' (policy 'serve'), the pool
+                              replicated; the same tokens; rank 0
+                              prints.  With --spec-k, --engine async or
+                              --prefill-chunk 0 it raises
+                              NotImplementedError (ROADMAP.md)
   --spec-k          0         speculative decoding draft window (the
                               tokens are plain decode's)
   --draft           shallow:2 draft under --spec-k: 'shallow:N' (the
@@ -73,6 +79,7 @@ has finished with its full budget.
 from __future__ import annotations
 
 import argparse
+import builtins
 import time
 from typing import List, Optional
 
@@ -83,6 +90,8 @@ from .. import configs, models
 from ..core.cache import bytes_per_token_latent
 from ..core.schemes import auto_dispatch, step_time
 from ..hwmodel.platforms import PLATFORMS
+from ..launch.mesh import launch
+from ..launch.serve import parse_mesh
 from ..nn import module as nnm
 from ..obs import Telemetry
 from ..runtime import (AsyncPagedMLAEngine, PagedMLAEngine, Request,
@@ -110,7 +119,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--mesh", default="",
-                    help="device mesh 'DPxMP' (not ported: raises)")
+                    help="mesh 'DPxMP' (e.g. '2x2' = data x model) of "
+                         "ranks, spawned here")
     ap.add_argument("--spec-k", type=int, default=0,
                     help="speculative decoding draft window (0 = off)")
     ap.add_argument("--draft", default="shallow:2",
@@ -129,6 +139,25 @@ def _parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[List[str]] = None) -> dict:
     args = _parser().parse_args(argv)
+    shape = parse_mesh(args.mesh)
+    if shape is None:
+        return _serve(None, args)
+    refused = [k for k, v in {"--spec-k": args.spec_k != 0,
+                              "--engine async": args.engine != "sync",
+                              "--prefill-chunk 0": args.prefill_chunk == 0
+                              }.items() if v]
+    if refused:
+        raise NotImplementedError(
+            f"{refused} under --mesh: not ported to repro_torch yet (see "
+            f"ROADMAP.md, queue 1)")
+    return launch(_serve, shape, args=(args,), device=args.device)[0]
+
+
+def _serve(mesh, args) -> dict:
+    """The example on one device, or as one rank of ``mesh``."""
+    print = builtins.print if mesh is None or mesh.rank == 0 \
+        else (lambda *a, **k: None)
+    device = args.device if mesh is None else mesh.device
     cfg = configs.smoke("deepseek-v2-236b")
     mla = cfg.mla_config()
     plat = PLATFORMS[args.platform]
@@ -144,7 +173,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
             + f"  -> '{sch}' (cost model)")
 
     params = nnm.init_params(models.model_defs(cfg), seed=args.seed,
-                             dtype=torch.float32, device=args.device)
+                             dtype=torch.float32, device=device)
     # Poisson arrivals, mixed prompt / generation lengths
     rng = np.random.default_rng(args.seed + 1)
     gaps = rng.exponential(1.0 / args.arrival_rate, args.requests)
@@ -170,7 +199,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
         print(f"speculative decoding: k={args.spec_k}, draft={args.draft} "
               f"({draft_cfg.n_layers} of {cfg.n_layers} layers)")
     tel = None
-    if args.trace or args.metrics:
+    if (args.trace or args.metrics) and (mesh is None or mesh.rank == 0):
         tel = Telemetry.on(trace=bool(args.trace),
                            metrics=bool(args.metrics), drift=True)
     engine_cls = AsyncPagedMLAEngine if args.engine == "async" \
@@ -184,11 +213,14 @@ def main(argv: Optional[List[str]] = None) -> dict:
         prefill_impl=args.prefill_impl,
         prefill_chunk=args.prefill_chunk or 32,
         temperature=args.temperature, top_k=args.top_k,
-        sample_seed=args.seed, mesh=args.mesh or None,
+        sample_seed=args.seed, mesh=mesh,
         spec_k=args.spec_k, draft_cfg=draft_cfg, draft_params=draft_params,
         cache_dtype=args.cache_dtype, telemetry=tel,
         admission=args.admission,
-        admission_age_bound=args.admission_age_bound, device=args.device)
+        admission_age_bound=args.admission_age_bound, device=device)
+    if mesh is not None:
+        print(f"mesh {args.mesh}: {mesh.world} ranks, batch over 'data', "
+              f"heads over 'model', max_batch {engine.sched.max_batch}")
     total_need = sum(blocks_for(r.plen + r.max_new + 1, bs) for r in reqs)
     print(f"\n{args.requests} requests (prompts 8-32, gen 4-19), pool "
           f"{args.num_blocks - 1} usable blocks x {bs} tokens "
@@ -196,7 +228,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
     engine.warm_up()          # graphs captured before the first request
 
     t0 = time.time()
-    summary = engine.run(reqs, log_every=10)
+    summary = engine.run(reqs, log_every=10, log=print)
     dt = time.time() - t0
 
     lat = [r.finished_step - r.arrival for r in engine.sched.finished]

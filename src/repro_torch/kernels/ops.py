@@ -1,5 +1,5 @@
 """Public entry points of the attention kernels (port of
-``repro.kernels.ops``, single device, without its shard_map branches).
+``repro.kernels.ops``; of its shard_map branches, the paged MLA ones).
 
   impl='ref'    the plain PyTorch oracle (``ref``: dense, or the gathered
                 paged view, one exact softmax)
@@ -10,6 +10,15 @@
 The paged functions take a quantized pool's ``ckv_scales`` /
 ``krope_scales`` (N, bs, 1) f32: the kernels dequantize in registers,
 the oracle on the gathered f32 view.
+
+Under a mesh a rank calls the paged functions as they are, in the
+place of the reference's shard_map: q carries this rank's heads (those
+of its 'model' index) and its DP shard's batch rows, the block tables,
+indices / lengths and n_valid the same rows (``core.mla`` cuts them with
+``nn.sharding.Shard.local_rows``), and the block POOL and its scales are
+the rank's whole replica (the MQA structure of absorbed MLA: head shards
+re-read the same compact pool).  The kernels run at the local heads and
+rows.
 """
 from __future__ import annotations
 

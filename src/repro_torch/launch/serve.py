@@ -13,6 +13,8 @@ continuous-batching engine (``--paged``).
         --smoke --paged --engine async --serve --port 8931
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b \
         --smoke --paged --spec-k 4 --draft shallow:1 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b \
+        --smoke --paged --mesh 2x2 --policy tp --device cpu
 
 Without ``--paged`` the batch prefills together through the contiguous
 prefill (``runtime.steps.make_prefill_step``: the flash-attention
@@ -120,12 +122,26 @@ Paged only (each raises without ``--paged``):
                       /v1/generate, /v1/cancel; GET /v1/health,
                       /v1/metrics.  Ctrl-C stops it
   --host H / --port N frontend bind address (default 127.0.0.1:8000)
+  --mesh DPxMP        serve sharded over a (data, model) mesh of DP x MP
+                      ranks, which the CLI spawns itself
+                      (``launch.mesh.launch``: NCCL when each rank has a
+                      card of its own, else gloo; rank r on card r mod
+                      the cards); batch rows over 'data', heads, the
+                      vocab and experts over 'model', the pool replicated;
+                      rank 0 prints.  The same tokens as one device.
+                      Each rank draws its own shards of the weights
+                      (``weights.init_sharded_params``).  Not ported under
+                      a mesh (raise NotImplementedError): the contiguous
+                      path (no --paged), --engine async, --spec-k,
+                      --serve, --prefill-chunk 0
+  --policy P          weight sharding under --mesh: serve (FSDP + TP),
+                      serve_2dtp, dp, tp (``nn.sharding.make_rules``)
 
 Weights are random (``--seed``) and f32, as in the JAX launcher; the
 contiguous path decodes greedily.  Unlike the JAX launcher, the
 contiguous decode ``index`` counts a VLM's cached patches (the JAX
 launcher's starts at the prompt length and overwrites text positions,
-ROADMAP.md queue 3).  Meshes are on ROADMAP.md.
+ROADMAP.md queue 3).
 """
 from __future__ import annotations
 
@@ -141,6 +157,7 @@ from ..core import mla as mlalib
 from ..core.schemes import auto_dispatch
 from ..hwmodel.platforms import PLATFORMS
 from ..nn import module as nnm
+from ..nn.sharding import MODES as SHARD_MODES
 from ..obs import Telemetry
 from ..runtime import (AsyncPagedMLAEngine, PagedMLAEngine, Request,
                        SamplingParams, blocks_for, make_prefill_step,
@@ -161,7 +178,8 @@ def build_engine(cfg, params, *, batch: int, max_len: int, n: int = 1,
                  engine: str = "sync", prefill_impl: Optional[str] = None,
                  cuda_graphs: Optional[bool] = None, spec_k: int = 0,
                  draft: str = "", decode_block_reuse: bool = True,
-                 partial_match: bool = True) -> PagedMLAEngine:
+                 partial_match: bool = True, mesh=None,
+                 shard_policy: str = "serve") -> PagedMLAEngine:
     """A paged engine (``engine`` 'sync': ``PagedMLAEngine``, 'async':
     ``AsyncPagedMLAEngine``) sized for ``batch`` request groups of up to
     ``max_len`` tokens (prompt + generation), each forked ``n`` ways.
@@ -170,7 +188,8 @@ def build_engine(cfg, params, *, batch: int, max_len: int, n: int = 1,
     ``spec_k`` > 0 decodes speculatively with the draft ``draft`` names
     (``runtime.spec.parse_draft_spec``: 'self' | 'shallow:N').
     ``decode_block_reuse`` / ``partial_match`` False (with ``admission=
-    'fcfs'``) build the cold-cache baseline."""
+    'fcfs'``) build the cold-cache baseline.  ``mesh`` / ``shard_policy``:
+    this rank's engine of a sharded serve (``PagedMLAEngine``)."""
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; expected {ENGINES}")
     draft_cfg = draft_params = None
@@ -193,7 +212,7 @@ def build_engine(cfg, params, *, batch: int, max_len: int, n: int = 1,
         telemetry=telemetry, device=device, prefill_impl=prefill_impl,
         cuda_graphs=cuda_graphs, spec_k=spec_k, draft_cfg=draft_cfg,
         draft_params=draft_params, decode_block_reuse=decode_block_reuse,
-        partial_match=partial_match)
+        partial_match=partial_match, mesh=mesh, shard_policy=shard_policy)
 
 
 def synthetic_requests(cfg, *, batch: int, prompt_len: int, gen: int,
@@ -344,6 +363,63 @@ def _prepare_mla(params, cfg, scheme: str):
     return mlalib.attach_absorbed_tree(params, cfg.mla_config())
 
 
+def parse_mesh(spec: str):
+    """'' -> None; 'DPxMP' (e.g. '2x2') -> (dp, mp)."""
+    if not spec:
+        return None
+    try:
+        dp, mp = (int(x) for x in spec.lower().replace(",", "x").split("x"))
+    except ValueError:
+        raise SystemExit(f"--mesh expects 'DPxMP' (e.g. '2x2'), got {spec!r}")
+    if dp < 1 or mp < 1:
+        raise SystemExit(f"--mesh {spec}: sizes must be >= 1")
+    return dp, mp
+
+
+def _mesh_refusals(args) -> List[str]:
+    """The options a mesh serve does not run in the port (ROADMAP.md)."""
+    asked = {"--paged (the contiguous path)": not args.paged,
+             "--engine async": args.engine != "sync",
+             "--spec-k": args.spec_k != 0, "--serve": args.serve,
+             "--prefill-chunk 0": args.prefill_chunk == 0}
+    return [k for k, v in asked.items() if v]
+
+
+def _serve_rank(mesh, args) -> dict:
+    """One rank of ``--mesh``: its shards of the weights, its engine, the
+    synthetic requests; rank 0 prints.  Returns the engine summary."""
+    log = print if mesh.rank == 0 else (lambda *a, **k: None)
+    cfg = configs.smoke(args.arch) if args.smoke else configs.full(args.arch)
+    from ..weights import init_sharded_params
+    params = init_sharded_params(cfg, mesh, args.policy, seed=args.seed)
+    tel = None
+    if mesh.rank == 0 and (args.trace or args.metrics):
+        tel = Telemetry.on(trace=bool(args.trace),
+                           metrics=bool(args.metrics), drift=True)
+    engine = build_engine(
+        cfg, params, batch=args.batch, max_len=args.prompt_len + args.gen,
+        n=args.n, gen=args.gen, block_size=args.block_size,
+        num_blocks=args.num_blocks, impl=args.impl, scheme=args.scheme,
+        platform=args.platform, prefix_cache=not args.no_prefix_cache,
+        prefill_chunk=args.prefill_chunk, admission=args.admission,
+        admission_age_bound=args.admission_age_bound,
+        cache_dtype=args.cache_dtype, temperature=args.temperature,
+        top_k=args.top_k, sample_seed=args.seed, telemetry=tel,
+        device=mesh.device, prefill_impl=args.prefill_impl, mesh=mesh,
+        shard_policy=args.policy)
+    log(f"[serve] mesh {'x'.join(map(str, mesh.shape))} "
+        f"{mesh.axis_names}, policy {args.policy}: max_batch "
+        f"{engine.sched.max_batch}, rank 0 on {mesh.device}")
+    summary = serve_paged(engine, synthetic_requests(
+        cfg, batch=args.batch, prompt_len=args.prompt_len, gen=args.gen,
+        n=args.n, seed=args.seed), log=log)
+    if tel is not None:
+        report_telemetry(tel, engine, trace_path=args.trace,
+                         metrics_path=args.metrics)
+    return {k: v for k, v in summary.items()
+            if isinstance(v, (int, float, str, dict))}
+
+
 def main(argv: Optional[List[str]] = None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -417,8 +493,23 @@ def main(argv: Optional[List[str]] = None):
                     help="frontend bind host (with --serve)")
     ap.add_argument("--port", type=int, default=8000,
                     help="frontend bind port (with --serve)")
+    ap.add_argument("--mesh", default="",
+                    help="'DPxMP' (e.g. '2x2' = data x model): serve over "
+                         "that many ranks, spawned here (needs --paged)")
+    ap.add_argument("--policy", default="serve", choices=SHARD_MODES[1:],
+                    help="weight-sharding rules under --mesh "
+                         "(nn.sharding.make_rules mode)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
+    shape = parse_mesh(args.mesh)
+    if shape is not None:
+        refused = _mesh_refusals(args)
+        if refused:
+            raise NotImplementedError(
+                f"{refused} under --mesh: not ported to repro_torch yet "
+                f"(see ROADMAP.md, queue 1)")
+        from .mesh import launch
+        return launch(_serve_rank, shape, args=(args,), device=args.device)
     # the contiguous path decodes greedily and has no telemetry hooks
     paged_only = {"--cache-dtype": args.cache_dtype != "bf16",
                   "--n": args.n != 1,

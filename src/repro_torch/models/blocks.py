@@ -17,7 +17,10 @@ ignore ``impl``; 'prefill' also returns the decode state: MLA's latent
 cache, the others' KV cache, a recurrent layer's state), 'decode'
 (contiguous when ``ctx.lengths`` is None, else paged, MLA only) and
 'prefill_chunk' (paged, MLA only).  Contiguous decode updates every
-cache and state in place.
+cache and state in place.  The paged modes also run sharded over a
+(data, model) mesh (``Ctx.shard``): this DP shard's rows, heads and the
+FFN's hidden dim and experts split over 'model' (``core.mla``,
+``models.moe``, ``nn.layers.mlp``).
 """
 from __future__ import annotations
 
@@ -66,6 +69,7 @@ class Ctx:
     block_tables: Any = None        # (B, max_blocks) int32 — paged
     lengths: Any = None             # (B,) int32 — paged, ragged
     n_valid: Any = None             # (B,) int32 — chunked prefill only
+    shard: Any = None               # nn.sharding.Shard under a mesh
 
 
 def _check_mixer(desc: Sub) -> None:
@@ -238,11 +242,12 @@ def _mla_mixer(params, cfg: ModelConfig, desc: Sub, h, ctx: Ctx):
     if ctx.mode == "decode":
         return mlalib.mla_decode_paged(
             params, cfg.mla_config(), h, ctx.cache, ctx.block_tables,
-            ctx.lengths, scheme=ctx.scheme, impl=_MLA_IMPL[ctx.impl])
+            ctx.lengths, scheme=ctx.scheme, impl=_MLA_IMPL[ctx.impl],
+            shard=ctx.shard)
     return mlalib.mla_prefill_chunk_paged(
         params, cfg.mla_config(), h, ctx.cache, ctx.block_tables,
         ctx.lengths, ctx.n_valid, scheme=ctx.scheme,
-        impl=_MLA_IMPL[ctx.impl])
+        impl=_MLA_IMPL[ctx.impl], shard=ctx.shard)
 
 
 def _recurrent_mixer(params, cfg: ModelConfig, desc: Sub, h, ctx: Ctx):
@@ -275,6 +280,10 @@ def sub_apply(params, cfg: ModelConfig, desc: Sub, x, ctx: Ctx):
     if ctx.mode == "decode" and ctx.lengths is not None and not mla:
         raise NotImplementedError(
             "paged decode requires MLA attention sublayers")
+    if ctx.shard is not None and ctx.lengths is None:
+        raise NotImplementedError(
+            f"mode {ctx.mode!r} under a mesh: only the paged MLA steps "
+            f"are sharded in the port (ROADMAP.md)")
     h = nl.rmsnorm(params["ln1"], x, cfg.norm_eps)
     if mla:
         a, pool = _mla_mixer(params["attn"], cfg, desc, h, ctx)
@@ -289,8 +298,8 @@ def sub_apply(params, cfg: ModelConfig, desc: Sub, x, ctx: Ctx):
     if desc.ffn != "none":
         h = nl.rmsnorm(params["ln2"], x, cfg.norm_eps)
         if desc.ffn == "moe":
-            f, aux = moelib.moe_apply(params["ffn"], cfg, h)
+            f, aux = moelib.moe_apply(params["ffn"], cfg, h, shard=ctx.shard)
         else:
-            f = nl.mlp(params["ffn"], h, kind=cfg.mlp_kind)
+            f = nl.mlp(params["ffn"], h, kind=cfg.mlp_kind, shard=ctx.shard)
         x = x + f
     return x, pool, aux

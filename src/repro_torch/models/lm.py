@@ -137,7 +137,12 @@ def _run_stack(params, cfg: ModelConfig, x, ctx: Ctx, pools=None):
     for descs, path, keys, remat in segments:
         if not descs:
             continue
-        args = (descs, node(params, *path), node(pools, *path), keys)
+        p_node = node(params, *path)
+        if ctx.shard is not None:
+            # this rank's weights with their 'data' parts gathered, one
+            # node of layers at a time
+            p_node = ctx.shard.local(p_node, node(ctx.shard.axes, *path))
+        args = (descs, p_node, node(pools, *path), keys)
         if remat:
             x, *aux = checkpoint(run, *args, x, use_reentrant=False)
         else:
@@ -146,11 +151,18 @@ def _run_stack(params, cfg: ModelConfig, x, ctx: Ctx, pools=None):
     return x, pools, aux_sum
 
 
-def _embed(params, cfg: ModelConfig, tokens, dtype, embeds=None):
+def _embed(params, cfg: ModelConfig, tokens, dtype, embeds=None,
+           shard=None):
     """Token embeddings in ``dtype`` (times sqrt(d_model), rounded to
     ``dtype``, for gemma-style configs), after the (B, P, D) modality
-    prefix ``embeds`` if given (a VLM's patch embeddings)."""
-    x = nl.embed(params["embed"], tokens, dtype)
+    prefix ``embeds`` if given (a VLM's patch embeddings).  Under a mesh
+    (``shard``) the rows of this DP shard, ``params["embed"]`` this
+    rank's table with its 'data' part gathered (:func:`_local_embed`)."""
+    if shard is None:
+        x = nl.embed(params["embed"], tokens, dtype)
+    else:
+        x = nl.embed(params["embed"], shard.local_rows(tokens), dtype,
+                     shard=shard)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dtype)
     if embeds is not None:
@@ -158,9 +170,21 @@ def _embed(params, cfg: ModelConfig, tokens, dtype, embeds=None):
     return x
 
 
-def _logits(params, cfg: ModelConfig, x):
+def _logits(params, cfg: ModelConfig, x, shard=None):
+    """The head.  Under a mesh (``shard``) x is this DP shard's rows and
+    every rank gets the whole batch's full-vocab rows
+    (``nn.layers.unembed``)."""
     x = nl.rmsnorm(params["ln_f"], x, cfg.norm_eps)
-    return nl.unembed(params["embed"], x)
+    return nl.unembed(params["embed"], x, shard=shard)
+
+
+def _local_embed(params, shard):
+    """``params`` with the (tied) table's 'data' part gathered, once a
+    step for the embedding and the head (a no-op without a mesh)."""
+    if shard is None:
+        return params
+    return {**params, "embed": shard.local(params["embed"],
+                                           shard.axes["embed"])}
 
 
 def forward(params, cfg: ModelConfig, tokens, *, embeds=None,
@@ -230,7 +254,7 @@ def decode_step_contiguous(params, cfg: ModelConfig, token, cache,
 def prefill_chunk_paged(params, cfg: ModelConfig, tokens, pool,
                         block_tables, lengths, n_valid, *,
                         compute_dtype=torch.bfloat16, impl: str = "ref",
-                        scheme: str = "seq"):
+                        scheme: str = "seq", shard=None):
     """One batched prefill CHUNK straight into the paged pool.
 
     tokens: (B, C) int — row b holds its request's next ``n_valid[b]``
@@ -238,14 +262,24 @@ def prefill_chunk_paged(params, cfg: ModelConfig, tokens, pool,
     Returns (logits (B, V) of each row's last valid position, pool) — the
     logits matter only for the chunk that finishes a request's prompt.
     ``impl`` 'kernel' runs the chunk attention in the paged prefill kernel;
-    'ref' on the gathered block-table view."""
+    'ref' on the gathered block-table view.
+
+    ``shard`` (an ``nn.sharding.Shard``, ``runtime.steps.make_shard``):
+    run as this rank's part of the step sharded over its mesh by its
+    policy.  Every rank passes the whole batch's inputs, ``params``
+    holding its shards (``weights.shard_params``) and ``pool`` its
+    replica; it computes its DP shard's rows and its heads, writes every
+    row's latents into its replica and returns the whole batch's
+    logits."""
+    params = _local_embed(params, shard)
     x, pool = _chunk_paged_hidden(params, cfg, tokens, pool, block_tables,
                                   lengths, n_valid,
                                   compute_dtype=compute_dtype, impl=impl,
-                                  scheme=scheme)
-    last = torch.clamp(n_valid.long() - 1, min=0)
+                                  scheme=scheme, shard=shard)
+    nv = n_valid if shard is None else shard.local_rows(n_valid)
+    last = torch.clamp(nv.long() - 1, min=0)
     h = x[torch.arange(x.shape[0], device=x.device), last]
-    return _logits(params, cfg, h), pool
+    return _logits(params, cfg, h, shard), pool
 
 
 def verify_chunk_paged(params, cfg: ModelConfig, tokens, pool,
@@ -271,28 +305,32 @@ def verify_chunk_paged(params, cfg: ModelConfig, tokens, pool,
 
 def _chunk_paged_hidden(params, cfg: ModelConfig, tokens, pool,
                         block_tables, lengths, n_valid, *, compute_dtype,
-                        impl, scheme):
+                        impl, scheme, shard=None):
     """Shared body of prefill_chunk_paged / verify_chunk_paged: one (B, C)
     chunk through the stack against the paged pool; returns the pre-norm
-    hidden states (B, C, D) and the pool."""
-    x = _embed(params, cfg, tokens, compute_dtype)
+    hidden states (B, C, D) — this DP shard's rows under a mesh — and the
+    pool."""
+    x = _embed(params, cfg, tokens, compute_dtype, shard=shard)
     ctx = Ctx(mode="prefill_chunk", impl=impl, scheme=scheme,
-              block_tables=block_tables, lengths=lengths, n_valid=n_valid)
+              block_tables=block_tables, lengths=lengths, n_valid=n_valid,
+              shard=shard)
     x, pool, _ = _run_stack(params, cfg, x, ctx, pool)
     return x, pool
 
 
 def decode_step(params, cfg: ModelConfig, token, pool, block_tables,
                 lengths, *, compute_dtype=torch.bfloat16, impl: str = "ref",
-                scheme: str = "seq"):
+                scheme: str = "seq", shard=None):
     """Paged continuous-batching decode: token (B,), ``lengths`` (B,)
     int32 ragged per-request cache lengths, ``block_tables`` (B, nb).
-    Returns (logits (B, V), pool)."""
-    x = _embed(params, cfg, token, compute_dtype)
+    Returns (logits (B, V), pool).  ``shard`` as for
+    :func:`prefill_chunk_paged`."""
+    params = _local_embed(params, shard)
+    x = _embed(params, cfg, token, compute_dtype, shard=shard)
     ctx = Ctx(mode="decode", impl=impl, scheme=scheme,
-              block_tables=block_tables, lengths=lengths)
+              block_tables=block_tables, lengths=lengths, shard=shard)
     x, pool, _ = _run_stack(params, cfg, x, ctx, pool)
-    return _logits(params, cfg, x), pool
+    return _logits(params, cfg, x, shard), pool
 
 
 def init_cache(cfg: ModelConfig, batch: int, capacity: int,

@@ -13,6 +13,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from . import collectives as coll
 from .module import P
 
 # ---------------------------------------------------------------- dense ----
@@ -44,13 +45,19 @@ def rmsnorm_defs(dim: int, ax: Optional[str] = None):
     return {"scale": P((dim,), (ax,), init="ones")}
 
 
-def rmsnorm(params, x, eps: float = 1e-6):
-    """RMS norm with the statistics and the scale applied in f32."""
+def rmsnorm(params, x, eps: float = 1e-6, cols: Optional[int] = None):
+    """RMS norm with the statistics and the scale applied in f32.  With
+    ``cols``, the columns cols .. cols + len(scale) - 1 of the normed
+    rows (the statistics are the whole row's): a rank's part of a
+    sharded dim, ``params`` holding its part of the scale."""
     dtype = x.dtype
     x = x.float()
     var = torch.mean(x * x, dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
-    return (x * params["scale"].float()).to(dtype)
+    scale = params["scale"].float()
+    if cols is not None:
+        x = x[..., cols:cols + scale.shape[0]]
+    return (x * scale).to(dtype)
 
 
 def layernorm_defs(dim: int, ax: Optional[str] = None):
@@ -75,13 +82,35 @@ def embed_defs(vocab: int, dim: int):
     return {"table": P((vocab, dim), ("vocab", "embed"), init="embed", scale=0.02)}
 
 
-def embed(params, ids, compute_dtype=torch.bfloat16):
-    return params["table"][ids].to(compute_dtype)
+def embed(params, ids, compute_dtype=torch.bfloat16, shard=None):
+    """Rows of the table for ``ids``.  Under a mesh whose rules split the
+    vocab over 'model' (``shard``, an ``nn.sharding.Shard``), each rank
+    holds a slice of the vocab: it looks up the ids in its slice, leaves
+    zeros for the others, and the rows are summed over 'model' (exact:
+    each row comes from one rank)."""
+    table = params["table"]
+    if shard is None or not shard.splits("vocab"):
+        return table[ids].to(compute_dtype)
+    n = table.shape[0]
+    local = ids - shard.part("vocab", n)
+    mine = (local >= 0) & (local < n)
+    x = table[local.clamp(0, n - 1)].to(compute_dtype)
+    x = torch.where(mine[..., None], x, torch.zeros((), dtype=x.dtype))
+    return shard.reduce(x, "vocab")
 
 
-def unembed(params, x):
-    """Logits projection with the (tied) embedding table."""
-    return x @ params["table"].to(x.dtype).T
+def unembed(params, x, shard=None):
+    """Logits projection with the (tied) embedding table.  Under a mesh
+    (``shard``) x holds this DP shard's rows: the logits are gathered
+    over 'model' (the vocab, where the rules split it) and over 'data'
+    (the rows) in one collective, and every rank gets the whole batch's
+    full rows."""
+    logits = x @ params["table"].to(x.dtype).T
+    if shard is None:
+        return logits
+    dims = {"data": 0, "model": -1} if shard.splits("vocab") \
+        else {"data": 0}
+    return coll.all_gather_blocks(logits, shard.mesh, dims)
 
 
 # ------------------------------------------------------------------ RoPE ---
@@ -121,15 +150,33 @@ def mlp_defs(d_model: int, d_ff: int, kind: str = "swiglu", bias: bool = False):
             "wo": dense_defs(d_ff, d_model, "mlp", "embed", bias=bias)}
 
 
-def mlp(params, x, kind: str = "swiglu"):
+def mlp(params, x, kind: str = "swiglu", shard=None):
+    """Under a mesh (``shard``) whose rules split the hidden dim ('mlp')
+    over 'model', ``wi`` is column- and ``wo`` row-parallel: the partial
+    outputs are summed before ``wo``'s bias is added.  Where they put it
+    on 'data' as well ('serve_2dtp'), the weights stay resident: every DP
+    shard's rows are gathered, each rank runs its part of the hidden dim
+    on all of them, the sum runs over both axes and each rank keeps its
+    own rows."""
+    wide = shard is not None and shard.spans("mlp")
+    if wide:
+        x = shard.gather_rows(x)
+    bias = None
     if kind == "swiglu":
         wi = params["wi"].to(x.dtype)
         h = (x @ wi.reshape(wi.shape[0], -1)).unflatten(-1, wi.shape[1:])
         h = F.silu(h[..., 0, :]) * h[..., 1, :]
-        return h @ params["wo"].to(x.dtype)
-    h = dense(params["wi"], x)
-    h = F.gelu(h, approximate="tanh")
-    return dense(params["wo"], h)
+        y = h @ params["wo"].to(x.dtype)
+    else:
+        h = F.gelu(dense(params["wi"], x), approximate="tanh")
+        if shard is None:
+            return dense(params["wo"], h)
+        y, bias = h @ params["wo"]["w"], params["wo"].get("b")
+    if shard is not None:
+        y = shard.reduce(y, "mlp")
+    if wide:
+        y = shard.local_rows(y)
+    return y if bias is None else y + bias.to(y.dtype)
 
 
 # -------------------------------------------------- causal depthwise conv ---

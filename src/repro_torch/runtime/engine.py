@@ -80,8 +80,24 @@ around ``device_step`` and each verify around ``verify``, both ending in
 a device synchronize — dispatch to ready in the async engine — and each
 admitted batch's prefill, priced on ``platform``), the step-time and
 pool histograms, and the prefix cache's and scheduler's instants.  Off
-(the default) each site costs one attribute check.  Meshes are not
-ported yet: asking for one raises ``NotImplementedError`` (ROADMAP.md).
+(the default) each site costs one attribute check.
+
+``mesh=`` (a ``launch.mesh.Mesh``: this process is one rank of a
+(data, model) world, ``launch.mesh.launch``) serves sharded by
+``shard_policy`` ('serve' | 'serve_2dtp' | 'dp' | 'tp', as in
+``nn.sharding.make_rules``): ``max_batch`` is padded to a multiple of the
+DP size; each rank keeps its shards of the weights
+(``steps.commit_params``) and a whole replica of the pool, runs its DP
+shard's batch rows and its heads (K1 / K2 at H / mp heads), gathers the
+new latent rows of every DP shard and writes them all, in one order, so
+the replicas stay bitwise equal.  The host side (scheduler, prefix
+cache, block tables, admission, preemption) runs the same on every rank.
+Tokens are sampled from the gathered full-vocab logits with the same
+key stream, and rank 0's are broadcast, so the streams cannot fork.  A
+mesh runs eagerly (``cuda_graphs`` None means False: gloo collectives
+cannot be captured); graphs, ``spec_k > 0``, a per-request prefill and
+the async engine under a mesh raise ``NotImplementedError``
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -101,13 +117,15 @@ from ..kernels.mla_decode import mla_decode_paged_kernel
 from ..kernels.mla_prefill import mla_prefill_paged_kernel
 from ..models.blocks import IMPLS
 from ..models.common import ModelConfig
+from ..nn import collectives as coll
 from ..obs import OFF_TELEMETRY, Telemetry
 from ..obs.trace import PID_ENGINE
 from .graphs import StepGraph
 from .loop import drive
 from . import spec as speclib
 from .scheduler import ContinuousScheduler, Request, blocks_for
-from .steps import (make_paged_sample_step, make_prefill_step,
+from .steps import (_dp_size, attach_absorbed_sharded, commit_params,
+                    make_paged_sample_step, make_shard, make_prefill_step,
                     make_verify_step, sample_tokens, sample_window,
                     scatter_prefill_to_paged)
 
@@ -194,7 +212,7 @@ class PagedMLAEngine:
                  prefill_impl: Optional[str] = None,
                  temperature: float = 0.0, top_k: int = 0,
                  sample_seed: int = 0,
-                 mesh=None, spec_k: int = 0,
+                 mesh=None, shard_policy: str = "serve", spec_k: int = 0,
                  draft_cfg: Optional[ModelConfig] = None,
                  draft_params=None,
                  cache_dtype: str = "bf16",
@@ -206,6 +224,15 @@ class PagedMLAEngine:
                  cuda_graphs: Optional[bool] = None):
         if cfg.attn_kind != "mla":
             raise NotImplementedError("PagedMLAEngine requires an MLA model")
+        if mesh is not None:
+            if cuda_graphs:
+                raise _not_ported("CUDA graphs of the mesh steps")
+            if spec_k:
+                raise _not_ported("speculative decoding under a mesh")
+            if prefill_mode != "chunked":
+                raise _not_ported("the per-request (contiguous) prefill "
+                                  "under a mesh")
+            cuda_graphs = False
         if scheme == "auto" and platform is None:
             raise ValueError("scheme='auto' needs a PlatformPoint")
         if scheme not in ("auto",) + mlalib.SCHEMES:
@@ -249,11 +276,17 @@ class PagedMLAEngine:
             if draft_cfg.attn_kind != "mla":
                 raise NotImplementedError("drafts must be MLA models "
                                           "(they share the paged runtime)")
-        if mesh is not None:
-            raise _not_ported("mesh serving")
         self.cfg = cfg
         self.mla = cfg.mla_config()
-        self.device = torch.device(device)
+        self.mesh = mesh
+        # this rank's part of the sharded steps (None on one device)
+        self.shard = make_shard(mesh, cfg, shard_policy)
+        self.device = torch.device(device) if mesh is None else mesh.device
+        # DP shards: the batch rows (tokens, tables, lengths) split over
+        # 'data'; pad the slots to a multiple (the extra slots are empty
+        # slots until admitted into)
+        self._dp = 1 if mesh is None else _dp_size(mesh)
+        max_batch = -(-max_batch // self._dp) * self._dp
         if cuda_graphs is None:
             cuda_graphs = self.device.type == "cuda"
         if cuda_graphs and self.device.type != "cuda":
@@ -263,8 +296,14 @@ class PagedMLAEngine:
         # 'ru' streams the precomputed absorbed weights; attach them once
         # so every scheme sees the same param tree.  A fixed non-ru scheme
         # never reads them — skip the compute and memory.
-        self.params = mlalib.attach_absorbed_tree(params, self.mla) \
-            if scheme in ("auto", "ru") else params
+        if mesh is None:
+            self.params = mlalib.attach_absorbed_tree(params, self.mla) \
+                if scheme in ("auto", "ru") else params
+        else:
+            self.params = commit_params(params, cfg, mesh, shard_policy)
+            if scheme in ("auto", "ru"):
+                self.params = attach_absorbed_sharded(self.params, cfg,
+                                                      self.shard)
         self.compute_dtype = compute_dtype
         self.cache_dtype = cache_dtype
         self.impl = impl
@@ -340,7 +379,7 @@ class PagedMLAEngine:
         if self.tel.drift is not None and not self.tel.drift.active \
                 and platform is not None:
             self.tel.drift.bind(mla=self.mla, platform=platform,
-                                paged_block=block_size,
+                                paged_block=block_size, dp_shards=self._dp,
                                 cache_dtype=cache_dtype)
         if self.tel.enabled:
             self.sched.prefix.tel = self.tel
@@ -426,6 +465,7 @@ class PagedMLAEngine:
         its input buffers.  It holds the params and the pool, not the
         engine, so a graph of it dies with the engine."""
         cfg, params, pool = self._model(kind)
+        shard = self.shard
         kw = dict(compute_dtype=self.compute_dtype, scheme=scheme)
         sample_kw = dict(temperature=self.temperature, top_k=self.top_k,
                          sample_seed=self._sample_seed)
@@ -444,7 +484,7 @@ class PagedMLAEngine:
             def chunk(tokens, block_table, lengths, n_valid):
                 logits, _ = models.prefill_chunk_paged(
                     params, cfg, tokens, pool, block_table, lengths,
-                    n_valid, impl=chunk_impl, **kw)
+                    n_valid, impl=chunk_impl, shard=shard, **kw)
                 return logits
             return chunk
         impl = self.impl
@@ -452,7 +492,7 @@ class PagedMLAEngine:
             def decode(token, block_table, lengths):
                 logits, _ = models.decode_step(params, cfg, token, pool,
                                                block_table, lengths,
-                                               impl=impl, **kw)
+                                               impl=impl, shard=shard, **kw)
                 return logits
             return decode
         # 'sample' (the async engine's tick) and 'draft' (the draft's
@@ -552,8 +592,8 @@ class PagedMLAEngine:
             return self.scheme
         s = auto_dispatch(self.mla, self.platform, cache_len=cache_len,
                           batch=max(len(active), 1),
-                          paged_block=self.block_size, verify_k=verify_k,
-                          cache_dtype=self.cache_dtype)
+                          paged_block=self.block_size, dp_shards=self._dp,
+                          verify_k=verify_k, cache_dtype=self.cache_dtype)
         if self._last_scheme is not None and s != self._last_scheme:
             self.stats.scheme_switches += 1
         self._last_scheme = s
@@ -573,7 +613,9 @@ class PagedMLAEngine:
         position) with position = the prompt length plus the tokens the
         request holds — the absolute index of the sampled token, which
         recompute preemption replays unchanged (the replayed prompt grows
-        by exactly the generated tokens)."""
+        by exactly the generated tokens).  Under a mesh every rank holds
+        the same gathered rows and samples them; rank 0's tokens are
+        broadcast, so no rank's stream can fork from the others'."""
         rids = poss = None
         if self.temperature > 0.0:
             reqs = [self.sched.slots[s] for s in slots]
@@ -582,7 +624,10 @@ class PagedMLAEngine:
                                          for r in reqs], np.int64))
         toks = sample_tokens(rows, rids, poss, temperature=self.temperature,
                              top_k=self.top_k,
-                             sample_seed=self._sample_seed).cpu().numpy()
+                             sample_seed=self._sample_seed)
+        if self.mesh is not None:
+            toks = coll.broadcast(toks.contiguous(), self.mesh, src=0)
+        toks = toks.cpu().numpy()
         return {s: int(toks[i]) for i, s in enumerate(slots)}
 
     def _sync_device(self) -> None:
@@ -1051,6 +1096,8 @@ class AsyncPagedMLAEngine(PagedMLAEngine):
     _decode_kind = "sample"
 
     def __init__(self, *args, **kwargs):
+        if kwargs.get("mesh") is not None:
+            raise _not_ported("the async engine under a mesh")
         super().__init__(*args, **kwargs)
         dec = self._inputs["decode"]
         B = dec["token"].shape[0]

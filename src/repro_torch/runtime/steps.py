@@ -1,7 +1,8 @@
-"""Step builders (port of the single-device half of
-``repro.runtime.steps``): the causal-LM loss and the training step, the
-contiguous serving steps, and the per-request prefill handoff into the
-paged pool.
+"""Step builders (port of ``repro.runtime.steps``: its single-device
+half and the layouts of its sharded paged serving): the causal-LM loss
+and the training step, the contiguous serving steps, the per-request
+prefill handoff into the paged pool, and the specs of the paged steps'
+params and pool under a mesh.
 
     lm_loss(params, cfg, tokens, labels, ...)  -> (loss, metrics)
     make_train_step(cfg, opt_cfg, ts)          -> step(params, opt_state,
@@ -23,6 +24,18 @@ paged pool.
     sample_tokens(logits, rids, poss, ...)     -> (B,) token ids
     sample_window(logits, rids, poss, ...)     -> (B, C) token ids
     sample_scores(logits, rids, poss, ...)     -> (B, V) perturbed scores
+    cache_pspecs(pool, rules, paged=True)      -> spec tree (replicated)
+    paged_param_shardings(params, cfg, mesh, rules)
+                                               -> spec tree of params
+    commit_params(params, cfg, mesh, policy)   -> this rank's shards
+    make_shard(mesh, cfg, policy)              -> nn.sharding.Shard
+    attach_absorbed_sharded(params, cfg, shard)
+                                               -> + this rank's w_absorb
+
+The paged steps themselves (``models.prefill_chunk_paged`` /
+``decode_step``, the reference's ``make_chunked_prefill_step`` /
+``make_paged_serve_step``) run sharded when given ``shard=``, the
+``Shard`` of the mesh and the policy.
 
 The training step takes gradients with ``torch.autograd.grad`` over the
 plain param tree and applies the in-place AdamW of ``optim.adamw``: it
@@ -43,6 +56,8 @@ from .. import models
 from ..core import cache as cachelib
 from ..models.common import ModelConfig
 from ..nn import layers as nl
+from ..nn import module as nnm
+from ..nn import sharding as shd
 from ..optim import AdamWConfig, adamw_update
 from ..optim.adamw import tree_leaves, tree_map
 from . import prng
@@ -368,3 +383,106 @@ def sample_window(logits, rids, poss, *, temperature: float, top_k: int = 0,
                          temperature=temperature, top_k=top_k,
                          sample_seed=sample_seed)
     return flat.reshape(B, C)
+
+
+# ------------------------------------------------- paged serving, mesh ----
+
+
+def cache_pspecs(cache_tree, rules, *, paged: bool = False):
+    """Spec tree of a decode cache.  ``paged``: the tree is a PAGED
+    latent block pool, whose leaves (num_blocks, block_size, D) have no
+    batch dim to shard.  It replicates over 'model' (head shards re-read
+    the same compact pool: the MQA structure of absorbed MLA) AND over
+    the DP axes, because per-request block tables map any slot to any
+    pool block — a DP shard of the batch may read or write anywhere in
+    the pool.  What DP buys is per-device traffic, not capacity.  The
+    contiguous caches' specs (batch over DP, the cache's seq dim for
+    distributed flash-decode) belong to the contiguous path under a
+    mesh, which is not ported (ROADMAP.md)."""
+    if not paged:
+        raise NotImplementedError(
+            "contiguous caches under a mesh are not ported to repro_torch "
+            "yet (see ROADMAP.md, queue 1)")
+    return tree_map(lambda _: (), cache_tree)
+
+
+def _dp_size(mesh) -> int:
+    n = 1
+    for a in ("pod", "data"):
+        n *= mesh.size(a)
+    return n
+
+
+def make_shard(mesh, cfg: ModelConfig, policy: str = "serve"):
+    """The ``nn.sharding.Shard`` of ``cfg``'s paged steps over ``mesh``
+    under ``policy``, which the engine builds once and hands to
+    ``models.decode_step`` / ``prefill_chunk_paged`` as ``shard=``; None
+    without a mesh."""
+    if mesh is None:
+        return None
+    axes = nnm.map_defs(lambda _, p: p.axes, models.model_defs(cfg))
+    return shd.Shard(mesh, policy, cfg, axes)
+
+
+def _absorbed_def(cfg: ModelConfig) -> nnm.P:
+    """The P of an attached ``w_absorb`` (H, D_ql, D_kvl): heads split
+    like the factors it absorbs."""
+    return nnm.P((cfg.n_heads, cfg.q_lora_rank, cfg.kv_lora_rank),
+                 ("heads", None, None))
+
+
+def _graft(defs, params, absorbed: nnm.P):
+    """The P tree matching ``params``' actual structure: defs-declared
+    leaves take their def, attached ``w_absorb`` leaves ``absorbed``."""
+    if isinstance(params, dict):
+        return {k: absorbed if k == "w_absorb" else _graft(defs[k], v,
+                                                           absorbed)
+                for k, v in params.items()}
+    if isinstance(params, list):
+        return [_graft(d, v, absorbed) for d, v in zip(defs, params)]
+    return defs
+
+
+def paged_param_defs(params, cfg: ModelConfig):
+    """P tree of ``params`` (the engine attaches ``w_absorb`` leaves that
+    ``model_defs`` does not declare)."""
+    return _graft(models.model_defs(cfg), params, _absorbed_def(cfg))
+
+
+def paged_param_shardings(params, cfg: ModelConfig, mesh, rules):
+    """Spec tree matching ``params``' actual structure: defs-declared
+    weights take their rule spec, absorbed leaves shard over heads
+    ('model') like the factors they absorb."""
+    return shd.param_specs(paged_param_defs(params, cfg), rules)
+
+
+def commit_params(params, cfg: ModelConfig, mesh, policy: str = "serve"):
+    """This rank's shard of every leaf of a (possibly absorb-carrying)
+    param tree under ``policy``'s layout, on the mesh's device: the
+    reference commits the tree to its shardings once, so that the steps
+    never reshard.  ``weights.shard_params``."""
+    from ..weights import shard_params
+    return shard_params(params, cfg, mesh, policy)
+
+
+def attach_absorbed_sharded(params, cfg: ModelConfig, shard):
+    """``core.mla.attach_absorbed_tree`` for a tree of this rank's shards
+    (``shard``: :func:`make_shard`): each MLA sublayer's ``w_absorb`` for
+    this rank's heads, whole over the q lora dim, from factors whose
+    'data' parts ('q_lora' under 'serve_2dtp') are gathered once here."""
+    from ..core import mla as mlalib
+    mcfg = cfg.mla_config()
+
+    def visit(node, axes):
+        if isinstance(node, dict):
+            if "w_uq" in node and "w_uk" in node:
+                full = shard.local({k: node[k] for k in ("w_uq", "w_uk")},
+                                   axes, logical=("q_lora",))
+                absorb = mlalib.absorb_qk(full, mcfg)
+                return {**node, "w_absorb": absorb.to(node["w_uq"].dtype)}
+            return {k: visit(v, axes[k]) for k, v in node.items()}
+        if isinstance(node, list):
+            return [visit(v, a) for v, a in zip(node, axes)]
+        return node
+
+    return visit(params, shard.axes)

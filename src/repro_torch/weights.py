@@ -10,7 +10,9 @@ each list's leaves per layer, checks every shape, and puts the result on
 ``device``.  With it the two
 packages compute the same function in the parity tests.
 :func:`opt_state_from_jax` carries a JAX AdamW state {step, mu, nu}
-across the same way.
+across the same way.  :func:`shard_params` keeps one rank's shards of a
+tree under a mesh's sharding policy; ``nn.sharding.gather_tensor``
+recovers each full leaf from the ranks' shards.
 """
 from __future__ import annotations
 
@@ -21,6 +23,8 @@ import torch
 
 from .models import model_defs
 from .models.common import ModelConfig
+from .nn import module as nnm
+from .nn import sharding as shd
 from .nn.module import P
 
 
@@ -71,3 +75,63 @@ def opt_state_from_jax(state: Dict[str, Any], cfg: ModelConfig, *,
                                  dtype=torch.int32, device=device),
             "mu": from_jax_params(state["mu"], cfg, device=device),
             "nu": from_jax_params(state["nu"], cfg, device=device)}
+
+
+def local_shape(shape, entries, mesh):
+    """The shape of one rank's shard of a ``shape`` tensor under the spec
+    ``entries``."""
+    out = []
+    for n, entry in zip(shape, entries):
+        k = 1
+        for a in shd._names(entry, mesh):
+            k *= mesh.size(a)
+        out.append(n // k)
+    return tuple(out)
+
+
+def shard_params(params, cfg: ModelConfig, mesh, policy: str = "serve"):
+    """This rank's shard of every leaf of ``params`` (``cfg``'s tree, with
+    or without attached ``w_absorb`` leaves) under the sharding rules of
+    ``policy`` over ``mesh`` (``nn.sharding.make_rules``), moved to the
+    mesh's device.  A leaf that already has its shard's shape is kept as
+    it is, so a rank may build its shards itself, leaf by leaf."""
+    from .runtime.steps import paged_param_defs
+    rules = shd.make_rules(mesh, mode=policy, cfg=cfg)
+
+    def take(t, p: P, path: str):
+        entries = shd.spec(p.axes, rules)
+        if tuple(t.shape) == tuple(p.shape):
+            t = shd.shard_tensor(t, entries, mesh)
+        elif tuple(t.shape) != local_shape(p.shape, entries, mesh):
+            raise ValueError(f"{path}: shape {tuple(t.shape)} is neither "
+                             f"{p.shape} nor its shard's")
+        return t.to(mesh.device)
+
+    def walk(node, defs, path):
+        if isinstance(defs, P):
+            return take(node, defs, path)
+        if isinstance(node, dict):
+            return {k: walk(v, defs[k], f"{path}/{k}")
+                    for k, v in node.items()}
+        return [walk(v, d, f"{path}[{i}]")
+                for i, (v, d) in enumerate(zip(node, defs))]
+
+    return walk(params, paged_param_defs(params, cfg), "")
+
+
+def init_sharded_params(cfg: ModelConfig, mesh, policy: str = "serve", *,
+                        seed: int, dtype=torch.float32):
+    """This rank's shards of ``nnm.init_params(model_defs(cfg), seed=seed,
+    dtype=dtype, device=mesh.device)``, drawn leaf by leaf: each full
+    leaf is drawn from the same generator walk (so its bits are
+    init_params') and only this rank's shard is kept, so at most one full
+    leaf lives at a time."""
+    rules = shd.make_rules(mesh, mode=policy, cfg=cfg)
+    gen = torch.Generator(device=mesh.device)
+    gen.manual_seed(seed)
+
+    def draw(_, p: P):
+        full = nnm._init_one(p, gen, dtype, mesh.device)
+        return shd.shard_tensor(full, shd.spec(p.axes, rules), mesh)
+
+    return nnm.map_defs(draw, model_defs(cfg))

@@ -4,9 +4,11 @@ and under its own deadline (SIGALRM): ``quickstart``'s four schemes emit
 identical tokens; ``train_mla`` passes the reference example's loss check
 (final loss < 0.9 ln(vocab)), checkpoints and resumes; ``serve_mla``
 serves its request stream, preempts on a tiny pool, gives the same
-tokens on the async engine and refuses ``--mesh``; its docstring
-documents every flag it defines, as ``scripts/check_docs.py`` requires of
-the reference's example.
+tokens on the async engine and refuses ``--mesh`` with what a mesh does
+not run yet (``--spec-k``, the async engine: its mesh serving runs in
+``tests/test_torch_mesh.py``'s worlds); its docstring documents every
+flag it defines, as ``scripts/check_docs.py`` requires of the
+reference's example.
 """
 import importlib.util
 import math
@@ -98,9 +100,12 @@ def test_serve_mla_forks_and_cold_flags(capsys):
 
 
 def test_serve_mla_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="mesh serving"):
-        serve_mla.main(["--mesh", "2x2", "--requests", "2", "--device",
-                        "cpu"])
+    """``--mesh`` serves; with speculative decoding or the async engine
+    it raises before it spawns a rank, naming ROADMAP.md."""
+    for extra in (["--spec-k", "2"], ["--engine", "async"]):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            serve_mla.main(["--mesh", "2x2", "--requests", "2", "--device",
+                            "cpu"] + extra)
 
 
 def test_serve_mla_docstring_documents_its_own_flags():

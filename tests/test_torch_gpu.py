@@ -26,7 +26,8 @@ the 'chunked' impl's block-pair walk agrees with the flash kernels.
 K4, K5 and K6 run without a mask at whisper's lengths (1,500 keys, 23
 tiles of 64 and 28 more, against off-tile query lengths), and the
 whisper smoke model gives the same greedy tokens and gradients on the
-kernel path as on the dense one.
+kernel path as on the dense one.  Two ranks sharing the card (a (1, 2)
+mesh over gloo) serve the f32 smoke model with the single card's tokens.
 
 Every test here is marked ``gpu`` and skips without a CUDA device (the
 kernels have no CPU mode); on a machine with one:
@@ -1624,3 +1625,61 @@ def test_example_prints_ok_on_card(name, tmp_path, capsys):
     mod.main(["--ckpt-dir", str(tmp_path)] if name == "train_mla" else [])
     assert [x for x in capsys.readouterr().out.splitlines()
             if x.startswith("OK")]
+
+
+def _two_ranks(mesh):
+    """One rank of ``test_mesh_of_two_ranks_on_the_card``: its 'tp'
+    shards of the f32 smoke model drawn from the seed, an eager serve
+    with impl 'kernel'; returns its tokens, K1 / K2 launches, the
+    layers x ticks / chunks they must equal, and its pool's bytes."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.kernels import mla_decode, mla_prefill
+    from repro_torch.launch.serve import build_engine, synthetic_requests
+    from repro_torch.weights import init_sharded_params
+
+    cfg = configs.smoke("deepseek-v2-236b")
+    cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    params = init_sharded_params(cfg, mesh, "tp", seed=4)
+    eng = build_engine(cfg, params, batch=4, max_len=48 + 8, gen=8,
+                       impl="kernel", scheme="auto", prefill_chunk=8,
+                       device=mesh.device, mesh=mesh, shard_policy="tp")
+    mla_decode.mla_decode_paged_kernel.launches = 0
+    mla_prefill.mla_prefill_paged_kernel.launches = 0
+    eng.run(synthetic_requests(cfg, batch=4, prompt_len=48, gen=8, seed=4))
+    ticks = sum(eng.stats.schemes_used.values())
+    pool = torch.cat([t.reshape(-1).view(torch.uint8).cpu() for t in
+                      tcache.pool_leaves(eng.pool)])
+    return ({r.rid: list(map(int, r.output)) for r in eng.sched.finished},
+            (mla_decode.mla_decode_paged_kernel.launches,
+             mla_prefill.mla_prefill_paged_kernel.launches),
+            (cfg.n_layers * ticks, cfg.n_layers * eng.stats.prefill_chunks),
+            pool)
+
+
+def test_mesh_of_two_ranks_on_the_card():
+    """A (1, 2) mesh of two ranks sharing the card (gloo, the
+    collectives on CUDA tensors), heads and experts split over 'model':
+    the single card's greedy tokens (f32 smoke, drop-free capacity),
+    K1 / K2 = layers x ticks / chunks a rank, pool replicas bitwise
+    equal."""
+    import dataclasses
+    from repro_torch import configs, models
+    from repro_torch.launch.mesh import launch
+    from repro_torch.launch.serve import build_engine, synthetic_requests
+    from repro_torch.nn import module as nnm
+
+    _cuda()
+    cfg = configs.smoke("deepseek-v2-236b")
+    cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    params = nnm.init_params(models.model_defs(cfg), seed=4, device="cuda")
+    eng = build_engine(cfg, params, batch=4, max_len=48 + 8, gen=8,
+                       impl="kernel", scheme="auto", prefill_chunk=8,
+                       device="cuda")
+    eng.run(synthetic_requests(cfg, batch=4, prompt_len=48, gen=8, seed=4))
+    want = {r.rid: list(map(int, r.output)) for r in eng.sched.finished}
+    ranks = launch(_two_ranks, (1, 2), device="cuda")
+    for tokens, launches, expected, _ in ranks:
+        assert tokens == want
+        assert launches == expected
+    assert torch.equal(ranks[0][3], ranks[1][3])

@@ -252,15 +252,19 @@ def test_engine_tokens_and_logits_match_jax(models_pair, num_blocks, cancel):
 
 
 def test_engine_rejects_what_is_not_ported(models_pair):
-    """Meshes raise; sampling knobs that differ from the engine's raise
-    ValueError, as in the reference (seeded sampling, telemetry and
-    speculative decoding are ported: tests/test_torch_sampling.py,
-    tests/test_torch_obs.py, tests/test_torch_spec.py)."""
+    """What a mesh does not run yet raises, naming ROADMAP.md: CUDA
+    graphs and speculative decoding under a mesh (mesh serving itself is
+    ported: tests/test_torch_mesh.py); sampling knobs that differ from
+    the engine's raise ValueError, as in the reference (seeded sampling,
+    telemetry and speculative decoding are ported:
+    tests/test_torch_sampling.py, tests/test_torch_obs.py,
+    tests/test_torch_spec.py)."""
     _, tcfg, _, tp = models_pair
     kw = dict(num_blocks=8, block_size=4, max_batch=2, scheme="seq",
               device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TEngine(tcfg, tp, **kw, mesh=object())
+    for refused in (dict(cuda_graphs=True), dict(spec_k=2)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TEngine(tcfg, tp, **kw, mesh=object(), **refused)
     with pytest.raises(ValueError):
         TEngine(tcfg, tp, **dict(kw, scheme="auto"))      # no platform
     eng = TEngine(tcfg, tp, **kw)                         # greedy
